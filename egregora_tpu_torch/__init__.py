@@ -1,0 +1,8 @@
+"""egregora_tpu_torch: the PyTorch/CUDA port of ``egregora_tpu``.
+
+Imports torch and numpy, never JAX, flax or ``egregora_tpu``.
+Entry points run on the card (``device="cuda"``) unless the caller asks
+for the CPU; each hand-written kernel (``csrc/``) has a plain PyTorch
+version that runs for CPU tensors.  The first slice is the full-config
+FlashSR pipeline: ``models.flashsr.pipeline.FlashSRPipeline``.
+"""

@@ -1,0 +1,118 @@
+"""AudioBuffer: the port's audio container, on torch tensors.
+
+Counterpart of ``egregora_tpu/core/audio.py``.  Samples are ``[C, S]``
+float32, channels first, as a torch tensor on any device or as host
+numpy (so the dispatch edge can choose the transfer format); an
+``int16`` tensor is the pcm16 wire output of ``FlashSRPipeline.process``
+and ``numpy()`` dequantizes it.
+
+Shape coercion follows the reference node pack:
+
+* ``normalize_cn``: squeeze, 1-D -> [1, N], 2-D with more rows than
+  columns -> transpose, >2-D -> longest axis last, the rest folded into
+  channels;
+* ``to_cs``: the ``[S, C]`` detection heuristic (``w <= 8 and h > w``)
+  plus a peak clamp to <= 1.0.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Union
+
+import numpy as np
+import torch
+
+ArrayLike = Union[np.ndarray, torch.Tensor, list, tuple]
+
+_PCM16_SCALE = 32767.0
+
+
+def _to_numpy(x: Any) -> np.ndarray:
+    if isinstance(x, np.ndarray):
+        return x
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
+def normalize_cn(arr: ArrayLike) -> np.ndarray:
+    """Coerce arbitrary shapes to channels-first ``[C, N]`` float32."""
+    a = np.squeeze(np.asarray(_to_numpy(arr)))
+    if a.ndim == 0:
+        a = a.reshape(1, 1)
+    elif a.ndim == 1:
+        a = a[None, :]
+    elif a.ndim == 2:
+        if a.shape[0] > a.shape[1]:
+            a = a.T
+    else:
+        a = np.moveaxis(a, int(np.argmax(a.shape)), -1)
+        a = a.reshape(int(np.prod(a.shape[:-1])), a.shape[-1])
+    return np.ascontiguousarray(a, dtype=np.float32)
+
+
+def to_cs(arr: ArrayLike, clamp_peak: bool = True) -> np.ndarray:
+    """``[S] | [S,C] | [C,S]`` -> ``[C,S]`` float32, with optional peak clamp."""
+    a = np.asarray(_to_numpy(arr), dtype=np.float32)
+    if a.ndim == 1:
+        a = a[None, :]
+    elif a.ndim == 2:
+        h, w = a.shape
+        if w <= 8 and h > w:  # frames-first (soundfile) -> channels-first
+            a = a.T
+    else:
+        a = a.reshape(-1)[None, :]
+    if clamp_peak and a.size:
+        m = float(np.max(np.abs(a)))
+        if m > 1.0:
+            a = a / (m + 1e-8)
+    return np.ascontiguousarray(a, dtype=np.float32)
+
+
+def pcm16_encode(x: ArrayLike) -> np.ndarray:
+    """float32 [-1, 1] -> int16 (clipping outside the PCM range)."""
+    a = np.asarray(_to_numpy(x), dtype=np.float32)
+    return np.rint(np.clip(a, -1.0, 1.0) * _PCM16_SCALE).astype(np.int16)
+
+
+def pcm16_decode(x: ArrayLike) -> np.ndarray:
+    """int16 -> float32 in [-1, 1] (inverse of ``pcm16_encode``)."""
+    return np.asarray(_to_numpy(x), dtype=np.float32) / _PCM16_SCALE
+
+
+@dataclasses.dataclass
+class AudioBuffer:
+    """Audio ``samples`` [C, S] + sample rate + metadata."""
+
+    samples: Union[torch.Tensor, np.ndarray]
+    sample_rate: int
+    meta: Dict[str, Any] = dataclasses.field(default_factory=dict)
+
+    @property
+    def channels(self) -> int:
+        return int(self.samples.shape[0])
+
+    @property
+    def num_samples(self) -> int:
+        return int(self.samples.shape[-1])
+
+    def numpy(self) -> np.ndarray:
+        a = _to_numpy(self.samples)
+        if a.dtype == np.int16:          # pcm16 wire output
+            dec = pcm16_decode(a)
+            # outputs above full scale ride the wire divided by
+            # meta["wire_scale"] = max(1, peak); multiply back here
+            scale = self.meta.get("wire_scale")
+            if scale is not None:
+                s = float(_to_numpy(scale))
+                if s != 1.0:
+                    dec = dec * np.float32(s)
+            return dec
+        return a
+
+    def to_comfy(self) -> Dict[str, Any]:
+        """The reference node contract: waveform [1, C, T] + sample_rate."""
+        s = self.numpy().astype(np.float32)
+        return {"waveform": s[None, ...], "sample_rate": int(self.sample_rate),
+                "sr": int(self.sample_rate), "samples": s, "meta": dict(self.meta)}
+

@@ -1,0 +1,286 @@
+"""FlashSR end-to-end pipeline in PyTorch: chunked, batched, on one card.
+
+Counterpart of ``egregora_tpu/models/flashsr/pipeline.py`` for the full
+config (``LDMUNet``, ``MelVAE`` with mid attention and quant convs, the
+HiFi-GAN ``SRVocoder``):
+
+  resample to 48 kHz -> chunk (5.12 s window / 0.5 s overlap) -> log-mel
+  -> VAE encode -> one-step UNet (LR latent ++ a seeded noise latent)
+  -> VAE decode -> vocoder -> adaptive crossover merge with the input's
+  observed band -> Hann WOLA stitch -> resample out.
+
+All chunks run as one batch (``max_batch=None``) or stream through
+fixed-size batches folded into running overlap-add sums.  Every
+attention of the path goes through ``ops.attention.mha``: 13 calls per
+chunk batch (5 + 6 in the UNet, 2 in the VAE), each one launch of the
+``attn_rows`` kernel on the card.
+"""
+from __future__ import annotations
+
+import dataclasses
+import os
+from typing import Dict, Optional, Union
+
+import numpy as np
+import torch
+
+from ...core.audio import AudioBuffer, pcm16_encode
+from ...ops.fir import fir_same
+from ...ops.resample import resample, resampled_length
+from ...ops.stft import device_tensor, istft_dense, stft_conv
+from ...ops.wola import (chunk_batch, num_chunks, wola_accumulate_dense,
+                         wola_finalize, wola_stitch)
+from . import prng
+from .layers import seeded_init_
+from .ldm_unet import LDMUNet, LDMUNetConfig
+from .mel import (HOP, SAMPLE_RATE, _reflect_pad, envelope_gain, log_mel,
+                  mel_band_peaks, mel_envelope_match, mel_filterbank)
+from .vae import MelVAE, VAEConfig
+from .vocoder import SRVocoder, VocoderConfig
+
+REQ_SR = SAMPLE_RATE                  # 48000
+CHUNK_S = 5.12
+OVERLAP_S = 0.50
+CHUNK_SAMPLES = int(REQ_SR * CHUNK_S)  # 245760
+HOP_SAMPLES = int((CHUNK_S - OVERLAP_S) * REQ_SR)  # 221760
+MEL_FRAMES = CHUNK_SAMPLES // HOP      # 512 frames per chunk
+
+
+@dataclasses.dataclass(frozen=True)
+class FlashSRConfig:
+    vae: VAEConfig = VAEConfig()
+    unet: LDMUNetConfig = LDMUNetConfig()
+    vocoder: VocoderConfig = VocoderConfig()
+    crossover_hz: float = 11000.0   # low-band preservation crossover
+    noise_seed: int = 0             # deterministic one-step noise latent
+    # re-impose the predicted mel envelope on the vocoder output before
+    # the merge: False, True (per-band gain) or "replace"
+    envelope_match: object = False
+    # lower the merge point per item to the input's detected bandwidth
+    adaptive_crossover: bool = True
+
+
+class FlashSRModules:
+    """The three sub-models (the three reference checkpoints)."""
+
+    NAMES = ("vae", "student_ldm", "sr_vocoder")
+
+    def __init__(self, cfg: FlashSRConfig = FlashSRConfig()):
+        if not isinstance(cfg.unet, LDMUNetConfig):
+            raise NotImplementedError(
+                f"unet config {type(cfg.unet).__name__} is not ported yet "
+                "(the port runs the full-config LDMUNet)")
+        self.cfg = cfg
+        self.vae = MelVAE(cfg.vae)
+        self.unet = LDMUNet(cfg.unet)
+        self.vocoder = SRVocoder(cfg.vocoder)
+
+    def all(self):
+        return self.vae, self.unet, self.vocoder
+
+    def by_name(self) -> Dict[str, torch.nn.Module]:
+        return dict(zip(self.NAMES, self.all()))
+
+    def init_params(self, seed: int = 0) -> None:
+        """Seeded random weights in place (flax-like scales), drawn on
+        the CPU so a seed gives the same weights on every device."""
+        gen = torch.Generator().manual_seed(int(seed))
+        for m in self.all():
+            seeded_init_(m, gen)
+
+    def load_state_dicts(self, params: Dict[str, Dict[str, torch.Tensor]]) -> None:
+        """Load ``{"vae": sd, "student_ldm": sd, "sr_vocoder": sd}``
+        (``utils.weights.params_from_jax``'s output), strictly."""
+        for name, mod in self.by_name().items():
+            mod.load_state_dict(params[name], strict=True)
+
+    def to(self, device) -> "FlashSRModules":
+        for m in self.all():
+            m.to(device).eval()
+        return self
+
+
+def lowpass_fir(x: torch.Tensor, sr: int, cutoff_hz: float, taps: int = 255) -> torch.Tensor:
+    """Linear-phase windowed-sinc lowpass along the last axis."""
+    n = np.arange(taps) - (taps - 1) / 2.0
+    wc = cutoff_hz / (sr / 2.0)
+    h = np.sinc(wc * n) * wc * np.hamming(taps)
+    return fir_same(x, (h / h.sum()).astype(np.float32))
+
+
+def _crossover_merge(low_src: torch.Tensor, high_src: torch.Tensor, sr: int,
+                     crossover_hz: float) -> torch.Tensor:
+    """Linear-phase FIR crossover: low band from ``low_src``, high band
+    from ``high_src`` (complementary highpass = x - lowpass(x))."""
+    return (lowpass_fir(low_src, sr, crossover_hz)
+            + high_src - lowpass_fir(high_src, sr, crossover_hz))
+
+
+def _bandwidth_mask_vs_pred(rl: torch.Tensor, il: torch.Tensor, log_mel_pred: torch.Tensor,
+                            sr: int, max_hz: float, n_fft: int,
+                            delta: float = 2.0) -> torch.Tensor:
+    """Low-band weight ``[..., 1, bins]``: a sigmoid step (4 bins wide) at
+    the merge edge, the peak of the highest mel band whose observed level
+    reaches the model's predicted level (within ``delta`` nats), at most
+    ``max_hz``; ``max_hz`` when no band does (an input far below the
+    prediction everywhere keeps the fixed crossover)."""
+    n_mels = log_mel_pred.shape[-1]
+    dev = str(rl.device)
+    mag = torch.sqrt(rl * rl + il * il + 1e-20)
+    fb = device_tensor(mel_filterbank, sr, n_fft, n_mels, device=dev)
+    in_band = torch.log(torch.clamp(mag @ fb, min=1e-5)).mean(dim=-2)
+    active = in_band > log_mel_pred.mean(dim=-2) - delta
+    peaks = device_tensor(mel_band_peaks, sr, n_fft, n_mels, device=dev)
+    edge = torch.where(active, peaks, torch.zeros_like(peaks)).amax(dim=-1, keepdim=True)
+    edge = torch.where(active.any(dim=-1, keepdim=True), edge, torch.full_like(edge, max_hz))
+    cut = torch.clamp(edge, max=max_hz) / (sr / n_fft)
+    bins = torch.arange(n_fft // 2 + 1, dtype=torch.float32, device=rl.device)
+    return torch.sigmoid((cut - bins) / 4.0)[..., None, :]
+
+
+class FlashSRPipeline:
+    """Chunk forward + orchestration of a whole file, on ``device``."""
+
+    def __init__(self, cfg: FlashSRConfig = FlashSRConfig(),
+                 params: Optional[Dict[str, Dict[str, torch.Tensor]]] = None,
+                 seed: int = 0, device: Union[str, torch.device] = "cuda"):
+        self.cfg = cfg
+        self.device = torch.device(device)
+        self.modules = FlashSRModules(cfg)
+        if params is None:
+            self.modules.init_params(seed)
+        else:
+            self.modules.load_state_dicts(params)
+        self.modules.to(self.device)
+        self._noise: Dict[tuple, torch.Tensor] = {}
+
+    def _noise_latent(self, shape) -> torch.Tensor:
+        """``jax.random.normal(PRNGKey(noise_seed), (1,) + shape)``: one
+        noise map broadcast over the batch, so results do not depend on
+        how chunks are batched."""
+        key = tuple(shape)
+        if key not in self._noise:
+            self._noise[key] = torch.from_numpy(
+                prng.normal(self.cfg.noise_seed, (1,) + key)).to(self.device)
+        return self._noise[key]
+
+    @torch.inference_mode()
+    def synthesize(self, x: torch.Tensor):
+        """The model stages of a chunk batch ``[B, CHUNK_SAMPLES]`` (float32
+        on the pipeline's device): ``(mel_hr [B, 512, n_mels], wav [B,
+        CHUNK_SAMPLES])``, the decoded mel and the vocoder's wave."""
+        mods = self.modules
+        mel = log_mel(x)[:, :MEL_FRAMES, :]
+        z_lr = mods.vae.encode(mel[..., None])
+        noise = self._noise_latent(z_lr.shape[1:]).expand_as(z_lr)
+        z_in = torch.cat([noise, z_lr], dim=-1)
+        z_hr = mods.unet(z_in, torch.ones(z_in.shape[0], device=self.device))
+        mel_hr = mods.vae.decode(z_hr)[..., 0]
+        return mel_hr, mods.vocoder(mel_hr)[:, :CHUNK_SAMPLES]
+
+    @torch.inference_mode()
+    def chunk_forward(self, chunks: torch.Tensor, lowpass_input: bool = False) -> torch.Tensor:
+        """``[B, CHUNK_SAMPLES] @48k -> [B, CHUNK_SAMPLES] @48k`` float32."""
+        x = chunks.to(self.device, torch.float32)
+        if lowpass_input:
+            x = lowpass_fir(x, REQ_SR, self.cfg.crossover_hz)
+        mel_hr, wav = self.synthesize(x)
+        return self._postprocess(x, wav, mel_hr).float()
+
+    def _postprocess(self, x: torch.Tensor, wav: torch.Tensor,
+                     mel_hr: torch.Tensor) -> torch.Tensor:
+        """Envelope projection + low-band crossover merge, sharing one
+        STFT analysis/synthesis pass when the crossover is adaptive."""
+        cfg = self.cfg
+        replace = cfg.envelope_match == "replace"
+        if not cfg.adaptive_crossover:
+            if cfg.envelope_match:
+                wav = mel_envelope_match(wav, mel_hr, replace=replace)
+            return _crossover_merge(x, wav, REQ_SR, cfg.crossover_hz)
+        n_fft, hop = 2048, 512
+        t = x.shape[-1]
+        pad = n_fft // 2
+        rl, il = stft_conv(_reflect_pad(x, pad), n_fft, hop)
+        rh, ih = stft_conv(_reflect_pad(wav, pad), n_fft, hop)
+        if cfg.envelope_match:
+            g = envelope_gain(rh, ih, mel_hr, sr=REQ_SR, n_fft=n_fft, hop=hop,
+                              replace=replace)
+            rh, ih = rh * g, ih * g
+        w = _bandwidth_mask_vs_pred(rl, il, mel_hr, REQ_SR, cfg.crossover_hz, n_fft)
+        y = istft_dense(rl * w + rh * (1.0 - w), il * w + ih * (1.0 - w), n_fft, hop)
+        return y[..., pad: pad + t]
+
+    # ---- full-file processing ----
+    @torch.inference_mode()
+    def process(self, audio: AudioBuffer, lowpass_input: bool = False,
+                output_sr: int = 48000, pad_to_multiple: int = 1,
+                max_batch: Optional[int] = None, wire: str = "auto") -> AudioBuffer:
+        """The reference node flow on the card.
+
+        ``max_batch`` bounds device memory for long inputs: fixed-size
+        chunk batches stream through the forward and fold into running
+        Hann-weighted sums; None runs every chunk in one batch.
+
+        ``wire``: host<->device transfer format of the one-shot path.
+        "pcm16" moves int16 samples both ways (2 bytes a sample, -90 dBFS
+        quantisation floor), dividing peaks above full scale down by
+        ``max(1, peak)`` and recording the output's factor in
+        ``meta["wire_scale"]``; the returned buffer then holds int16
+        samples that ``AudioBuffer.numpy()`` dequantizes.  "auto" takes
+        pcm16 when the samples are host numpy and the pipeline runs on
+        the card (``EGREGORA_WIRE=f32`` turns it off); "f32" never."""
+        in_sr = int(audio.sample_rate)
+        out_sr = int(output_sr)
+        total48 = resampled_length(audio.samples.shape[-1], in_sr, REQ_SR)
+        k = -(-num_chunks(total48, CHUNK_SAMPLES, HOP_SAMPLES) // pad_to_multiple) * pad_to_multiple
+        if max_batch is not None and k > max_batch:
+            return self._process_streaming(audio, lowpass_input, out_sr,
+                                           pad_to_multiple, int(max_batch))
+
+        env_f32 = os.environ.get("EGREGORA_WIRE", "").lower() == "f32"
+        use_wire = wire == "pcm16" or (
+            wire == "auto" and not env_f32 and isinstance(audio.samples, np.ndarray)
+            and self.device.type != "cpu")
+        meta = dict(audio.meta)
+        if use_wire:
+            xs = np.asarray(audio.samples, dtype=np.float32)
+            in_scale = max(1.0, float(np.max(np.abs(xs))) if xs.size else 1.0)
+            q = torch.from_numpy(pcm16_encode(xs / np.float32(in_scale))).to(self.device)
+            x = q.float() * np.float32(in_scale / 32767.0)
+        else:
+            x = torch.as_tensor(audio.samples).to(self.device, torch.float32)
+        x = resample(x, in_sr, REQ_SR)
+        c, total = x.shape
+        chunks, starts, lengths = chunk_batch(x, CHUNK_SAMPLES, HOP_SAMPLES,
+                                              pad_to_multiple=pad_to_multiple)
+        preds = self.chunk_forward(chunks.reshape(-1, CHUNK_SAMPLES),
+                                   lowpass_input=lowpass_input)
+        out = wola_stitch(preds.reshape(chunks.shape), starts, lengths, total, CHUNK_SAMPLES)
+        out = resample(out, REQ_SR, out_sr)
+        if use_wire:
+            scale = torch.clamp(out.abs().max(), min=1.0)
+            out = torch.round(torch.clamp(out / scale, -1.0, 1.0) * 32767.0).to(torch.int16)
+            meta["wire"] = "pcm16"
+            meta["wire_scale"] = scale
+        return AudioBuffer(out, out_sr, meta)
+
+    def _process_streaming(self, audio: AudioBuffer, lowpass_input: bool, out_sr: int,
+                           pad_to_multiple: int, b: int) -> AudioBuffer:
+        """Fixed-size batches of ``b`` chunks folded into running dense
+        OLA accumulators: O(batch) activations, O(total) accumulators."""
+        x = torch.as_tensor(audio.samples).to(self.device, torch.float32)
+        x = resample(x, int(audio.sample_rate), REQ_SR)
+        c, total = x.shape
+        chunks, _, lengths = chunk_batch(x, CHUNK_SAMPLES, HOP_SAMPLES,
+                                         pad_to_multiple=int(np.lcm(pad_to_multiple, b)))
+        k = chunks.shape[0]               # a multiple of b; starts = i*hop
+        alloc = (k + 1) * HOP_SAMPLES
+        acc = torch.zeros(c, alloc, device=self.device)
+        wsum = torch.zeros(alloc, device=self.device)
+        for s0 in range(0, k, b):
+            pred = self.chunk_forward(chunks[s0: s0 + b].reshape(-1, CHUNK_SAMPLES),
+                                      lowpass_input=lowpass_input)
+            wola_accumulate_dense(pred.reshape(b, c, CHUNK_SAMPLES), lengths[s0: s0 + b],
+                                  HOP_SAMPLES, acc, wsum, s0 * HOP_SAMPLES)
+        out = wola_finalize(acc[:, :total], wsum[:total])
+        return AudioBuffer(resample(out, REQ_SR, out_sr), out_sr, dict(audio.meta))

@@ -1,0 +1,96 @@
+"""JAX's default PRNG in numpy: threefry2x32 and ``jax.random.normal``.
+
+``FlashSRPipeline.chunk_forward`` draws its one-step noise latent as
+``jax.random.normal(jax.random.PRNGKey(noise_seed), shape, float32)``.
+No torch generator yields those numbers, so the draw is reproduced here
+bit for bit: the threefry2x32 block cipher (20 rounds, Salmon et al.
+2011), JAX's partitionable bit scheme (one cipher call per element,
+counter = the element's row-major index as a (hi, lo) pair of 32-bit
+words, bits = out_hi ^ out_lo), the mantissa-fill uniform draw on
+``[nextafter(-1, 0), 1)``, and ``sqrt(2) * erfinv(u)`` with XLA's f32
+erfinv (Giles' single-precision polynomial).
+"""
+from __future__ import annotations
+
+import numpy as np
+
+_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+
+
+def _rotl(x: np.ndarray, r: int) -> np.ndarray:
+    return (x << np.uint32(r)) | (x >> np.uint32(32 - r))
+
+
+def threefry2x32(key: np.ndarray, x0: np.ndarray, x1: np.ndarray):
+    """Threefry-2x32 with 20 rounds: ``key [2] uint32``, counters
+    ``x0, x1`` uint32 arrays -> two uint32 arrays of the same shape."""
+    k0, k1 = np.uint32(key[0]), np.uint32(key[1])
+    ks = (k0, k1, np.uint32(k0 ^ k1 ^ np.uint32(0x1BD11BDA)))
+    x0 = x0.astype(np.uint32) + ks[0]
+    x1 = x1.astype(np.uint32) + ks[1]
+    for i in range(5):
+        for r in _ROTATIONS[i % 2]:
+            x0 = x0 + x1
+            x1 = _rotl(x1, r) ^ x0
+        x0 = x0 + ks[(i + 1) % 3]
+        x1 = x1 + ks[(i + 2) % 3] + np.uint32(i + 1)
+    return x0, x1
+
+
+def prng_key(seed: int) -> np.ndarray:
+    """``jax.random.PRNGKey(seed)`` for the threefry2x32 implementation
+    (JAX's default 32-bit mode: seeds in ``[0, 2**32)``)."""
+    seed = int(seed)
+    if not 0 <= seed < 2 ** 32:
+        raise ValueError(f"prng_key: seed must be in [0, 2**32), got {seed}")
+    return np.array([0, seed], np.uint32)
+
+
+def random_bits(key: np.ndarray, shape) -> np.ndarray:
+    """32-bit draws, ``jax_threefry_partitionable=True`` scheme."""
+    n = int(np.prod(shape, dtype=np.int64))
+    idx = np.arange(n, dtype=np.uint64)
+    hi = (idx >> np.uint64(32)).astype(np.uint32)
+    lo = (idx & np.uint64(0xFFFFFFFF)).astype(np.uint32)
+    with np.errstate(over="ignore"):
+        b0, b1 = threefry2x32(key, hi, lo)
+    return (b0 ^ b1).reshape(shape)
+
+
+def uniform(key: np.ndarray, shape, minval: float, maxval: float) -> np.ndarray:
+    """float32 uniform on ``[minval, maxval)`` from the mantissa bits."""
+    bits = random_bits(key, shape)
+    one = np.array(1.0, np.float32).view(np.uint32)
+    floats = ((bits >> np.uint32(32 - 23)) | one).view(np.float32) - np.float32(1.0)
+    lo, hi = np.float32(minval), np.float32(maxval)
+    return np.maximum(lo, floats * (hi - lo) + lo)
+
+
+_ERFINV_LT5 = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06,
+               -4.39150654e-06, 0.00021858087, -0.00125372503,
+               -0.00417768164, 0.246640727, 1.50140941)
+_ERFINV_GE5 = (-0.000200214257, 0.000100950558, 0.00134934322,
+               -0.00367342844, 0.00573950773, -0.0076224613,
+               0.00943887047, 1.00167406, 2.83297682)
+
+
+def erfinv_f32(x: np.ndarray) -> np.ndarray:
+    """XLA's float32 erfinv (Giles 2010 polynomial, |x| < 1)."""
+    x = x.astype(np.float32)
+    w = -np.log1p(-x * x)
+    lt = w < np.float32(5.0)
+    w = np.where(lt, w - np.float32(2.5), np.sqrt(w) - np.float32(3.0))
+    p = np.where(lt, np.float32(_ERFINV_LT5[0]), np.float32(_ERFINV_GE5[0]))
+    for a, b in zip(_ERFINV_LT5[1:], _ERFINV_GE5[1:]):
+        # c + p*w rounded once, as the fused multiply-add XLA emits
+        c = np.where(lt, np.float32(a), np.float32(b)).astype(np.float64)
+        p = (c + p.astype(np.float64) * w.astype(np.float64)).astype(np.float32)
+    out = p * x
+    return np.where(np.abs(x) == 1.0, x * np.float32(np.inf), out).astype(np.float32)
+
+
+def normal(seed: int, shape) -> np.ndarray:
+    """``jax.random.normal(jax.random.PRNGKey(seed), shape, float32)``."""
+    lo = np.nextafter(np.float32(-1.0), np.float32(0.0))
+    u = uniform(prng_key(seed), tuple(shape), lo, 1.0)
+    return (np.float32(np.sqrt(2)) * erfinv_f32(u)).astype(np.float32)

@@ -1,0 +1,74 @@
+"""Wrapper of the hand-written attention kernel ``csrc/attn_rows.cu``.
+
+The port of ``egregora_tpu/ops/attn_pallas.py::flash_rows``: exact
+softmax attention ``[B*H, N, D] -> [B*H, N, D]`` in bf16.  A CUDA tensor
+goes to the kernel or raises; a CPU tensor goes to the plain version,
+``ops.attention.chunked_attention``, which has flash_rows's math
+(f32 scores scaled after the product, true row max, weights rounded to
+the value dtype, f32 accumulation).
+"""
+from __future__ import annotations
+
+import collections
+import ctypes
+
+import torch
+
+from ..utils import cuda_build
+
+SUPPORTED_D = (32, 64, 256)
+
+# kernel launches since the last reset, in all and by shape (bh, n, d);
+# counted where the kernel launches and nowhere else
+launches = 0
+launches_by_shape: collections.Counter = collections.Counter()
+
+_FN = None
+
+
+def _kernel():
+    global _FN
+    if _FN is None:
+        fn = cuda_build.load("attn_rows").attn_rows_bf16
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [
+            ctypes.c_float, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _FN = fn
+    return _FN
+
+
+def attn_rows(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Exact attention ``[BH, N, D]`` (scale ``D**-0.5``)."""
+    if q.device.type == "cpu":
+        from .attention import chunked_attention
+        return chunked_attention(q, k, v)
+    if q.device.type != "cuda":
+        raise ValueError(f"attn_rows: unsupported device {q.device}")
+    for name, t in (("k", k), ("v", v)):
+        if t.device != q.device or t.shape != q.shape or t.dtype != q.dtype:
+            raise ValueError(f"attn_rows: {name} {tuple(t.shape)} {t.dtype} "
+                             f"{t.device} does not match q {tuple(q.shape)} "
+                             f"{q.dtype} {q.device}")
+    if q.dtype != torch.bfloat16:
+        raise TypeError(f"attn_rows: the kernel takes bfloat16, got {q.dtype}")
+    if q.dim() != 3:
+        raise ValueError(f"attn_rows: expected [BH, N, D], got {tuple(q.shape)}")
+    bh, n, d = q.shape
+    if d not in SUPPORTED_D:
+        raise ValueError(f"attn_rows: head dim {d} not in {SUPPORTED_D}")
+    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
+        raise ValueError("attn_rows: q, k and v must be contiguous")
+    if not 0 < bh <= 65535 or n == 0:
+        raise ValueError(f"attn_rows: unsupported shape {tuple(q.shape)}")
+    o = torch.empty_like(q)
+    fn = _kernel()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                 bh, n, d, float(d) ** -0.5, stream)
+    if err:
+        raise RuntimeError(f"attn_rows: launch failed with cudaError_t {err}")
+    global launches
+    launches += 1
+    launches_by_shape[(bh, n, d)] += 1
+    return o

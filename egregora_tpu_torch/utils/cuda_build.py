@@ -1,0 +1,78 @@
+"""Build the port's CUDA sources with ``nvcc`` and bind them with ctypes.
+
+``csrc/<name>.cu`` compiles at first use into a shared library with a
+plain C interface (no PyTorch headers, so a build takes seconds):
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
+         -Xcompiler -fPIC -o _build/<name>-<hash>.so csrc/<name>.cu
+
+The file name carries a hash of the source and flags, so an edited
+source rebuilds and an unchanged one loads at once.  The compiler writes
+a temporary name that ``os.replace`` moves into place: there is no lock
+file, and a build that is cut off leaves no half-written library.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Dict
+
+PKG = Path(__file__).resolve().parents[1]
+CSRC = PKG / "csrc"
+BUILD_DIR = PKG / "_build"
+FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+         "-shared", "-Xcompiler", "-fPIC")
+
+_LIBS: Dict[str, ctypes.CDLL] = {}
+
+
+def nvcc() -> str:
+    home = os.environ.get("CUDA_HOME")
+    for cand in (home and os.path.join(home, "bin", "nvcc"), shutil.which("nvcc"),
+                 "/usr/local/cuda/bin/nvcc"):
+        if cand and os.path.isfile(cand):
+            return cand
+    raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
+
+
+def library_path(name: str) -> Path:
+    """``_build/<name>-<hash>.so`` for the current source and flags."""
+    h = hashlib.sha256(" ".join(FLAGS).encode())
+    h.update((CSRC / f"{name}.cu").read_bytes())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+
+
+def build(name: str, timeout: float = 600.0) -> Path:
+    """Compile ``csrc/<name>.cu`` unless it is built already; returns the
+    library's path."""
+    path = library_path(name)
+    if path.exists():
+        return path
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = path.with_name(f"{path.name}.tmp{os.getpid()}")
+    cmd = [nvcc(), *FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    try:
+        r = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                           text=True, timeout=timeout)
+    except subprocess.TimeoutExpired:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"CUDA build of {name} timed out after {timeout:.0f} s")
+    if r.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"CUDA build of {name} failed: nvcc exit {r.returncode}\n"
+                           f"{r.stdout}")
+    os.replace(tmp, path)
+    return path
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The ctypes handle of ``csrc/<name>.cu``, built at first use."""
+    lib = _LIBS.get(name)
+    if lib is None:
+        lib = ctypes.CDLL(str(build(name)))
+        _LIBS[name] = lib
+    return lib

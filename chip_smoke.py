@@ -6,34 +6,50 @@ NVIDIA card, from the root of a checkout:
 
 Phases, one line each on standard output:
 
-1. the card's name and power limit (``nvidia-smi``); the build of
-   ``csrc/attn_rows.cu`` with ``nvcc``;
-2. the kernel against its plain PyTorch version on the card, at the
-   shapes the FlashSR main path gives it and at a ragged length, within
-   a relative L2 of 1e-2 and two bf16 ulps of the largest output; a
-   planted fault (the last key tile dropped) must fail those limits; the
-   kernel's, the plain version's and the library call's times;
-3. a reference check: the full config on one chunk in bf16 on the card
-   against float32 arithmetic on the CPU with the same weights (decoded
-   mel, vocoder wave, the output's band above the crossover); the same
-   planted fault must fail those limits;
-4. the full-config FlashSR pipeline at full width (random weights from
-   a seed): a 12 s, 16 kHz test signal (3 chunks) to 48 kHz, one-shot
-   and streaming (``max_batch=2``), with the kernel's launches counted
-   by shape around each run;
-5. a JSON line ``{"kernels": [...]}`` whose times are the per-shape
-   times of phase 2 times the launches phase 4 counted, and, last,
-   ``{"ok": true, ...}``.
+1. the card's name and power limit (``nvidia-smi``); the builds of
+   ``csrc/attn_rows.cu`` and ``csrc/mrf.cu``, one ``nvcc`` each, at once;
+2. each kernel against its plain PyTorch version on the card, at the
+   shapes the main paths give it and at a ragged length, beside planted
+   faults that the limits must reject, with the kernel's, the plain
+   version's and (attention) the library call's or (MRF) the module
+   path's times:
+   - ``attn_rows``: relative L2 1e-2 and two bf16 ulps of the largest
+     output; fault: the last key tile dropped;
+   - ``mrf_fused_cm`` and ``mrf_rows`` (every branch of an MRF block in
+     one launch, or one a launch): relative L2 1e-2 and four bf16 ulps,
+     over the block and over its first and last 120 samples; faults:
+     the per-layer re-zeroing outside the signal skipped, the last
+     dilation's residual dropped;
+3. a reference check of the full config (seeded weights) on one chunk:
+   bf16 on the card against float32 arithmetic on the CPU with the same
+   weights (decoded mel, vocoder wave, the output's band above the
+   crossover); the attention fault must fail its limits;
+4. the ``EgregoraAudioUpscaler`` node on a comfy AUDIO dict (a seeded
+   12 s, 16 kHz signal, 3 chunks, to 48 kHz) with the shipped weights:
+   the HiFi-GAN trio with the fused MRF kernel, the same trio with the
+   rows kernel (``EGREGORA_MRF_PATH=rows``), and the default istft trio;
+   one-shot through ``run`` and streaming (``max_batch=2``), with every
+   kernel's launches counted by shape around each run; the kernels'
+   vocoder wave against the module path's;
+5. the same reference check for one chunk of each shipped trio, with
+   its own planted fault;
+6. the full-config pipeline (seeded weights) one-shot and streaming, with
+   the attention launches counted by shape;
+7. a JSON line ``{"kernels": [...]}`` whose times are the per-shape
+   times of phase 2 times the launches phases 4 and 6 counted, and,
+   last, ``{"ok": true, ...}``.
 
 Any failure exits non-zero and prints no ``"ok"`` line.  With no CUDA
 device it exits non-zero at once.
 """
 from __future__ import annotations
 
+import collections
 import json
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 H100_BF16_FLOPS = 989e12     # dense bf16 tensor-core peak, H100 SXM
 H100_BYTES_PER_S = 3.35e12   # HBM3 rate, H100 SXM
@@ -41,9 +57,22 @@ SECONDS = 12.0               # test signal: 3 chunks of 5.12 s at 48 kHz
 BATCH = 3                    # chunks in the one-shot batch of that signal
 # attention calls of one chunk batch on the main path: (heads, N, D) -> calls
 PATH_CALLS = {(8, 2048, 32): 5, (8, 512, 64): 6, (1, 8192, 256): 2}
+# and in the served trios' StudentUNet: one call, mid block, 4 heads
+SERVED_ATTN = (4, 512, 32)
 RAGGED = [(8, 1000, 32), (8, 1000, 64), (1, 1000, 256)]
 KEY_TILE = 64                # keys per K/V tile of csrc/attn_rows.cu
 ATTN_REL_L2 = 1e-2           # kernel vs plain, relative L2 over the output
+
+
+SOURCES = ("attn_rows", "mrf")   # egregora_tpu_torch/csrc/<name>.cu
+
+
+def timed_build(name: str) -> float:
+    """Seconds to build ``csrc/<name>.cu`` (nvcc)."""
+    from egregora_tpu_torch.utils import cuda_build
+    t = time.perf_counter()
+    cuda_build.build(name)
+    return time.perf_counter() - t
 
 
 def log(msg: str) -> None:
@@ -112,7 +141,7 @@ def attention_phase() -> list:
 
     gen = torch.Generator().manual_seed(0)
     rows = []
-    for heads, n, d in list(PATH_CALLS) + RAGGED:
+    for heads, n, d in list(PATH_CALLS) + [SERVED_ATTN] + RAGGED:
         bh = BATCH * heads
         q, k, v = (torch.randn(bh, n, d, generator=gen).to("cuda", torch.bfloat16)
                    for _ in range(3))
@@ -152,9 +181,10 @@ def attention_phase() -> list:
     return rows
 
 
-def kernels_entry(rows: list, counts: dict, launches: int) -> dict:
-    """The ``kernels`` line's entry: times and bound of the launches the
-    one-shot run made, shape by shape as ``counts`` measured them."""
+def attn_entry(rows: list, counts: dict, by_path: dict) -> dict:
+    """The ``kernels`` line's attn_rows entry: times and bound of the
+    launches the main paths' one-shot runs made, shape by shape as
+    ``counts`` measured them (``by_path``: launches of each run)."""
     by_shape = {(r["bh"], r["n"], r["d"]): r for r in rows}
 
     def total(key):
@@ -168,15 +198,228 @@ def kernels_entry(rows: list, counts: dict, launches: int) -> dict:
         "name": "attn_rows", "route": "cuda",
         "source": "egregora_tpu_torch/csrc/attn_rows.cu",
         "replaces": "egregora_tpu/ops/attn_pallas.py:92",
-        "launches": launches,
+        "launches": sum(counts.values()),
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "ms": total("ms"), "plain_ms": total("plain_ms"),
         "bound_ms": max(ops_ms, byte_ms),
         "bound_by": "operations" if ops_ms >= byte_ms else "bytes",
         "library_ms": total("library_ms"),
         "launches_by_shape": {f"{bh}x{n}x{d}": c for (bh, n, d), c in counts.items()},
+        "launches_by_path": by_path,
         "shapes": rows,
     }
+
+
+def mrf_entry(name: str, rows: list, counts: dict, by_path: dict) -> dict:
+    """The ``kernels`` line's entry of an MRF kernel: ``counts`` maps (b,
+    c, t) to the blocks the main path ran (one launch a block for
+    mrf_fused_cm, one a branch for mrf_rows); times are the measured
+    per-shape times of phase 2 at B = 3 (every counted launch is at B=3);
+    the module path's time is kept beside them, as no single PyTorch call
+    computes an MRF block."""
+    by_shape = {(r["b"], r["c"], r["t"]): r for r in rows if r["entry"] == name}
+    per_block = 1 if name == "mrf_fused_cm" else len(MRF_KERNELS)
+
+    def total(key):
+        return sum(by_shape[s][key] * n / per_block for s, n in counts.items())
+
+    bounds = [mrf_bound_ms(c, t, b, [MRF_KERNELS] if per_block == 1
+                           else [(k,) for k in MRF_KERNELS])[0] * n / per_block
+              for (b, c, t), n in counts.items()]
+    ops = sum(mrf_flops(c, t, b) * n / per_block for (b, c, t), n in counts.items())
+    byte = sum(4.0 * b * c * t * n for (b, c, t), n in counts.items())
+    return {
+        "name": name, "route": "cuda", "source": "egregora_tpu_torch/csrc/mrf.cu",
+        "replaces": ("egregora_tpu/ops/mrf_pallas.py:203" if name == "mrf_fused_cm"
+                     else "egregora_tpu/ops/mrf_rows.py:128"),
+        "launches": sum(counts.values()),
+        "max_abs_err": max(r["max_abs_err"] for r in rows if r["entry"] == name),
+        "ms": total("ms"), "plain_ms": total("plain_ms"),
+        "bound_ms": sum(bounds),
+        "bound_by": ("operations" if ops / H100_BF16_FLOPS >= byte / H100_BYTES_PER_S
+                     else "bytes"),
+        "library_ms": None, "module_path_ms": total("module_ms"),
+        "launches_by_shape": {"x".join(map(str, s)): n for s, n in counts.items()},
+        "launches_by_path": by_path,
+        "shapes": [r for r in rows if r["entry"] == name],
+    }
+
+
+# MRF blocks of the vocoder on the main paths, one-shot (B = 3 chunks):
+# (C, T) -> where.  The served HiFi-GAN trio's three stages and the full
+# config's last stage (the one of C <= 64)
+MRF_SHAPES = {(64, 5120): "HiFi-GAN trio, stage 1", (32, 40960): "HiFi-GAN trio, stage 2",
+              (16, 245760): "HiFi-GAN trio, stage 3", (64, 245760): "full config, stage 3"}
+MRF_RAGGED_T = 5000
+MRF_KERNELS, MRF_DILS = (3, 7, 11), (1, 3, 5)
+MRF_HALO = 60                # per-side reach of the k=11 branch
+# max |d| limits of the MRF checks, in bf16 ulps of max |plain|: each
+# conv rounds its output, so a sum-order flip of one ulp early in a
+# branch's six convs reaches the output as up to two (the sound reading
+# on an H100); the planted faults read 22 ulps and more (PERF.md)
+MRF_ULPS = 4
+
+
+def mrf_flops(c: int, t: int, b: int, kernels=MRF_KERNELS) -> float:
+    """Two FLOPs a multiply-add, 2 convs x 3 dilations a branch."""
+    return sum(2.0 * 2 * len(MRF_DILS) * k * c * c * t * b for k in kernels)
+
+
+def mrf_bound_ms(c: int, t: int, b: int, launches_kernels) -> tuple:
+    """(bound ms, bound_by) of launches each reading its [B, C, T] bf16
+    input once and writing its output once; ``launches_kernels`` lists
+    the branch kernel sizes each launch computes."""
+    ops_s = sum(mrf_flops(c, t, b, ks) for ks in launches_kernels) / H100_BF16_FLOPS
+    byte_s = len(launches_kernels) * 4.0 * b * c * t / H100_BYTES_PER_S
+    return max(ops_s, byte_s) * 1e3, "operations" if ops_s >= byte_s else "bytes"
+
+
+def mrf_module(c: int, seed: int):
+    """A port ``MRF`` at width C in bf16 with seeded weights and biases."""
+    import torch
+
+    from egregora_tpu_torch.models.flashsr.layers import seeded_init_
+    from egregora_tpu_torch.models.flashsr.vocoder import MRF
+    gen = torch.Generator().manual_seed(seed)
+    m = MRF(c, MRF_KERNELS, (MRF_DILS,) * 3, torch.bfloat16)
+    seeded_init_(m, gen)
+    with torch.no_grad():
+        for name, p in m.named_parameters():
+            if name.endswith("bias"):
+                p.copy_(0.1 * torch.randn(p.shape, generator=gen))
+    return m
+
+
+def mrf_planted(x_cm, w, bias, fault: str, round_then_bias: bool):
+    """A planted fault of the MRF block on ``[B, C, T]``, from plain
+    PyTorch: ``"no_rezero"`` runs the chains on the signal zero-extended
+    by the halo without re-zeroing each layer outside [0, T) (what a
+    kernel that skips its per-layer mask computes near the edges);
+    ``"drop_residual"`` leaves the last dilation's residual add out of
+    every branch."""
+    import torch.nn.functional as F
+
+    from egregora_tpu_torch.ops.mrf_fused import _conv, _leaky, branch_weights
+    c, t = x_cm.shape[1], x_cm.shape[2]
+    pad = MRF_HALO if fault == "no_rezero" else 0
+    xe = F.pad(x_cm, (pad, pad))
+    acc = None
+    for bi, wb in enumerate(branch_weights(w, c, MRF_KERNELS, len(MRF_DILS))):
+        h = xe
+        for m, d in enumerate(MRF_DILS):
+            a = _conv(_leaky(h), wb[m, 0], bias[bi, m, 0], d, round_then_bias)
+            a = _conv(_leaky(a), wb[m, 1], bias[bi, m, 1], 1, round_then_bias)
+            if not (fault == "drop_residual" and m == len(MRF_DILS) - 1):
+                h = h + a
+        acc = h if acc is None else acc + h
+    return (acc / len(MRF_KERNELS))[..., pad: pad + t]
+
+
+def mrf_agreement(got, ref):
+    """A bf16 MRF block against its plain version: relative L2 within
+    ``ATTN_REL_L2``, max |d| within ``MRF_ULPS`` bf16 ulps of max |ref|
+    over the whole block and, separately, over the first and last 2*halo
+    samples: an error confined to the edges barely moves a relative L2
+    over 245760 samples.  ``(ok, rel_l2, max |d|, edge max |d|, limit)``."""
+    import math
+    ref_max = float(ref.float().abs().max())
+    limit = MRF_ULPS * 2.0 ** (math.floor(math.log2(ref_max)) - 7) if ref_max > 0 else 0.0
+    d = (got.float() - ref.float()).abs()
+    err, rel = float(d.max()), rel_l2(got.float(), ref.float())
+    e = 2 * MRF_HALO
+    edge = float(max(d[..., :e].max(), d[..., -e:].max()))
+    ok = bool(got.float().isfinite().all()) and rel <= ATTN_REL_L2 and max(err, edge) <= limit
+    return ok, rel, err, edge, limit
+
+
+def mrf_phase() -> list:
+    """Both MRF entry points of ``csrc/mrf.cu`` against their plain
+    versions on the card, at the main paths' shapes and at a ragged T,
+    beside two planted faults that the limits must reject; times of the
+    kernel, the plain version and the module path (``MRF.forward``'s
+    cuDNN convs, the same function with the module's rounding)."""
+    import torch
+
+    from egregora_tpu_torch.ops import mrf_fused as mf
+    from egregora_tpu_torch.ops import mrf_rows as mr
+
+    shapes = list(MRF_SHAPES) + [(c, MRF_RAGGED_T) for c in (16, 32, 64)]
+    rows, failures = [], []
+    for c, t in shapes:
+        m = mrf_module(c, seed=c).to("cuda")
+        w, bias = mf.pack_resblock_weights(m, torch.bfloat16)
+        gen = torch.Generator().manual_seed(t + c)
+        x = (0.5 * torch.randn(BATCH, c, t, generator=gen)).to("cuda", torch.bfloat16)
+        x_rows = x.transpose(1, 2).contiguous()
+        flops = mrf_flops(c, t, BATCH)
+        branch_w = mf.branch_weights(w, c, MRF_KERNELS, len(MRF_DILS))
+        for entry in ("mrf_fused_cm", "mrf_rows"):
+            if entry == "mrf_fused_cm":
+                def run():
+                    return mf.mrf_fused_cm(x, w, bias, MRF_KERNELS, MRF_DILS)
+
+                def plain():
+                    return mf.mrf_fused_cm_plain(x, w, bias, MRF_KERNELS, MRF_DILS)
+                launch_fns = [run]
+                circ, launches_kernels = True, [MRF_KERNELS]
+            else:        # mrf_rows: one mrf_branch_rows launch a branch, then the mean
+                def run():
+                    return mr.mrf_rows(x_rows, w, bias, MRF_KERNELS, MRF_DILS).transpose(1, 2)
+
+                def plain():
+                    acc = None
+                    for bi, wb in enumerate(branch_w):
+                        h = mr.mrf_branch_rows_plain(x_rows, wb, bias[bi], MRF_DILS)
+                        acc = h if acc is None else acc + h
+                    return (acc / len(MRF_KERNELS)).transpose(1, 2)
+                launch_fns = [lambda bi=bi: mr.mrf_branch_rows(x_rows, branch_w[bi], bias[bi],
+                                                               MRF_DILS)
+                              for bi in range(len(MRF_KERNELS))]
+                circ, launches_kernels = False, [(k,) for k in MRF_KERNELS]
+            got = run()
+            torch.cuda.synchronize()
+            ref = plain()
+            ok, rel, err, edge, limit = mrf_agreement(got, ref)
+            planted = {}
+            for fault in ("no_rezero", "drop_residual"):
+                bad = mrf_planted(x, w, bias, fault, round_then_bias=circ)
+                b_ok, b_rel, b_err, b_edge, _ = mrf_agreement(bad, ref)
+                planted[fault] = {"ok": b_ok, "rel_l2": b_rel, "max_abs_err": b_err,
+                                  "edge_max_abs_err": b_edge}
+            reps = max(2, min(20, int(2e11 / flops)))
+            launch_ms = [cuda_ms(fn, reps) for fn in launch_fns]
+            ms = sum(launch_ms)
+            plain_ms = cuda_ms(plain, max(1, reps // 4), 1)
+            module_ms = cuda_ms(lambda: m(x), max(1, reps // 2), 1)
+            bound_ms, bound_by = mrf_bound_ms(c, t, BATCH, launches_kernels)
+            row = {"entry": entry, "b": BATCH, "c": c, "t": t,
+                   "where": MRF_SHAPES.get((c, t), "ragged T"), "max_abs_err": err,
+                   "edge_max_abs_err": edge, "rel_l2": rel, "max_abs_limit": limit,
+                   "planted": planted, "ms": ms, "launch_ms": launch_ms,
+                   "plain_ms": plain_ms,
+                   "module_ms": module_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                   "tflops": flops / ms / 1e9}
+            rows.append(row)
+            rejected = all(not p["ok"] for p in planted.values())
+            log(f"{entry} [{BATCH},{c},{t}] ({row['where']}): vs plain max|d| {err:.3e}, "
+                f"edges {edge:.3e} (limit {limit:.3e}), rel L2 {rel:.3e} (limit "
+                f"{ATTN_REL_L2:g}) {'ok' if ok else 'FAIL'}; planted "
+                + ", ".join(f"{f}: rel L2 {p['rel_l2']:.3e} max|d| {p['max_abs_err']:.3e} "
+                            f"edges {p['edge_max_abs_err']:.3e}" for f, p in planted.items())
+                + f" {'rejected' if rejected else 'NOT REJECTED'}; kernel {ms:.4f} ms "
+                f"({row['tflops']:.1f} TFLOP/s), plain {plain_ms:.4f} ms, module path "
+                f"(cuDNN) {module_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+            if not ok:
+                failures.append(f"{entry} disagrees with its plain version at "
+                                f"[{BATCH},{c},{t}]: rel L2 {rel}, max |d| {err}, edges {edge}")
+            if not rejected:
+                failures.append(f"the MRF limits do not reject a planted fault at "
+                                f"{entry} [{BATCH},{c},{t}]: {planted}")
+            del got, ref
+        del x, x_rows, m
+    if failures:
+        raise RuntimeError("; ".join(failures))
+    return rows
 
 
 def test_signal(seconds: float, sr: int, seed: int):
@@ -257,6 +500,281 @@ def reference_phase() -> None:
             raise RuntimeError(f"the {key} limit does not reject a dropped last key tile")
 
 
+def reset_counts() -> None:
+    """Every kernel's launch counts to 0."""
+    from egregora_tpu_torch.ops import attn_rows as ar
+    from egregora_tpu_torch.ops import mrf_fused as mf
+    from egregora_tpu_torch.ops import mrf_rows as mr
+    for mod in (ar, mf, mr):
+        mod.launches = 0
+        mod.launches_by_shape.clear()
+
+
+def read_counts() -> dict:
+    """Launches since ``reset_counts`` by kernel and shape; mrf_rows's
+    (b, t, c) shapes are given as (b, c, t), as mrf_fused_cm's."""
+    from egregora_tpu_torch.ops import attn_rows as ar
+    from egregora_tpu_torch.ops import mrf_fused as mf
+    from egregora_tpu_torch.ops import mrf_rows as mr
+    return {"attn_rows": dict(ar.launches_by_shape),
+            "mrf_fused_cm": dict(mf.launches_by_shape),
+            "mrf_rows": {(b, c, t): n for (b, t, c), n in mr.launches_by_shape.items()}}
+
+
+def set_env(**values) -> None:
+    """Set (a string) or unset (None) the port's environment switches."""
+    import os
+    for key, val in values.items():
+        if val is None:
+            os.environ.pop(key, None)
+        else:
+            os.environ[key] = val
+
+
+def shipped_trio(name: str):
+    """(config, state dicts) of a shipped trio; a missing file fails."""
+    from egregora_tpu_torch.models.flashsr import distill
+    path = distill.SHIPPED_DIR / name
+    loaded = distill.load_pretrained_with_cfg(path)
+    if loaded is None:
+        raise RuntimeError(f"the shipped weights {path} are missing")
+    return loaded
+
+
+def unscaled_attention(q, k, v):
+    """A planted fault: attention without its D^-1/2 score scale, from
+    the plain version."""
+    from egregora_tpu_torch.ops.attention import chunked_attention
+    return chunked_attention(q * q.shape[-1] ** 0.5, k, v)
+
+
+def planted_mrf(x, w, bias, kernels, dils):
+    """``mrf_fused_cm`` with the last dilation's residual dropped."""
+    return mrf_planted(x, w, bias, "drop_residual", round_then_bias=True)
+
+
+# relative L2 limits of each shipped trio in bf16 on the card (the
+# HiFi-GAN trio through the fused MRF kernel) against float32 arithmetic
+# on the CPU with the card's bf16-rounded weights, one chunk; each lies
+# between the sound reading and the planted fault's (PERF.md, Findings)
+SERVED_REF_LIMITS = {
+    "pretrained.npz": {"mel_hr": 9e-3, "wave": 0.1, "high_band": 0.35},
+    "pretrained_istft.npz": {"mel_hr": 9e-3, "wave": 2.5e-3, "high_band": 3e-2},
+}
+
+
+def served_reference_phase() -> dict:
+    """One chunk of each shipped trio, bf16 on the card against float32
+    arithmetic on the CPU with the same (bf16-rounded) weights: the
+    decoded mel, the vocoder's wave and the output's band above the
+    crossover.  The planted fault, which the limits must reject: the
+    attention without its score scale and, in the HiFi-GAN trio, the
+    fused MRF without its last dilation's residual.  The HiFi-GAN trio's
+    module-path vocoder is read beside it (bf16's own share)."""
+    import dataclasses
+
+    import torch
+
+    from egregora_tpu_torch.models.flashsr import pipeline as P
+    from egregora_tpu_torch.models.flashsr import vocoder as V
+    from egregora_tpu_torch.ops import attention
+
+    x = torch.from_numpy(test_signal(P.CHUNK_S, P.REQ_SR, seed=2)[:, :P.CHUNK_SAMPLES])
+
+    def outputs(pipe):
+        mel, wav = pipe.synthesize(x.to(pipe.device))
+        y = pipe.chunk_forward(x)
+        high = y - P.lowpass_fir(y, P.REQ_SR, pipe.cfg.crossover_hz)
+        return {"mel_hr": mel.float().cpu(), "wave": wav.float().cpu(),
+                "high_band": high.float().cpu()}
+
+    readings, failures = {}, []
+    for name in SERVED_REF_LIMITS:
+        cfg, sd = shipped_trio(name)
+        f32 = dataclasses.replace(cfg, **{k: dataclasses.replace(getattr(cfg, k),
+                                                                 dtype=torch.float32)
+                                          for k in ("vae", "unet", "vocoder")})
+        rounded = {m: {k: v.bfloat16().float() for k, v in d.items()} for m, d in sd.items()}
+        t = time.perf_counter()
+        ref = outputs(P.FlashSRPipeline(f32, params=rounded, device="cpu"))
+        log(f"served reference {name}: one chunk f32 on the CPU {time.perf_counter() - t:.1f} s")
+        card = P.FlashSRPipeline(cfg, params=sd, device="cuda")
+        hifigan = cfg.vocoder.kind == "hifigan"
+        fault = "unscaled attention" + (", MRF residual dropped" if hifigan else "")
+        set_env(EGREGORA_FUSED_VOCODER="1", EGREGORA_MRF_PATH=None)
+        try:
+            sound = outputs(card)
+            real = attention.attn_rows, V.mrf_fused_cm
+            attention.attn_rows = unscaled_attention
+            if hifigan:
+                V.mrf_fused_cm = planted_mrf
+            try:
+                planted = outputs(card)
+            finally:
+                attention.attn_rows, V.mrf_fused_cm = real
+            if hifigan:
+                set_env(EGREGORA_FUSED_VOCODER=None)
+                module = outputs(card)
+                log(f"served reference {name}: the module-path vocoder (cuDNN) in bf16 "
+                    "reads " + ", ".join(f"{key} {rel_l2(module[key], ref[key]):.3e}"
+                                         for key in ref))
+        finally:
+            set_env(EGREGORA_FUSED_VOCODER=None)
+        for key, limit in SERVED_REF_LIMITS[name].items():
+            good, bad = rel_l2(sound[key], ref[key]), rel_l2(planted[key], ref[key])
+            readings[f"{name}:{key}"] = (good, bad)
+            log(f"served reference {name} {key}: bf16 card vs f32 cpu relative L2 {good:.3e} "
+                f"(limit {limit:g}) {'ok' if good <= limit else 'FAIL'}; planted fault "
+                f"({fault}) {bad:.3e} {'rejected' if bad > limit else 'NOT REJECTED'}")
+            if not good <= limit:
+                failures.append(f"{name}: card and CPU disagree on {key}: {good}")
+            if not bad > limit:
+                failures.append(f"{name}: the {key} limit does not reject the planted fault")
+        del card
+    if failures:
+        raise RuntimeError("; ".join(failures))
+    return readings
+
+
+# the node's paths, one-shot on the 12 s input (BATCH = 3 chunks): label,
+# trio, switches, launches by kernel and shape
+NODE_PATHS = [
+    ("HiFi-GAN trio, fused MRF", "hifigan",
+     {"EGREGORA_FUSED_VOCODER": "1", "EGREGORA_MRF_PATH": None},
+     {"mrf_fused_cm": {(1, 64, 5120): 1, (1, 32, 40960): 1, (1, 16, 245760): 1}}),
+    ("HiFi-GAN trio, rows MRF", "hifigan",
+     {"EGREGORA_FUSED_VOCODER": "1", "EGREGORA_MRF_PATH": "rows"},
+     {"mrf_rows": {(1, 64, 5120): 3, (1, 32, 40960): 3, (1, 16, 245760): 3}}),
+    ("istft trio (default)", "",
+     {"EGREGORA_FUSED_VOCODER": None, "EGREGORA_MRF_PATH": None}, {}),
+]
+# one-shot (pcm16 wire, batch 3) against streaming (float32, batches of
+# 2) on the node's paths, relative L2: the bf16 convs of the VAE and the
+# UNet take other cuDNN algorithms at another batch size, so the decoded
+# mel moves by a bf16 ulp (0.094 at |mel| ~ 8 on an H100), and the
+# input by the wire's step; the served trios carry that to 1.5e-2
+# (HiFi-GAN, max |d| 0.24) and 1.3e-2 (istft, whose phase features of
+# the empty band above 8 kHz follow rounding noise).  A chunk stitched
+# in the wrong place reads ~1.
+NODE_STREAM_REL_L2 = 5e-2
+# relative L2 limit of the fused vocoder's wave against its module path
+# (bf16 on the card, one chunk), between the sound reading and that of
+# the planted fault (PERF.md, Findings)
+FUSED_WAVE_LIMIT = 2e-2
+
+
+def expected_counts(per_item: dict, b: int, batches: int) -> dict:
+    """A path's launches at batch ``b`` over ``batches`` chunk batches,
+    from its per-batch launches at batch 1 (the attention adds one
+    ``SERVED_ATTN`` call a batch)."""
+    heads, n, d = SERVED_ATTN
+    out = {"attn_rows": {(b * heads, n, d): batches}, "mrf_fused_cm": {}, "mrf_rows": {}}
+    for kernel, shapes in per_item.items():
+        out[kernel] = {(b, c, t): k * batches for (_, c, t), k in shapes.items()}
+    return out
+
+
+def node_phase() -> dict:
+    """The ``EgregoraAudioUpscaler`` node on a comfy AUDIO dict (the
+    seeded 12 s 16 kHz signal to 48 kHz) on each path of ``NODE_PATHS``,
+    one-shot through ``run`` and streaming (``max_batch=2``) through the
+    node's pipeline, with every kernel's launches counted by shape; the
+    fused and rows vocoders against the module path on one chunk's wave,
+    beside the planted fault."""
+    import numpy as np
+    import torch
+
+    from egregora_tpu_torch.models.flashsr import pipeline as P
+    from egregora_tpu_torch.models.flashsr import vocoder as V
+    from egregora_tpu_torch.nodes import NODE_CLASS_MAPPINGS
+    from egregora_tpu_torch.nodes.base import to_buffer
+
+    node_cls = NODE_CLASS_MAPPINGS["EgregoraAudioUpscaler"]
+    sr_in, sr_out = 16000, 48000
+    x = test_signal(SECONDS, sr_in, seed=0)
+    audio = {"waveform": torch.from_numpy(x[None]), "sample_rate": sr_in}
+    n_out = int(SECONDS * sr_out)
+    results, trio = {}, None
+    for label, variant, switches, per_item in NODE_PATHS:
+        set_env(EGREGORA_FLASHSR_VARIANT=variant, **switches)
+        if variant != trio:
+            node_cls._PIPE = None
+            trio = variant
+        node = node_cls()
+        t = time.perf_counter()
+        pipe = node._pipeline()
+        want = "distilled" if variant == "hifigan" else "distilled-istft"
+        if pipe.weight_source != want or pipe.device.type != "cuda":
+            raise RuntimeError(f"{label}: the node resolved {pipe.weight_source} on "
+                               f"{pipe.device}, not the shipped {want} trio on the card")
+        log(f"node {label}: pipeline ({pipe.weight_source}, {pipe.cfg.vocoder.kind} "
+            f"vocoder) ready in {time.perf_counter() - t:.1f} s")
+        one = None
+        for run_no in ("cold", "warm"):
+            reset_counts()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            (out,) = node.run(audio, lowpass_input=False, output_sr=str(sr_out))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+            counts = read_counts()
+            one = out["waveform"].numpy()
+            finite = bool(np.isfinite(one).all())
+            log(f"node {label} one-shot ({run_no}): {wall:.3f} s wall, RTF "
+                f"{SECONDS / wall:.1f}x real time, out {one.shape} @ {out['sample_rate']} Hz, "
+                f"finite {finite}, launches {counts}")
+            if one.shape != (1, 1, n_out) or not finite or out["sample_rate"] != sr_out:
+                raise RuntimeError(f"node {label}: bad output {one.shape}, finite={finite}")
+            expect = expected_counts(per_item, BATCH, 1)
+            if counts != expect:
+                raise RuntimeError(f"node {label}: launches {counts}, expected {expect}")
+        results[label] = {"wall_s": wall, "rtf": SECONDS / wall, "counts": counts}
+        reset_counts()
+        t = time.perf_counter()
+        stream = pipe.process(to_buffer(audio), output_sr=sr_out, max_batch=2).numpy()
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t
+        counts_s = read_counts()
+        expect = expected_counts(per_item, 2, 2)
+        diff = float(np.abs(one[0] - stream).max())
+        rel = rel_l2(torch.from_numpy(stream), torch.from_numpy(one[0]))
+        log(f"node {label} streaming max_batch=2: {wall_s:.3f} s wall, launches {counts_s}; "
+            f"one-shot vs streaming relative L2 {rel:.3e} (limit {NODE_STREAM_REL_L2:g}), "
+            f"max|d| {diff:.3e}")
+        if counts_s != expect:
+            raise RuntimeError(f"node {label} streaming: launches {counts_s}, expected {expect}")
+        if stream.shape != (1, n_out) or not rel <= NODE_STREAM_REL_L2:
+            raise RuntimeError(f"node {label}: one-shot and streaming disagree: {rel}")
+        results[label]["streaming_wall_s"] = wall_s
+        if variant == "hifigan":      # the kernels' vocoder against the module path
+            chunk = torch.from_numpy(test_signal(P.CHUNK_S, P.REQ_SR, seed=3)).to("cuda")
+            wav = pipe.synthesize(chunk)[1]
+            set_env(EGREGORA_FUSED_VOCODER=None)
+            module = pipe.synthesize(chunk)[1]
+            set_env(**switches)
+            rel = rel_l2(wav.float(), module.float())
+            line = (f"node {label}: vocoder wave vs the module path relative L2 {rel:.3e} "
+                    f"(limit {FUSED_WAVE_LIMIT:g})")
+            if switches["EGREGORA_MRF_PATH"] is None:
+                real, V.mrf_fused_cm = V.mrf_fused_cm, planted_mrf
+                try:
+                    bad = rel_l2(pipe.synthesize(chunk)[1].float(), module.float())
+                finally:
+                    V.mrf_fused_cm = real
+                line += (f"; planted fault (last dilation's residual dropped) {bad:.3e} "
+                         f"{'rejected' if bad > FUSED_WAVE_LIMIT else 'NOT REJECTED'}")
+                if not bad > FUSED_WAVE_LIMIT:
+                    raise RuntimeError(f"the fused-wave limit does not reject the planted fault")
+                results[label]["planted_wave_rel_l2"] = bad
+            log(line)
+            if not rel <= FUSED_WAVE_LIMIT:
+                raise RuntimeError(f"node {label}: the vocoder wave is {rel} from the module path")
+            results[label]["wave_rel_l2"] = rel
+    set_env(EGREGORA_FLASHSR_VARIANT=None, EGREGORA_FUSED_VOCODER=None, EGREGORA_MRF_PATH=None)
+    node_cls._PIPE = None
+    return results
+
+
 def pipeline_phase() -> dict:
     import numpy as np
     import torch
@@ -282,15 +800,17 @@ def pipeline_phase() -> dict:
         f"-> {k} chunks @ {sr_out} Hz")
 
     def run(max_batch):
-        ar.launches = 0
-        ar.launches_by_shape.clear()
+        reset_counts()
         torch.cuda.synchronize()
         t = time.perf_counter()
         out = pipe.process(AudioBuffer(x, sr_in), output_sr=sr_out,
                            max_batch=max_batch).numpy()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
-        return out, wall, ar.launches, dict(ar.launches_by_shape)
+        counts = read_counts()
+        if counts["mrf_fused_cm"] or counts["mrf_rows"]:
+            raise RuntimeError(f"the full config's module-path vocoder launched {counts}")
+        return out, wall, ar.launches, counts["attn_rows"]
 
     results = {}
     for label, b, batches in (("one-shot", k, 1), ("streaming max_batch=2", 2, -(-k // 2))):
@@ -324,7 +844,7 @@ def main() -> int:
               "this script runs only on the card", file=sys.stderr, flush=True)
         return 2
     try:
-        from egregora_tpu_torch.utils import cuda_build
+        import egregora_tpu_torch.utils.cuda_build  # noqa: F401  (the package is here)
     except ImportError as e:
         print(f"chip_smoke: the egregora_tpu_torch package is missing ({e}); run "
               "from the root of a checkout of the repository", file=sys.stderr, flush=True)
@@ -335,18 +855,43 @@ def main() -> int:
     log(card)
     log(f"device: {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}, "
         f"torch {torch.__version__}, cuda {torch.version.cuda}")
+    # the plain versions' float32 convs and matmuls in full float32
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
     t0 = time.perf_counter()
-    cuda_build.build("attn_rows")
-    log(f"build: attn_rows in {time.perf_counter() - t0:.1f} s (nvcc, sm_90a)")
+    with ThreadPoolExecutor(len(SOURCES)) as ex:      # one nvcc a source, together
+        built = list(ex.map(timed_build, SOURCES))
+    log(f"build: {', '.join(f'{n} in {s:.1f} s' for n, s in zip(SOURCES, built))} "
+        f"(nvcc, sm_90a, in parallel: {time.perf_counter() - t0:.1f} s)")
 
-    rows = attention_phase()
+    attn_rows_ = attention_phase()
+    mrf_rows_ = mrf_phase()
     reference_phase()
+    nodes = node_phase()
+    served_reference_phase()
     pipe = pipeline_phase()
-    attn = kernels_entry(rows, pipe["counts"], pipe["launches"])
-    attn["launches_streaming"] = pipe["launches_streaming"]
+
+    attn_counts = collections.Counter(pipe["counts"])
+    attn_paths = {"full config (seeded weights)": pipe["launches"]}
+    for label, r in nodes.items():
+        attn_counts.update(r["counts"]["attn_rows"])
+        attn_paths[label] = sum(r["counts"]["attn_rows"].values())
+    fused = nodes["HiFi-GAN trio, fused MRF"]["counts"]["mrf_fused_cm"]
+    rows = nodes["HiFi-GAN trio, rows MRF"]["counts"]["mrf_rows"]
+    kernels = [attn_entry(attn_rows_, dict(attn_counts), attn_paths),
+               mrf_entry("mrf_fused_cm", mrf_rows_, fused,
+                         {"HiFi-GAN trio, fused MRF": sum(fused.values())}),
+               mrf_entry("mrf_rows", mrf_rows_, rows,
+                         {"HiFi-GAN trio, rows MRF": sum(rows.values())})]
+    kernels[0]["launches_streaming"] = pipe["launches_streaming"]
+    for k in kernels:
+        if not k["launches"]:
+            raise RuntimeError(f"{k['name']} was not launched on its main path")
+    log("node paths: " + "; ".join(f"{label}: warm one-shot {r['wall_s']:.3f} s wall "
+                                   f"(RTF {r['rtf']:.1f}x)" for label, r in nodes.items()))
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
     log(card)
-    print(json.dumps({"kernels": [attn]}), flush=True)
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -13,11 +13,15 @@ Shape coercion follows the reference node pack:
   channels;
 * ``to_cs``: the ``[S, C]`` detection heuristic (``w <= 8 and h > w``)
   plus a peak clamp to <= 1.0.
+
+``from_any`` coerces every AUDIO-ish object the node layer meets
+(comfy AUDIO dicts, ``(array, sr)`` tuples, bare arrays) into an
+``AudioBuffer``.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Union
+from typing import Any, Dict, Optional, Union
 
 import numpy as np
 import torch
@@ -116,3 +120,59 @@ class AudioBuffer:
         return {"waveform": s[None, ...], "sample_rate": int(self.sample_rate),
                 "sr": int(self.sample_rate), "samples": s, "meta": dict(self.meta)}
 
+
+
+def make_audio(sr: int, samples_cn: ArrayLike, meta: Optional[dict] = None) -> AudioBuffer:
+    """An ``AudioBuffer`` of host numpy samples from any array shape
+    (``normalize_cn``), so the pipeline's dispatch edge chooses the
+    transfer format."""
+    return AudioBuffer(normalize_cn(samples_cn), int(sr), dict(meta or {}))
+
+
+def from_any(x: Any) -> AudioBuffer:
+    """Any AUDIO-ish object -> ``AudioBuffer`` of host samples, in the
+    JAX package's order:
+
+    * an ``AudioBuffer`` (passed through);
+    * a dict with ``waveform`` and one of ``sample_rate``/``sr``/``rate``
+      (a true ``[B, C, T]`` batch, B > 1, folds onto the channel axis and
+      records ``meta["batch"]``, which ``nodes.base.comfy_audio`` undoes);
+    * a dict with ``samples``/``audio``/``array`` and ``sr``/``sample_rate``;
+    * an ``(array, sr)`` pair (frames-first ``[S, C]`` with C <= 8 transposed);
+    * a bare array or tensor (48 kHz assumed)."""
+    if isinstance(x, AudioBuffer):
+        return x
+    if isinstance(x, dict) and "waveform" in x and any(k in x for k in ("sample_rate", "sr", "rate")):
+        sr = int(x.get("sample_rate") or x.get("sr") or x.get("rate"))
+        wf = _to_numpy(x["waveform"])
+        meta = dict(x.get("meta", {}))
+        if wf.ndim == 3:
+            b, c = int(wf.shape[0]), int(wf.shape[1])
+            if b > 1:
+                meta["batch"] = b
+                wf = wf.reshape(b * c, wf.shape[-1])
+            else:
+                wf = wf[0]
+        return make_audio(sr, wf, meta)
+    if isinstance(x, dict) and ("sr" in x or "sample_rate" in x):
+        sr = int(x.get("sr") or x.get("sample_rate"))
+        buf = next((x[k] for k in ("samples", "audio", "array") if x.get(k) is not None), None)
+        if buf is None:
+            raise ValueError("Audio dict missing samples/waveform")
+        return make_audio(sr, buf, x.get("meta", {}))
+    if isinstance(x, (list, tuple)) and len(x) == 2 and not isinstance(x[0], (int, float)):
+        arr, sr = x
+        arr = _to_numpy(arr)
+        if arr.ndim == 1:
+            cs = arr[None, :]
+        elif arr.ndim == 2:
+            cs = arr.T if arr.shape[0] >= arr.shape[1] and arr.shape[1] <= 8 else arr
+        else:
+            cs = arr.reshape(1, -1)
+        return AudioBuffer(np.ascontiguousarray(cs, dtype=np.float32), int(sr), {})
+    if isinstance(x, (np.ndarray, torch.Tensor)):
+        arr = _to_numpy(x)
+        if arr.ndim == 3:
+            arr = arr[0]
+        return make_audio(48000, arr, {})
+    raise ValueError(f"Unsupported AUDIO object: {type(x)!r}")

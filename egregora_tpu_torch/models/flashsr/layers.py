@@ -10,8 +10,8 @@ defaults differ from torch's and are kept here:
   zero-stuffed input with the kernel as stored; the port stores the
   kernel flipped and channel-swapped, the layout ``conv_transpose1d``
   takes, and crops to flax's 'SAME' window (``length * stride``);
-* ``GroupNorm`` uses eps 1e-6 and takes its statistics in float32 whatever
-  the compute dtype.
+* ``GroupNorm`` and ``LayerNorm`` use eps 1e-6 and take their statistics
+  in float32 whatever the compute dtype.
 
 Parameters are float32; each layer computes in its ``dtype`` (bf16 on the
 card by default), as flax's ``dtype`` argument does.  Parameter names
@@ -122,6 +122,29 @@ class Dense(nn.Module):
                         self.bias.to(self.dtype))
 
 
+class DenseGeneral(nn.Module):
+    """flax ``nn.DenseGeneral`` from the last ``len(in_shape)`` axes to
+    ``out_shape``; ``weight`` keeps the flax kernel's layout
+    ``in_shape + out_shape`` (the heads of flax's multi-head attention:
+    ``query`` ``[C, H, hd]``, ``out`` ``[H, hd, C]``)."""
+
+    def __init__(self, in_shape: Tuple[int, ...], out_shape: Tuple[int, ...],
+                 dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        self.in_shape, self.out_shape = tuple(in_shape), tuple(out_shape)
+        self.weight = nn.Parameter(torch.empty(self.in_shape + self.out_shape))
+        self.bias = nn.Parameter(torch.zeros(self.out_shape))
+        self.dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        lead = x.shape[:x.dim() - len(self.in_shape)]
+        n_in = self.weight.shape[:len(self.in_shape)].numel()
+        w = self.weight.reshape(n_in, -1).t().to(self.dtype)
+        y = F.linear(x.reshape(lead + (n_in,)).to(self.dtype), w,
+                     self.bias.reshape(-1).to(self.dtype))
+        return y.reshape(lead + self.out_shape)
+
+
 class GroupNorm(nn.Module):
     """flax ``nn.GroupNorm(num_groups)`` on channel axis 1: float32
     statistics, eps 1e-6, output in ``dtype``."""
@@ -137,6 +160,21 @@ class GroupNorm(nn.Module):
                             GN_EPS).to(self.dtype)
 
 
+class LayerNorm(nn.Module):
+    """flax ``nn.LayerNorm`` on the last axis: float32 statistics, eps
+    1e-6, output in ``dtype``."""
+
+    def __init__(self, dim: int, dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(dim))
+        self.bias = nn.Parameter(torch.zeros(dim))
+        self.dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.layer_norm(x.float(), (x.shape[-1],), self.weight, self.bias,
+                            GN_EPS).to(self.dtype)
+
+
 def leaky_relu(x: torch.Tensor) -> torch.Tensor:
     return F.leaky_relu(x, 0.1)
 
@@ -147,13 +185,19 @@ def seeded_init_(module: nn.Module, gen: torch.Generator) -> None:
     Drawn on the CPU from ``gen``, so a seed gives the same weights on
     every device."""
     for mod in module.modules():
-        if isinstance(mod, GroupNorm):
+        if isinstance(mod, (GroupNorm, LayerNorm)):
             nn.init.ones_(mod.weight)
             nn.init.zeros_(mod.bias)
-        elif isinstance(mod, (Conv2d, Conv1d, ConvTranspose1d, Dense)):
+        elif hasattr(mod, "dw_kernel"):      # depthwise taps [k, D]
+            with torch.no_grad():
+                w = mod.dw_kernel
+                w.copy_((torch.randn(w.shape, generator=gen) * w.shape[0] ** -0.5).to(w.device))
+        elif isinstance(mod, (Conv2d, Conv1d, ConvTranspose1d, Dense, DenseGeneral)):
             w = mod.weight
-            out_axis = 1 if isinstance(mod, ConvTranspose1d) else 0
-            fan_in = w.numel() // w.shape[out_axis]
+            if isinstance(mod, DenseGeneral):
+                fan_in = mod.weight.shape[:len(mod.in_shape)].numel()
+            else:
+                fan_in = w.numel() // w.shape[1 if isinstance(mod, ConvTranspose1d) else 0]
             vals = torch.randn(w.shape, generator=gen) * fan_in ** -0.5
             with torch.no_grad():
                 w.copy_(vals.to(w.device))

@@ -1,8 +1,10 @@
 """FlashSR end-to-end pipeline in PyTorch: chunked, batched, on one card.
 
-Counterpart of ``egregora_tpu/models/flashsr/pipeline.py`` for the full
+Counterpart of ``egregora_tpu/models/flashsr/pipeline.py``, for the full
 config (``LDMUNet``, ``MelVAE`` with mid attention and quant convs, the
-HiFi-GAN ``SRVocoder``):
+HiFi-GAN ``SRVocoder``) and the shipped compact trios (``StudentUNet``,
+the compact ``MelVAE``, and the HiFi-GAN ``SRVocoder`` or the
+phase-conditioned ``SpectralVocoder``):
 
   resample to 48 kHz -> chunk (5.12 s window / 0.5 s overlap) -> log-mel
   -> VAE encode -> one-step UNet (LR latent ++ a seeded noise latent)
@@ -11,9 +13,12 @@ HiFi-GAN ``SRVocoder``):
 
 All chunks run as one batch (``max_batch=None``) or stream through
 fixed-size batches folded into running overlap-add sums.  Every
-attention of the path goes through ``ops.attention.mha``: 13 calls per
-chunk batch (5 + 6 in the UNet, 2 in the VAE), each one launch of the
-``attn_rows`` kernel on the card.
+attention of the path goes through ``ops.attention.mha``, one launch of
+the ``attn_rows`` kernel on the card per call: 13 calls per chunk batch
+at the full config (5 + 6 in the UNet, 2 in the VAE), one in the
+compact trios (the ``StudentUNet`` mid block).  With
+``EGREGORA_FUSED_VOCODER=1`` on the card, a HiFi-GAN vocoder runs
+``vocoder.apply_fused``: its MRF stages on the ``csrc/mrf.cu`` kernels.
 """
 from __future__ import annotations
 
@@ -35,8 +40,9 @@ from .layers import seeded_init_
 from .ldm_unet import LDMUNet, LDMUNetConfig
 from .mel import (HOP, SAMPLE_RATE, _reflect_pad, envelope_gain, log_mel,
                   mel_band_peaks, mel_envelope_match, mel_filterbank)
+from .unet import StudentUNet, UNetConfig
 from .vae import MelVAE, VAEConfig
-from .vocoder import SRVocoder, VocoderConfig
+from .vocoder import VocoderConfig, apply_fused, build_vocoder
 
 REQ_SR = SAMPLE_RATE                  # 48000
 CHUNK_S = 5.12
@@ -49,7 +55,8 @@ MEL_FRAMES = CHUNK_SAMPLES // HOP      # 512 frames per chunk
 @dataclasses.dataclass(frozen=True)
 class FlashSRConfig:
     vae: VAEConfig = VAEConfig()
-    unet: LDMUNetConfig = LDMUNetConfig()
+    # LDMUNetConfig -> the upstream LDMUNet layout; UNetConfig -> StudentUNet
+    unet: Union[LDMUNetConfig, UNetConfig] = LDMUNetConfig()
     vocoder: VocoderConfig = VocoderConfig()
     crossover_hz: float = 11000.0   # low-band preservation crossover
     noise_seed: int = 0             # deterministic one-step noise latent
@@ -66,14 +73,11 @@ class FlashSRModules:
     NAMES = ("vae", "student_ldm", "sr_vocoder")
 
     def __init__(self, cfg: FlashSRConfig = FlashSRConfig()):
-        if not isinstance(cfg.unet, LDMUNetConfig):
-            raise NotImplementedError(
-                f"unet config {type(cfg.unet).__name__} is not ported yet "
-                "(the port runs the full-config LDMUNet)")
         self.cfg = cfg
         self.vae = MelVAE(cfg.vae)
-        self.unet = LDMUNet(cfg.unet)
-        self.vocoder = SRVocoder(cfg.vocoder)
+        self.unet = (LDMUNet(cfg.unet) if isinstance(cfg.unet, LDMUNetConfig)
+                     else StudentUNet(cfg.unet))
+        self.vocoder = build_vocoder(cfg.vocoder)
 
     def all(self):
         return self.vae, self.unet, self.vocoder
@@ -98,6 +102,18 @@ class FlashSRModules:
         for m in self.all():
             m.to(device).eval()
         return self
+
+
+def _fused_vocoder_enabled(device: torch.device) -> bool:
+    """Whether a HiFi-GAN vocoder runs ``vocoder.apply_fused`` (the MRF
+    kernels) instead of its module path: ``EGREGORA_FUSED_VOCODER`` set,
+    ``EGREGORA_NO_FUSED_VOCODER`` not set (it wins when both are), and the
+    pipeline on a CUDA device."""
+    if os.environ.get("EGREGORA_NO_FUSED_VOCODER"):
+        return False
+    if not os.environ.get("EGREGORA_FUSED_VOCODER"):
+        return False
+    return device.type == "cuda"
 
 
 def lowpass_fir(x: torch.Tensor, sr: int, cutoff_hz: float, taps: int = 255) -> torch.Tensor:
@@ -176,7 +192,14 @@ class FlashSRPipeline:
         z_in = torch.cat([noise, z_lr], dim=-1)
         z_hr = mods.unet(z_in, torch.ones(z_in.shape[0], device=self.device))
         mel_hr = mods.vae.decode(z_hr)[..., 0]
-        return mel_hr, mods.vocoder(mel_hr)[:, :CHUNK_SAMPLES]
+        voc = self.cfg.vocoder
+        if voc.kind == "hifigan" and _fused_vocoder_enabled(self.device):
+            wav = apply_fused(mods.vocoder, mel_hr)
+        elif voc.phase_cond:
+            wav = mods.vocoder(mel_hr, ref=x)
+        else:
+            wav = mods.vocoder(mel_hr)
+        return mel_hr, wav[:, :CHUNK_SAMPLES]
 
     @torch.inference_mode()
     def chunk_forward(self, chunks: torch.Tensor, lowpass_input: bool = False) -> torch.Tensor:

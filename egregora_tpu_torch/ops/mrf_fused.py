@@ -1,0 +1,177 @@
+"""Wrapper of the channel-major MRF entry of ``csrc/mrf.cu``.
+
+The port of ``egregora_tpu/ops/mrf_pallas.py::mrf_fused_cm``: one whole
+HiFi-GAN MRF block (every ResBlock branch and their mean) on ``[B, C,
+T]`` in one launch.  A CUDA tensor goes to the kernel or raises; a CPU
+tensor goes to the plain version, ``mrf_fused_cm_plain``, which rounds
+where the TPU kernel's ``_conv_circ`` does: each conv's f32 sum to the
+activation dtype, then the bias in that dtype.
+
+Weights travel packed (``pack_resblock_weights``): ``w`` is one flat
+tensor holding, per branch, dilation iteration and conv (dilated, unit),
+the kernel as ``[k, C_out, C_in]``; ``bias`` is float32 ``[branches,
+dilations, 2, C]``.
+"""
+from __future__ import annotations
+
+import collections
+import ctypes
+from typing import List, Sequence, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from ..utils import cuda_build
+
+# kernel launches since the last reset, in all and by shape (b, c, t);
+# counted where the kernel launches and nowhere else
+launches = 0
+launches_by_shape: collections.Counter = collections.Counter()
+
+_FN = None
+
+
+def branch_halo(k: int, dilations: Sequence[int]) -> int:
+    """Per-side reach of one ResBlock chain: ``sum_d ((k-1)//2)(d+1)``."""
+    return sum(((k - 1) // 2) * (d + 1) for d in dilations)
+
+
+def pack_resblock_weights(mrf: torch.nn.Module, dtype: torch.dtype
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """An ``MRF`` module's convs -> ``(w, bias)``, the kernels' format:
+    ``ResBlock1D_{b}.Conv_{2m}`` is iteration m's dilated conv,
+    ``Conv_{2m+1}`` its unit conv; torch's ``[C_out, C_in, k]`` becomes
+    ``[k, C_out, C_in]``."""
+    ws, bs = [], []
+    for bi in range(mrf.n):
+        rb = getattr(mrf, f"ResBlock1D_{bi}")
+        for j in range(2 * len(rb.dilations)):
+            conv = getattr(rb, f"Conv_{j}")
+            ws.append(conv.weight.detach().permute(2, 0, 1).reshape(-1))
+            bs.append(conv.bias.detach().float())
+    c = bs[0].shape[0]
+    bias = torch.stack(bs).reshape(mrf.n, -1, 2, c)
+    return torch.cat(ws).to(dtype).contiguous(), bias.contiguous()
+
+
+def branch_weights(w: torch.Tensor, c: int, kernels: Sequence[int], n_dil: int
+                   ) -> List[torch.Tensor]:
+    """The flat packed ``w`` -> per branch ``[n_dil, 2, k, C_out, C_in]`` views."""
+    out, off = [], 0
+    for k in kernels:
+        n = n_dil * 2 * k * c * c
+        out.append(w[off: off + n].view(n_dil, 2, k, c, c))
+        off += n
+    if off != w.numel():
+        raise ValueError(f"packed MRF weights hold {w.numel()} values, kernels "
+                         f"{tuple(kernels)} x {n_dil} dilations at C={c} need {off}")
+    return out
+
+
+def _leaky(x: torch.Tensor) -> torch.Tensor:
+    return F.leaky_relu(x, 0.1)
+
+
+def _conv(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor, d: int,
+          round_then_bias: bool) -> torch.Tensor:
+    """'SAME' dilated conv of ``a [B, C, T]`` by ``w [k, C_out, C_in]`` with
+    an f32 sum; the bias joins after the rounding to ``a.dtype``
+    (``_conv_circ``) or before it (``_conv_rows``)."""
+    k = w.shape[0]
+    y = F.conv1d(a.float(), w.permute(1, 2, 0).float(), padding=(k - 1) // 2 * d,
+                 dilation=d)
+    if round_then_bias:
+        return y.to(a.dtype) + bias.to(a.dtype)[:, None]
+    return (y + bias.float()[:, None]).to(a.dtype)
+
+
+def branch_plain(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
+                 dilations: Sequence[int], round_then_bias: bool) -> torch.Tensor:
+    """One ResBlock chain on ``x [B, C, T]``: for each dilation d,
+    ``h += conv_1(leaky(conv_d(leaky(h))))``; ``w [n_dil, 2, k, C, C]``,
+    ``bias [n_dil, 2, C]``."""
+    h = x
+    for m, d in enumerate(dilations):
+        a = _conv(_leaky(h), w[m, 0], bias[m, 0], d, round_then_bias)
+        a = _conv(_leaky(a), w[m, 1], bias[m, 1], 1, round_then_bias)
+        h = h + a
+    return h
+
+
+def mrf_fused_cm_plain(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
+                       kernels: Sequence[int], dilations: Sequence[int]) -> torch.Tensor:
+    """The plain version: the branches' mean in ``x.dtype``, as
+    ``_mrf_kernel`` sums and divides."""
+    acc = None
+    for bi, wb in enumerate(branch_weights(w, x.shape[1], kernels, len(dilations))):
+        h = branch_plain(x, wb, bias[bi], dilations, round_then_bias=True)
+        acc = h if acc is None else acc + h
+    return acc / len(kernels)
+
+
+def _kernel():
+    global _FN
+    if _FN is None:
+        fn = cuda_build.load("mrf").mrf_fused_cm_bf16
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _FN = fn
+    return _FN
+
+
+def check_operands(name: str, x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
+                   c: int, n_w: int, n_b: int) -> None:
+    """The kernels' contract on a CUDA call: bf16 contiguous activations
+    and weights, f32 contiguous bias, all on one device, C a multiple of
+    16, and weights and bias of the sizes the kernel sizes imply."""
+    if x.dtype != torch.bfloat16 or w.dtype != torch.bfloat16:
+        raise TypeError(f"{name}: the kernel takes bfloat16 activations and "
+                        f"weights, got {x.dtype} and {w.dtype}")
+    if bias.dtype != torch.float32:
+        raise TypeError(f"{name}: bias must be float32, got {bias.dtype}")
+    for label, t in (("weights", w), ("bias", bias)):
+        if t.device != x.device:
+            raise ValueError(f"{name}: {label} on {t.device}, activations on {x.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {label} must be contiguous")
+    if not x.is_contiguous():
+        raise ValueError(f"{name}: the activations must be contiguous")
+    if c % 16 or c <= 0:
+        raise ValueError(f"{name}: channels {c} are not a positive multiple of 16")
+    if w.numel() != n_w or bias.numel() != n_b:
+        raise ValueError(f"{name}: weights hold {w.numel()} values and bias "
+                         f"{bias.numel()}, the kernel sizes need {n_w} and {n_b}")
+
+
+def mrf_fused_cm(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
+                 kernels: Sequence[int] = (3, 7, 11),
+                 dilations: Sequence[int] = (1, 3, 5)) -> torch.Tensor:
+    """``[B, C, T] -> [B, C, T]``: one MRF block with zero-padded edges."""
+    if x.device.type == "cpu":
+        return mrf_fused_cm_plain(x, w, bias, kernels, dilations)
+    if x.device.type != "cuda":
+        raise ValueError(f"mrf_fused_cm: unsupported device {x.device}")
+    if x.dim() != 3:
+        raise ValueError(f"mrf_fused_cm: expected [B, C, T], got {tuple(x.shape)}")
+    b, c, t = x.shape
+    nb, nd = len(kernels), len(dilations)
+    check_operands("mrf_fused_cm", x, w, bias, c,
+                   2 * nd * sum(kernels) * c * c, nb * nd * 2 * c)
+    if not (0 < nb <= 4 and 0 < nd <= 4 and 0 < b <= 65535 and t > 0):
+        raise ValueError(f"mrf_fused_cm: unsupported shape {tuple(x.shape)}, "
+                         f"kernels {tuple(kernels)}, dilations {tuple(dilations)}")
+    y = torch.empty_like(x)
+    ks = (ctypes.c_int * nb)(*kernels)
+    ds = (ctypes.c_int * nd)(*dilations)
+    fn = _kernel()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = fn(x.data_ptr(), y.data_ptr(), w.data_ptr(), bias.data_ptr(),
+                 b, c, t, nb, ks, nd, ds, stream)
+    if err:
+        raise RuntimeError(f"mrf_fused_cm: launch failed with cudaError_t {err}")
+    global launches
+    launches += 1
+    launches_by_shape[(b, c, t)] += 1
+    return y

@@ -2,16 +2,20 @@
 
 ``params_from_jax(cfg, flax_params)`` turns the JAX pipeline's parameter
 trio ``{"vae": {"params": ...}, "student_ldm": ..., "sr_vocoder": ...}``
-(numpy leaves) into the port's state dicts.  The port's modules name
-their children as flax names its submodules, so a leaf's key is its
-flax path with ``/`` -> ``.`` and ``kernel``/``scale`` -> ``weight``;
-the values change layout:
+(numpy leaves, nested dicts as flax keeps them or as ``unflatten`` makes
+them from a shipped npz) into the port's state dicts.  The port's
+modules name their children as flax names its submodules, so a leaf's
+key is its flax path with ``/`` -> ``.`` and ``kernel``/``scale`` ->
+``weight``; the values change layout:
 
 * Conv2D kernel ``[kh, kw, Ci, Co]`` -> OIHW; Conv1D ``[k, Ci, Co]`` -> OIW;
 * Dense kernel ``[in, out]`` -> ``[out, in]``;
-* GroupNorm ``scale`` -> ``weight``;
+* GroupNorm and LayerNorm ``scale`` -> ``weight``;
 * ConvTranspose kernel ``[k, Ci, Co]`` (``transpose_kernel=False``) ->
-  ``[Ci, Co, k]`` flipped along k, what ``layers.ConvTranspose1d`` takes.
+  ``[Ci, Co, k]`` flipped along k, what ``layers.ConvTranspose1d`` takes;
+* DenseGeneral kernels (multi-head attention's ``query/key/value``
+  ``[C, H, hd]`` and ``out`` ``[H, hd, C]``) and the ConvNeXt depthwise
+  ``dw_kernel [7, D]`` keep their layout.
 
 Every flax leaf is consumed exactly once; a leaf the port has no place
 for, a port parameter no leaf fills, or a shape that disagrees raises.
@@ -26,7 +30,7 @@ from typing import Any, Dict, Iterator, Tuple
 import numpy as np
 import torch
 
-from ..models.flashsr.layers import ConvTranspose1d
+from ..models.flashsr.layers import ConvTranspose1d, DenseGeneral
 from ..models.flashsr.pipeline import FlashSRConfig, FlashSRModules
 
 
@@ -50,6 +54,8 @@ def _convert(module: torch.nn.Module, path: Tuple[str, ...], ndim: int):
         owner = None
     if isinstance(owner, ConvTranspose1d):
         return key, (1, 2, 0), 2         # [k, Ci, Co] -> [Ci, Co, k], flipped
+    if isinstance(owner, DenseGeneral):
+        return key, None, None
     return key, {2: (1, 0), 3: (2, 1, 0), 4: (3, 2, 0, 1)}.get(ndim), None
 
 
@@ -84,6 +90,19 @@ def module_from_jax(module: torch.nn.Module, flax_vars: Any) -> Dict[str, torch.
         raise KeyError(f"params_from_jax: flax leaves with no place in the port: "
                        f"{leftovers}; port parameters no leaf fills: {missing}")
     return out
+
+
+def unflatten(flat: Dict[str, np.ndarray]) -> Dict[str, Any]:
+    """``{"a/b/c": v}`` -> ``{"a": {"b": {"c": v}}}`` (the flat ``/``-joined
+    keys of the JAX package's npz files)."""
+    tree: Dict[str, Any] = {}
+    for key, val in flat.items():
+        *parts, leaf = key.split("/")
+        node = tree
+        for p in parts:
+            node = node.setdefault(p, {})
+        node[leaf] = val
+    return tree
 
 
 def params_from_jax(cfg: FlashSRConfig, flax_params: Dict[str, Any]

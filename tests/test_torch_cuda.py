@@ -51,3 +51,65 @@ def test_attn_rows_rejects_what_it_does_not_take(card):
     qt = torch.zeros(2, 32, 64, device=card, dtype=torch.bfloat16).transpose(1, 2)
     with pytest.raises(ValueError):
         ar.attn_rows(qt, qt, qt)                    # not contiguous
+
+
+def _mrf_operands(card, b, c, t, seed):
+    from egregora_tpu_torch.ops import mrf_fused as mf
+    m = chip_smoke.mrf_module(c, seed).to(card)
+    w, bias = mf.pack_resblock_weights(m, torch.bfloat16)
+    gen = torch.Generator().manual_seed(seed)
+    x = (0.5 * torch.randn(b, c, t, generator=gen)).to(card, torch.bfloat16)
+    return x, w, bias
+
+
+@pytest.mark.parametrize("b,c,t", [(2, 16, 1000), (1, 32, 4096), (2, 64, 777), (1, 48, 300),
+                                   (1, 128, 700)])
+def test_mrf_fused_cm_matches_plain(card, b, c, t):
+    """One launch, counted under its shape; within ``chip_smoke.mrf_agreement``'s
+    limits of the plain version (relative L2 1e-2, max |d| four bf16 ulps
+    of the largest output, over the block and over its edges)."""
+    from egregora_tpu_torch.ops import mrf_fused as mf
+    x, w, bias = _mrf_operands(card, b, c, t, seed=c + t)
+    before, before_shape = mf.launches, mf.launches_by_shape[(b, c, t)]
+    got = mf.mrf_fused_cm(x, w, bias)
+    torch.cuda.synchronize()
+    assert mf.launches == before + 1 and mf.launches_by_shape[(b, c, t)] == before_shape + 1
+    assert got.dtype == torch.bfloat16 and got.shape == x.shape
+    ok, rel, err, edge, limit = chip_smoke.mrf_agreement(got, mf.mrf_fused_cm_plain(
+        x, w, bias, chip_smoke.MRF_KERNELS, chip_smoke.MRF_DILS))
+    assert ok, (rel, err, edge, limit)
+
+
+@pytest.mark.parametrize("b,c,t", [(2, 16, 1000), (1, 64, 4096), (3, 32, 333), (1, 256, 500)])
+def test_mrf_branch_rows_matches_plain(card, b, c, t):
+    """Each branch one launch on [B, T, C], counted under (b, t, c); the
+    three averaged as ``mrf_rows``; C = 256 takes the large tile budget."""
+    from egregora_tpu_torch.ops import mrf_fused as mf
+    from egregora_tpu_torch.ops import mrf_rows as mr
+    x, w, bias = _mrf_operands(card, b, c, t, seed=c * t)
+    xr = x.transpose(1, 2).contiguous()
+    before = mr.launches_by_shape[(b, t, c)]
+    got = mr.mrf_rows(xr, w, bias)
+    torch.cuda.synchronize()
+    assert mr.launches_by_shape[(b, t, c)] == before + 3
+    acc = None
+    for bi, wb in enumerate(mf.branch_weights(w, c, chip_smoke.MRF_KERNELS, 3)):
+        h = mr.mrf_branch_rows_plain(xr, wb, bias[bi], chip_smoke.MRF_DILS)
+        acc = h if acc is None else acc + h
+    ok, rel, err, edge, limit = chip_smoke.mrf_agreement(got.transpose(1, 2),
+                                                         (acc / 3).transpose(1, 2))
+    assert ok, (rel, err, edge, limit)
+
+
+def test_mrf_rejects_what_it_does_not_take(card):
+    from egregora_tpu_torch.ops import mrf_fused as mf
+    x, w, bias = _mrf_operands(card, 1, 16, 256, seed=0)
+    with pytest.raises(TypeError):
+        mf.mrf_fused_cm(x.float(), w, bias)                     # float32 activations
+    with pytest.raises(ValueError):
+        mf.mrf_fused_cm(x.transpose(1, 2).contiguous().transpose(1, 2), w, bias)
+    with pytest.raises(ValueError):
+        mf.mrf_fused_cm(x, w[:-1], bias)                        # weights of another size
+    x24 = torch.zeros(1, 24, 256, device=card, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):
+        mf.mrf_fused_cm(x24, w, bias)                           # C not a multiple of 16

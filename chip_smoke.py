@@ -7,7 +7,8 @@ NVIDIA card, from the root of a checkout:
 Phases, one line each on standard output:
 
 1. the card's name and power limit (``nvidia-smi``); the builds of
-   ``csrc/attn_rows.cu`` and ``csrc/mrf.cu``, one ``nvcc`` each, at once;
+   ``csrc/attn_rows.cu``, ``csrc/mrf.cu`` and ``csrc/iir_lowpass.cu``,
+   one ``nvcc`` each, at once;
 2. each kernel against its plain PyTorch version on the card, at the
    shapes the main paths give it and at a ragged length, beside planted
    faults that the limits must reject, with the kernel's, the plain
@@ -20,24 +21,38 @@ Phases, one line each on standard output:
      over the block and over its first and last 120 samples; faults:
      the per-layer re-zeroing outside the signal skipped, the last
      dilation's residual dropped;
-3. a reference check of the full config (seeded weights) on one chunk:
+3. the repaired shapes: ``attn_rows`` at head sizes 24 and 40 (bf16) and
+   in float32, the MRF entries at C = 8 and 24 (bf16) and in float32
+   (float32 limits: relative L2 and max |d| 1e-5 of the largest output),
+   with the same planted faults; the upscaler node on a ``channel_floor=8``
+   HiFi-GAN config with the fused vocoder;
+4. K4 (``iir_lowpass``) against its plain version and float64 ``lfilter``
+   (max |d| 2e-6) at the meter's 300 s of 48 kHz stereo and at ragged
+   and near-unit-pole shapes; fault: the cross-tile carry dropped;
+5. a reference check of the full config (seeded weights) on one chunk:
    bf16 on the card against float32 arithmetic on the CPU with the same
-   weights (decoded mel, vocoder wave, the output's band above the
-   crossover); the attention fault must fail its limits;
-4. the ``EgregoraAudioUpscaler`` node on a comfy AUDIO dict (a seeded
+   weights, and against the card pipeline with float32 plain attention
+   (decoded mel, vocoder wave, the output's band above the crossover),
+   and each attention call against the float32 plain version on its own
+   inputs; the attention fault must fail every limit;
+6. the ``EgregoraAudioUpscaler`` node on a comfy AUDIO dict (a seeded
    12 s, 16 kHz signal, 3 chunks, to 48 kHz) with the shipped weights:
    the HiFi-GAN trio with the fused MRF kernel, the same trio with the
    rows kernel (``EGREGORA_MRF_PATH=rows``), and the default istft trio;
    one-shot through ``run`` and streaming (``max_batch=2``), with every
    kernel's launches counted by shape around each run; the kernels'
    vocoder wave against the module path's;
-5. the same reference check for one chunk of each shipped trio, with
+7. the same reference check for one chunk of each shipped trio, with
    its own planted fault;
-6. the full-config pipeline (seeded weights) one-shot and streaming, with
+8. the full-config pipeline (seeded weights) one-shot and streaming, with
    the attention launches counted by shape;
-7. a JSON line ``{"kernels": [...]}`` whose times are the per-shape
-   times of phase 2 times the launches phases 4 and 6 counted, and,
-   last, ``{"ok": true, ...}``.
+9. the eval-pack and null-suite nodes at real sizes (the meter on 300 s
+   of 48 kHz stereo, the pair nodes on 60 s with a planted 37.25-sample
+   delay and -3 dB gain), each held to the same code on the CPU, with
+   K4's calls counted by shape and the warm wall time of each node;
+10. a JSON line ``{"kernels": [...]}`` whose times are the per-shape
+   times of phases 2 and 4 times the launches phases 6, 8 and 9 counted,
+   and, last, ``{"ok": true, ...}``.
 
 Any failure exits non-zero and prints no ``"ok"`` line.  With no CUDA
 device it exits non-zero at once.
@@ -46,12 +61,14 @@ from __future__ import annotations
 
 import collections
 import json
+import math
 import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
 
 H100_BF16_FLOPS = 989e12     # dense bf16 tensor-core peak, H100 SXM
+H100_F32_FLOPS = 67e12       # float32 outside the tensor cores, H100 SXM
 H100_BYTES_PER_S = 3.35e12   # HBM3 rate, H100 SXM
 SECONDS = 12.0               # test signal: 3 chunks of 5.12 s at 48 kHz
 BATCH = 3                    # chunks in the one-shot batch of that signal
@@ -64,7 +81,7 @@ KEY_TILE = 64                # keys per K/V tile of csrc/attn_rows.cu
 ATTN_REL_L2 = 1e-2           # kernel vs plain, relative L2 over the output
 
 
-SOURCES = ("attn_rows", "mrf")   # egregora_tpu_torch/csrc/<name>.cu
+SOURCES = ("attn_rows", "mrf", "iir_lowpass")   # egregora_tpu_torch/csrc/<name>.cu
 
 
 def timed_build(name: str) -> float:
@@ -119,6 +136,35 @@ def bf16_agreement(got, ref):
     rel = rel_l2(got.float(), ref.float())
     ok = bool(got.float().isfinite().all()) and rel <= ATTN_REL_L2 and err <= limit
     return ok, rel, err, limit
+
+
+# float32 kernels against their float32 plain versions: both sum in
+# float32 in other orders, so sound runs differ by a few ulps of the
+# values summed; relative L2 and max |d| over max |plain| within F32_REL
+F32_REL = 1e-5
+
+
+def f32_agreement(got, ref):
+    """``(ok, rel_l2, max |d|)`` of a float32 result against its plain
+    version: relative L2 and max |d| / max |ref| within ``F32_REL``."""
+    ref_max = float(ref.float().abs().max())
+    err = float((got.float() - ref.float()).abs().max())
+    rel = rel_l2(got.float(), ref.float())
+    ok = bool(got.isfinite().all()) and rel <= F32_REL and err <= F32_REL * ref_max
+    return ok, rel, err
+
+
+# K4 against its plain version (or float64 lfilter) on a signal of scale
+# ~0.5: max |d| within IIR_ABS.  The float32 recurrence drifts ~1e-7 from
+# float64 (the plain version's blocks) and ~1e-8 (the kernel's 16-sample
+# runs); a dropped cross-tile carry reads 1e-2 and more
+IIR_ABS = 2e-6
+
+
+def iir_agreement(got, ref):
+    """``(ok, max |d|)`` of an IIR low-pass result against a reference."""
+    err = float((got.double() - ref.double()).abs().max())
+    return bool(got.isfinite().all()) and err <= IIR_ABS, err
 
 
 def drop_last_tile(q, k, v):
@@ -274,14 +320,15 @@ def mrf_bound_ms(c: int, t: int, b: int, launches_kernels) -> tuple:
     return max(ops_s, byte_s) * 1e3, "operations" if ops_s >= byte_s else "bytes"
 
 
-def mrf_module(c: int, seed: int):
-    """A port ``MRF`` at width C in bf16 with seeded weights and biases."""
+def mrf_module(c: int, seed: int, dtype=None):
+    """A port ``MRF`` at width C in ``dtype`` (bf16 by default) with
+    seeded weights and biases."""
     import torch
 
     from egregora_tpu_torch.models.flashsr.layers import seeded_init_
     from egregora_tpu_torch.models.flashsr.vocoder import MRF
     gen = torch.Generator().manual_seed(seed)
-    m = MRF(c, MRF_KERNELS, (MRF_DILS,) * 3, torch.bfloat16)
+    m = MRF(c, MRF_KERNELS, (MRF_DILS,) * 3, dtype or torch.bfloat16)
     seeded_init_(m, gen)
     with torch.no_grad():
         for name, p in m.named_parameters():
@@ -442,12 +489,28 @@ def test_signal(seconds: float, sr: int, seed: int):
 # between the sound reading (1.61e-2, 1.55e-2, 2.14e-2) and the planted
 # fault's (2.26e-2, 2.08e-2, 2.88e-2) on an H100 (PERF.md, Findings)
 REF_LIMITS = {"mel_hr": 1.9e-2, "wave": 1.8e-2, "high_band": 2.5e-2}
+# relative L2 limits of the same comparison with attention the only
+# difference: the card's bf16 pipeline through attn_rows against the same
+# card pipeline whose attention is the plain version in float32; each
+# lies between the sound reading (1.93e-2, 1.92e-2, 2.65e-2) and that of
+# every attention dropping its last key tile (2.61e-2, 2.46e-2, 3.40e-2)
+# on an H100 (PERF.md, Findings).  The bf16 layers after each attention
+# carry any change of its rounding to ~2% of the output, so this gap is
+# no wider than the CPU comparison's; the per-call check below is wide
+ATTN_ONLY_LIMITS = {"mel_hr": 2.25e-2, "wave": 2.15e-2, "high_band": 3.0e-2}
+# each attention call of that chunk against the float32 plain version on
+# its own inputs, relative L2: the kernel reads at most 1.7e-3, the
+# dropped last key tile at least 5.6e-3 (the path's softmax rows are
+# peaked, so the last 64 keys carry little weight in some calls) on an H100
+ATTN_CALL_LIMIT = 3e-3
 
 
 def reference_phase() -> None:
     """The full config on one chunk, seeded weights: bf16 on the card
     (through the kernel) against float32 arithmetic on the CPU (plain
-    versions) with the same weights (rounded to bf16).
+    versions) with the same weights (rounded to bf16), and against the
+    same card pipeline with its attention in float32 (the plain version):
+    the second comparison sees the attention kernel alone.
     Compared: the decoded mel, the vocoder's wave and the output's band
     above the crossover (what the model adds; below it the output is the
     input).  A planted fault, every attention dropping its last key tile,
@@ -484,28 +547,64 @@ def reference_phase() -> None:
     card = P.FlashSRPipeline(cfg(torch.bfloat16), seed=1, device="cuda")
     sound = outputs(card)
     kernel = attention.attn_rows
-    attention.attn_rows = drop_last_tile
+    calls = []
+
+    def f32_attention(q, k, v):
+        return attention.chunked_attention(q.float(), k.float(), v.float())
+
+    def checked(q, k, v):
+        """The kernel, held on the spot to the float32 plain version on the
+        pipeline's own inputs, beside the dropped last key tile."""
+        got = kernel(q, k, v)
+        ref32 = f32_attention(q, k, v)
+        calls.append((tuple(q.shape), rel_l2(got.float(), ref32),
+                      rel_l2(drop_last_tile(q, k, v).float(), ref32)))
+        return got
+
     try:
+        attention.attn_rows = checked
+        outputs(card)
+        attention.attn_rows = drop_last_tile
         planted = outputs(card)
+        attention.attn_rows = lambda q, k, v: f32_attention(q, k, v).to(q.dtype)
+        attn_ref = outputs(card)
     finally:
         attention.attn_rows = kernel
-    for key, limit in REF_LIMITS.items():
-        good, bad = rel_l2(sound[key], ref[key]), rel_l2(planted[key], ref[key])
-        log(f"reference {key}: bf16 card vs f32 cpu relative L2 {good:.3e} "
-            f"(limit {limit:g}) {'ok' if good <= limit else 'FAIL'}; planted fault "
-            f"{bad:.3e} {'rejected' if bad > limit else 'not rejected'}")
-        if not good <= limit:
-            raise RuntimeError(f"card and CPU pipelines disagree on {key}: {good}")
-        if not bad > limit:
-            raise RuntimeError(f"the {key} limit does not reject a dropped last key tile")
+    failures = []
+    good = max(c[1] for c in calls)
+    bad = min(c[2] for c in calls)
+    log(f"reference attention per call ({len(calls)} calls of one chunk, shapes "
+        f"{sorted(set(c[0] for c in calls))}): attn_rows vs float32 plain on the same inputs, "
+        f"relative L2 at most {good:.3e} (limit {ATTN_CALL_LIMIT:g}) "
+        f"{'ok' if good <= ATTN_CALL_LIMIT else 'FAIL'}; planted fault (last key tile dropped) "
+        f"at least {bad:.3e} {'rejected' if bad > ATTN_CALL_LIMIT else 'NOT REJECTED'}")
+    if not good <= ATTN_CALL_LIMIT:
+        failures.append(f"attention per call: {good}")
+    if not bad > ATTN_CALL_LIMIT:
+        failures.append("attention per call: the dropped key tile passes")
+    for label, limits, base in (("bf16 card vs f32 cpu", REF_LIMITS, ref),
+                                ("attention only: attn_rows vs f32 plain on the card",
+                                 ATTN_ONLY_LIMITS, attn_ref)):
+        for key, limit in limits.items():
+            good, bad = rel_l2(sound[key], base[key]), rel_l2(planted[key], base[key])
+            log(f"reference {key}, {label}: relative L2 {good:.3e} (limit {limit:g}) "
+                f"{'ok' if good <= limit else 'FAIL'}; planted fault (last key tile dropped) "
+                f"{bad:.3e} {'rejected' if bad > limit else 'NOT REJECTED'}")
+            if not good <= limit:
+                failures.append(f"{label}: {key} reads {good}")
+            if not bad > limit:
+                failures.append(f"{label}: the {key} limit does not reject a dropped last key tile")
+    if failures:
+        raise RuntimeError("; ".join(failures))
 
 
 def reset_counts() -> None:
     """Every kernel's launch counts to 0."""
     from egregora_tpu_torch.ops import attn_rows as ar
+    from egregora_tpu_torch.ops import iir_lowpass as il
     from egregora_tpu_torch.ops import mrf_fused as mf
     from egregora_tpu_torch.ops import mrf_rows as mr
-    for mod in (ar, mf, mr):
+    for mod in (ar, mf, mr, il):
         mod.launches = 0
         mod.launches_by_shape.clear()
 
@@ -514,11 +613,13 @@ def read_counts() -> dict:
     """Launches since ``reset_counts`` by kernel and shape; mrf_rows's
     (b, t, c) shapes are given as (b, c, t), as mrf_fused_cm's."""
     from egregora_tpu_torch.ops import attn_rows as ar
+    from egregora_tpu_torch.ops import iir_lowpass as il
     from egregora_tpu_torch.ops import mrf_fused as mf
     from egregora_tpu_torch.ops import mrf_rows as mr
     return {"attn_rows": dict(ar.launches_by_shape),
             "mrf_fused_cm": dict(mf.launches_by_shape),
-            "mrf_rows": {(b, c, t): n for (b, t, c), n in mr.launches_by_shape.items()}}
+            "mrf_rows": {(b, c, t): n for (b, t, c), n in mr.launches_by_shape.items()},
+            "iir_lowpass": dict(il.launches_by_shape)}
 
 
 def set_env(**values) -> None:
@@ -668,7 +769,8 @@ def expected_counts(per_item: dict, b: int, batches: int) -> dict:
     from its per-batch launches at batch 1 (the attention adds one
     ``SERVED_ATTN`` call a batch)."""
     heads, n, d = SERVED_ATTN
-    out = {"attn_rows": {(b * heads, n, d): batches}, "mrf_fused_cm": {}, "mrf_rows": {}}
+    out = {"attn_rows": {(b * heads, n, d): batches}, "mrf_fused_cm": {}, "mrf_rows": {},
+           "iir_lowpass": {}}
     for kernel, shapes in per_item.items():
         out[kernel] = {(b, c, t): k * batches for (_, c, t), k in shapes.items()}
     return out
@@ -686,10 +788,10 @@ def node_phase() -> dict:
 
     from egregora_tpu_torch.models.flashsr import pipeline as P
     from egregora_tpu_torch.models.flashsr import vocoder as V
-    from egregora_tpu_torch.nodes import NODE_CLASS_MAPPINGS
+    from egregora_tpu_torch.nodes import super_resolution
     from egregora_tpu_torch.nodes.base import to_buffer
 
-    node_cls = NODE_CLASS_MAPPINGS["EgregoraAudioUpscaler"]
+    node_cls = super_resolution.NODE_CLASS_MAPPINGS["EgregoraAudioUpscaler"]
     sr_in, sr_out = 16000, 48000
     x = test_signal(SECONDS, sr_in, seed=0)
     audio = {"waveform": torch.from_numpy(x[None]), "sample_rate": sr_in}
@@ -837,6 +939,490 @@ def pipeline_phase() -> dict:
             "launches_streaming": results["streaming max_batch=2"][1]}
 
 
+def kernel_agreement(got, ref):
+    """``(ok, rel_l2, max |d|, max-|d| limit)``: ``bf16_agreement`` for a
+    bf16 result, ``f32_agreement``'s limits for a float32 one."""
+    import torch
+    if got.dtype == torch.bfloat16:
+        return bf16_agreement(got, ref)
+    ok, rel, err = f32_agreement(got, ref)
+    return ok, rel, err, F32_REL * float(ref.float().abs().max())
+
+
+def bound(flops: float, nbytes: float, peak: float) -> tuple:
+    """(bound ms, bound_by): the larger of operations at ``peak`` and
+    bytes at the HBM rate."""
+    ops_s, byte_s = flops / peak, nbytes / H100_BYTES_PER_S
+    return max(ops_s, byte_s) * 1e3, "operations" if ops_s >= byte_s else "bytes"
+
+
+# the repaired kernels' new shapes: attention (bh, n, d, dtype) -- the
+# legacy geometry's mid block (4 heads of 24 at B = 3), a ragged head
+# size, float32; MRF (c, t, dtype) at B = 3 -- channel_floor=8 and C = 24
+# in bf16 (padded to 16 and 32 channels), C = 16 in float32
+REPAIR_ATTN = [(12, 512, 24, "bfloat16"), (8, 1000, 40, "bfloat16"), (12, 512, 32, "float32")]
+REPAIR_MRF = [(8, 40960, "bfloat16"), (24, 40960, "bfloat16"), (16, 40960, "float32")]
+
+
+def repair_phase() -> dict:
+    """``attn_rows`` and both MRF entries at the shapes and dtypes they
+    refused before (head sizes outside 32/64/256, C not a multiple of 16,
+    float32), each against its plain version beside the planted faults;
+    then the ``EgregoraAudioUpscaler`` node on a ``channel_floor=8``
+    HiFi-GAN config with the fused vocoder."""
+    import torch
+    import torch.nn.functional as F
+
+    from egregora_tpu_torch.ops import attn_rows as ar
+    from egregora_tpu_torch.ops import mrf_fused as mf
+    from egregora_tpu_torch.ops import mrf_rows as mr
+    from egregora_tpu_torch.ops.attention import chunked_attention
+
+    attn, mrf, failures = [], [], []
+    gen = torch.Generator().manual_seed(5)
+    for bh, n, d, dt in REPAIR_ATTN:
+        dtype = getattr(torch, dt)
+        q, k, v = (torch.randn(bh, n, d, generator=gen).to("cuda", dtype) for _ in range(3))
+        got = ar.attn_rows(q, k, v)
+        torch.cuda.synchronize()
+        plain = chunked_attention(q, k, v)
+        ok, rel, err, limit = kernel_agreement(got, plain)
+        bad_ok, bad_rel, bad_err, _ = kernel_agreement(drop_last_tile(q, k, v), plain)
+        size = q.element_size()
+        bound_ms, bound_by = bound(4.0 * bh * n * n * d, 4.0 * bh * n * d * size,
+                                   H100_BF16_FLOPS if dtype == torch.bfloat16 else H100_F32_FLOPS)
+        ms = cuda_ms(lambda: ar.attn_rows(q, k, v), 20)
+        plain_ms = cuda_ms(lambda: chunked_attention(q, k, v), 5, 1)
+        heads = 4 if d == 24 else bh // BATCH
+        q4, k4, v4 = (t.view(-1, heads, n, d) for t in (q, k, v))
+        lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4), 20)
+        row = {"bh": bh, "n": n, "d": d, "dtype": dt, "max_abs_err": err, "rel_l2": rel,
+               "max_abs_limit": limit, "planted_rel_l2": bad_rel, "planted_max_abs_err": bad_err,
+               "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": bound_ms,
+               "bound_by": bound_by}
+        attn.append(row)
+        log(f"repair attn_rows [{bh},{n},{d}] {dt}: vs plain max|d| {err:.3e} (limit "
+            f"{limit:.3e}), rel L2 {rel:.3e} {'ok' if ok else 'FAIL'}; planted fault (last key "
+            f"tile dropped) max|d| {bad_err:.3e}, rel L2 {bad_rel:.3e} "
+            f"{'rejected' if not bad_ok else 'NOT REJECTED'}; kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by})")
+        if not ok:
+            failures.append(f"attn_rows [{bh},{n},{d}] {dt} disagrees: {rel}, {err}")
+        if bad_ok:
+            failures.append(f"attn_rows [{bh},{n},{d}] {dt}: the planted fault passes")
+
+    for c, t, dt in REPAIR_MRF:
+        dtype = getattr(torch, dt)
+        m = mrf_module(c, seed=c, dtype=dtype).to("cuda")
+        w, bias = mf.pack_resblock_weights(m, dtype)
+        g = torch.Generator().manual_seed(t + c)
+        x = (0.5 * torch.randn(BATCH, c, t, generator=g)).to("cuda", dtype)
+        x_rows = x.transpose(1, 2).contiguous()
+        branch_w = mf.branch_weights(w, c, MRF_KERNELS, len(MRF_DILS))
+
+        def agree(got, ref):
+            if dtype == torch.bfloat16:
+                ok, rel, err, edge, limit = mrf_agreement(got, ref)
+                return ok, rel, max(err, edge), limit
+            return kernel_agreement(got, ref)
+
+        def rows_plain():
+            acc = None
+            for bi, wb in enumerate(branch_w):
+                h = mr.mrf_branch_rows_plain(x_rows, wb, bias[bi], MRF_DILS)
+                acc = h if acc is None else acc + h
+            return (acc / len(MRF_KERNELS)).transpose(1, 2)
+
+        for entry, run, plain, circ in (
+                ("mrf_fused_cm", lambda: mf.mrf_fused_cm(x, w, bias, MRF_KERNELS, MRF_DILS),
+                 lambda: mf.mrf_fused_cm_plain(x, w, bias, MRF_KERNELS, MRF_DILS), True),
+                ("mrf_rows", lambda: mr.mrf_rows(x_rows, w, bias, MRF_KERNELS,
+                                                 MRF_DILS).transpose(1, 2), rows_plain, False)):
+            got = run()
+            torch.cuda.synchronize()
+            ref = plain()
+            ok, rel, err, limit = agree(got, ref)
+            planted = {f: agree(mrf_planted(x, w, bias, f, round_then_bias=circ), ref)
+                       for f in ("no_rezero", "drop_residual")}
+            rejected = all(not p[0] for p in planted.values())
+            flops = mrf_flops(c, t, BATCH)
+            launches = 1 if entry == "mrf_fused_cm" else len(MRF_KERNELS)
+            bound_ms, bound_by = bound(flops, launches * 2.0 * BATCH * c * t * x.element_size(),
+                                       H100_BF16_FLOPS if dtype == torch.bfloat16
+                                       else H100_F32_FLOPS)
+            ms = cuda_ms(run, 5)
+            plain_ms = cuda_ms(plain, 2, 1)
+            module_ms = cuda_ms(lambda: m(x), 3, 1)
+            row = {"entry": entry, "b": BATCH, "c": c, "t": t, "dtype": dt, "max_abs_err": err,
+                   "rel_l2": rel, "max_abs_limit": limit,
+                   "planted": {f: {"rel_l2": p[1], "max_abs_err": p[2]} for f, p in planted.items()},
+                   "ms": ms, "plain_ms": plain_ms, "module_ms": module_ms, "bound_ms": bound_ms,
+                   "bound_by": bound_by, "tflops": flops / ms / 1e9}
+            mrf.append(row)
+            log(f"repair {entry} [{BATCH},{c},{t}] {dt}: vs plain max|d| {err:.3e} (limit "
+                f"{limit:.3e}), rel L2 {rel:.3e} {'ok' if ok else 'FAIL'}; planted "
+                + ", ".join(f"{f}: rel L2 {p[1]:.3e} max|d| {p[2]:.3e}" for f, p in planted.items())
+                + f" {'rejected' if rejected else 'NOT REJECTED'}; kernel {ms:.4f} ms "
+                f"({row['tflops']:.1f} TFLOP/s), plain {plain_ms:.4f} ms, module path "
+                f"{module_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+            if not ok:
+                failures.append(f"{entry} [{BATCH},{c},{t}] {dt} disagrees: {rel}, {err}")
+            if not rejected:
+                failures.append(f"{entry} [{BATCH},{c},{t}] {dt}: a planted fault passes")
+        del x, x_rows, m
+    if failures:
+        raise RuntimeError("; ".join(failures))
+    return {"attn": attn, "mrf": mrf, "node": narrow_node_run()}
+
+
+def narrow_node_run() -> dict:
+    """The upscaler node on a seeded narrow HiFi-GAN config whose vocoder
+    stages all have ``channel_floor=8`` channels, bf16, with the fused
+    vocoder (``EGREGORA_FUSED_VOCODER=1``): every stage through
+    ``mrf_fused_cm`` padded to 16 channels, the StudentUNet's 4-head mid
+    attention at D = 8 through ``attn_rows``; its vocoder wave against the
+    module path's."""
+    import numpy as np
+    import torch
+
+    from egregora_tpu_torch.models.flashsr import pipeline as P
+    from egregora_tpu_torch.models.flashsr import unet as U
+    from egregora_tpu_torch.models.flashsr import vocoder as V
+    from egregora_tpu_torch.nodes import super_resolution
+
+    cfg = P.FlashSRConfig(
+        vae=P.VAEConfig(base_channels=8, channel_mults=(1, 2, 4), latent_channels=16,
+                        num_res_blocks=1, groups=4, mid_attn=False, use_quant_conv=False),
+        unet=U.UNetConfig(base_channels=16, channel_mults=(1, 2, 2), num_res_blocks=1,
+                          attn_levels=(), num_heads=4, time_dim=32, groups=4),
+        vocoder=V.VocoderConfig(upsample_initial=16, channel_floor=8))
+    node_cls = super_resolution.NODE_CLASS_MAPPINGS["EgregoraAudioUpscaler"]
+    node_cls._PIPE = pipe = P.FlashSRPipeline(cfg, seed=0, device="cuda")
+    x = test_signal(SECONDS, 16000, seed=0)
+    set_env(EGREGORA_FUSED_VOCODER="1", EGREGORA_MRF_PATH=None)
+    try:
+        for _ in ("cold", "warm"):
+            reset_counts()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            (out,) = node_cls().run({"waveform": torch.from_numpy(x[None]), "sample_rate": 16000},
+                                    False, "48000")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+            counts = read_counts()
+        y = out["waveform"].numpy()
+        chunk = torch.from_numpy(test_signal(P.CHUNK_S, P.REQ_SR, seed=3)).to("cuda")
+        wav = pipe.synthesize(chunk)[1]
+        set_env(EGREGORA_FUSED_VOCODER=None)
+        module = pipe.synthesize(chunk)[1]
+    finally:
+        set_env(EGREGORA_FUSED_VOCODER=None)
+        node_cls._PIPE = None
+    rel = rel_l2(wav.float(), module.float())
+    fused = counts["mrf_fused_cm"]
+    log(f"repair node (channel_floor=8, fused vocoder, bf16): warm {wall:.3f} s, out {y.shape}, "
+        f"finite {bool(np.isfinite(y).all())}, launches {counts}; vocoder wave vs the module "
+        f"path relative L2 {rel:.3e} (limit {FUSED_WAVE_LIMIT:g})")
+    if y.shape != (1, 1, int(SECONDS * 48000)) or not np.isfinite(y).all():
+        raise RuntimeError(f"the channel_floor=8 node gave {y.shape}, finite={np.isfinite(y).all()}")
+    if sum(fused.values()) != 3 or any(c != 8 for (_, c, _) in fused):
+        raise RuntimeError(f"the channel_floor=8 node's fused vocoder launched {fused}")
+    if not counts["attn_rows"] or any(d != 8 for (_, _, d) in counts["attn_rows"]):
+        raise RuntimeError(f"the channel_floor=8 node's attention launched {counts['attn_rows']}")
+    if not rel <= FUSED_WAVE_LIMIT:
+        raise RuntimeError(f"the channel_floor=8 fused vocoder is {rel} from the module path")
+    return {"wall_s": wall, "wave_rel_l2": rel, "counts": {k: {str(s): n for s, n in v.items()}
+                                                           for k, v in counts.items()}}
+
+
+# K4: the K-weighting pole at 48 kHz and the shapes it runs at -- (C, N),
+# pole, where
+K48 = math.exp(-2.0 * math.pi * 60.0 / 24000.0)
+K4_SHAPES = [((2, 14_400_000), K48, "300 s of 48 kHz stereo (the meter)"),
+             ((2, 2_880_000), K48, "60 s of 48 kHz stereo (gain match, null test)"),
+             ((1, 100), K48, "shorter than a tile"),
+             ((3, 32_769), K48, "a ragged tile edge"),
+             ((1, 4_194_304), 0.9999, "a pole near 1")]
+
+
+def dropped_carry(x, k):
+    """A planted fault of K4: every 4096-sample tile scanned from a zero
+    state (the cross-tile carry dropped), from the plain version."""
+    import torch.nn.functional as F
+
+    from egregora_tpu_torch.ops import iir_lowpass as il
+    c, n = x.shape
+    nt = -(-n // il.TILE)
+    xp = F.pad(x, (0, nt * il.TILE - n)).reshape(c * nt, il.TILE)
+    return il.iir_lowpass_plain(xp, k).reshape(c, nt * il.TILE)[:, :n]
+
+
+def k4_phase() -> list:
+    """``iir_lowpass`` (K4) against its plain version on the card and
+    against float64 ``scipy.signal.lfilter`` on the host, beside the
+    planted dropped carry (which needs more than one tile to show), with
+    its time, the plain version's and the bound: 8 bytes a sample (one
+    float32 read, one written) at the HBM rate.  No PyTorch call computes
+    a first-order recurrence, so there is no library time."""
+    import torch
+    from scipy.signal import lfilter
+
+    from egregora_tpu_torch.ops import iir_lowpass as il
+
+    rows, failures = [], []
+    for (c, n), k, where in K4_SHAPES:
+        gen = torch.Generator(device="cuda").manual_seed(n)
+        x = 0.5 * torch.randn(c, n, generator=gen, device="cuda")
+        got = il.iir_lowpass(x, k)
+        torch.cuda.synchronize()
+        plain = il.iir_lowpass_plain(x, k)
+        ok, err = iir_agreement(got, plain)
+        got_h = got.cpu()
+        ref64 = torch.from_numpy(lfilter([1.0 - k], [1.0, -k], x.cpu().double().numpy(), axis=-1))
+        ok64, err64 = iir_agreement(got_h, ref64)
+        plain_err64 = iir_agreement(plain.cpu(), ref64)[1]
+        tiles = -(-n // il.TILE)
+        bad_ok, bad_err = iir_agreement(dropped_carry(x, k), plain) if tiles > 1 else (None, None)
+        reps = max(3, min(200, int(2e9 / (c * n))))
+        ms = cuda_ms(lambda: il.iir_lowpass(x, k), reps)
+        plain_ms = cuda_ms(lambda: il.iir_lowpass_plain(x, k), 2, 1)
+        bound_ms = 8.0 * c * n / H100_BYTES_PER_S * 1e3
+        row = {"c": c, "n": n, "k": k, "where": where, "max_abs_err": err,
+               "max_abs_err_f64": err64, "plain_max_abs_err_f64": plain_err64,
+               "planted_max_abs_err": bad_err, "limit": IIR_ABS, "ms": ms, "plain_ms": plain_ms,
+               "bound_ms": bound_ms, "bound_by": "bytes", "gb_per_s": 8.0 * c * n / ms / 1e6}
+        rows.append(row)
+        planted = ("n/a (one tile)" if bad_ok is None else
+                   f"{bad_err:.3e} {'rejected' if not bad_ok else 'NOT REJECTED'}")
+        log(f"iir_lowpass [{c},{n}] k={k:.6f} ({where}): vs plain max|d| {err:.3e}, vs float64 "
+            f"lfilter {err64:.3e} (plain {plain_err64:.3e}; limit {IIR_ABS:g}) "
+            f"{'ok' if ok and ok64 else 'FAIL'}; planted fault (cross-tile carry dropped) "
+            f"{planted}; kernel {ms:.4f} ms ({row['gb_per_s']:.0f} GB/s), plain "
+            f"{plain_ms:.3f} ms, bound {bound_ms:.4f} ms (bytes)")
+        if not (ok and ok64):
+            failures.append(f"iir_lowpass [{c},{n}] disagrees: {err} / {err64}")
+        if bad_ok:
+            failures.append(f"iir_lowpass [{c},{n}]: the dropped carry passes")
+        del x, got, plain
+    if failures:
+        raise RuntimeError("; ".join(failures))
+    return rows
+
+
+def iir_entry(rows: list, counts: dict, by_path: dict) -> dict:
+    """The ``kernels`` line's K4 entry: times and bound of the calls the
+    eval path made, shape by shape (``counts``: (c, n) -> calls)."""
+    by_shape = {(r["c"], r["n"]): r for r in rows}
+
+    def total(key):
+        return sum(by_shape[s][key] * n for s, n in counts.items())
+
+    return {
+        "name": "iir_lowpass", "route": "cuda",
+        "source": "egregora_tpu_torch/csrc/iir_lowpass.cu",
+        "replaces": "egregora_tpu/ops/pallas_iir.py:110",
+        "launches": sum(counts.values()),
+        "max_abs_err": max(r["max_abs_err"] for r in rows),
+        "ms": total("ms"), "plain_ms": total("plain_ms"),
+        "bound_ms": sum(8.0 * c * n * k for (c, n), k in counts.items())
+        / H100_BYTES_PER_S * 1e3,
+        "bound_by": "bytes", "library_ms": None,
+        "library_note": "no PyTorch call computes a first-order recurrence",
+        "launches_by_shape": {f"{c}x{n}": k for (c, n), k in counts.items()},
+        "launches_by_path": by_path,
+        "shapes": rows,
+    }
+
+
+EVAL_SR = 48000
+METER_SECONDS = 300.0       # the meter on 300 s of 48 kHz stereo
+PAIR_SECONDS = 60.0         # the pair nodes on 60 s of 48 kHz stereo
+PLANTED_DELAY = 37.25       # samples: B is A delayed ...
+PLANTED_GAIN_DB = -3.0      # ... and scaled
+# card (K4, cuFFT, the card's matmuls) against the same port code on the
+# CPU (plain versions): LUFS and dB readings within 1e-3, delays within
+# 1e-3 samples, the null's RMS within 0.1 dB (a -20 dB null amplifies the
+# signals' relative rounding ten times), audio within 1e-5
+EVAL_DB, EVAL_DELAY, EVAL_NULL_DB, EVAL_AUDIO = 1e-3, 1e-3, 0.1, 1e-5
+# the planted delay and gain recovered: the parabola through the
+# whitened GCC-PHAT peak leans ~0.1 sample toward the integer lag
+RECOVER_DELAY, RECOVER_GAIN_DB = 0.15, 0.05
+# K4 calls a node makes, by shape: four K-weightings a meter reading
+# set, two a LUFS-I gain match, three in "Null Test (Full)"'s defaults
+METER_N = int(METER_SECONDS * EVAL_SR)
+PAIR_N = int(PAIR_SECONDS * EVAL_SR)
+
+
+def eval_signal(seconds: float, seed: int):
+    """Seeded music-like stereo at 48 kHz, made on the card: 12 harmonics
+    of 196 Hz under a slow level swing (so the loudness range is not 0),
+    the right channel 0.8 of the left, a little noise; peak 0.5.
+    Returns host float32 ``[2, N]``."""
+    import torch
+    n = int(seconds * EVAL_SR)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    t = torch.arange(n, device="cuda", dtype=torch.float64) / EVAL_SR
+    ph = torch.rand(12, generator=g, device="cuda", dtype=torch.float64) * 2 * math.pi
+    x = torch.zeros(n, device="cuda", dtype=torch.float64)
+    for h in range(1, 13):
+        x += torch.sin(2 * math.pi * 196.0 * h * t + ph[h - 1]) / h
+    x *= 0.55 + 0.45 * torch.sin(2 * math.pi * t / 23.0)
+    y = torch.stack([x, 0.8 * x]) + 0.01 * torch.randn(2, n, generator=g, device="cuda",
+                                                        dtype=torch.float64)
+    return (0.5 * y / y.abs().max()).float().cpu().numpy()
+
+
+def frac_delayed(x, delay: float, gain_db: float):
+    """``x [C, N]`` delayed by ``delay`` samples (a band-limited shift
+    through the FFT of the zero-padded signal, on the card in float64)
+    and scaled by ``gain_db``."""
+    import torch
+    xd = torch.from_numpy(x).to("cuda", torch.float64)
+    m = 2 * xd.shape[-1]
+    f = torch.fft.rfftfreq(m, device="cuda", dtype=torch.float64)
+    y = torch.fft.irfft(torch.fft.rfft(xd, m) * torch.exp(-2j * math.pi * f * delay), m)
+    return (10 ** (gain_db / 20) * y[:, : x.shape[-1]]).float().cpu().numpy()
+
+
+def eval_phase() -> dict:
+    """The eval-pack and null-suite nodes on the card at real sizes: the
+    meter on 300 s of 48 kHz stereo; Metrics, Gain Match (1770), Resample
+    Audio (HQ) and Null Test (Full) (GCC-PHAT with the centre fixed,
+    draws off) on a 60 s pair whose B is A delayed by 37.25 samples and
+    scaled by -3 dB; the plotter with draws on where matplotlib is
+    installed; ABX once.  Each node runs cold, then warm with the launch
+    counts set to 0 before and read after; its readings are held to the
+    same port code on the CPU (plain versions), the recovered delay and
+    gain to the planted ones."""
+    import importlib.util
+
+    import numpy as np
+    import torch
+
+    from egregora_tpu_torch.nodes import eval_pack as ep
+    from egregora_tpu_torch.nodes import null_suite as ns
+    from egregora_tpu_torch.nodes.base import DeviceNode
+
+    t0 = time.perf_counter()
+    song = eval_signal(METER_SECONDS, seed=11)
+    a = eval_signal(PAIR_SECONDS, seed=12)
+    b = frac_delayed(a, PLANTED_DELAY, PLANTED_GAIN_DB)
+    A = {"waveform": torch.from_numpy(a[None]), "sample_rate": EVAL_SR}
+    B = {"waveform": torch.from_numpy(b[None]), "sample_rate": EVAL_SR}
+    SONG = {"waveform": torch.from_numpy(song[None]), "sample_rate": EVAL_SR}
+    log(f"eval: signals made in {time.perf_counter() - t0:.1f} s ({METER_SECONDS:g} s and "
+        f"2 x {PAIR_SECONDS:g} s of {EVAL_SR} Hz stereo)")
+    off = dict(draw_waveforms=False, draw_spectrograms=False, draw_diffspec=False)
+    nodes = [  # label, node class, args, kwargs, K4 calls by shape
+        ("Loudness Meter (BS1770)", ep.Loudness_Meter_1770, (SONG,), {}, {(2, METER_N): 4}),
+        ("Metrics (LSD + SI-SDR)", ep.Metrics_LSD_SISDR, (A, B), {}, {}),
+        ("Audio Gain Match (1770)", ep.Audio_Gain_Match_1770, (A, B), {}, {(2, PAIR_N): 2}),
+        ("Resample Audio (HQ)", ep.Resample_Audio_HQ, (A,), {"target_sr": 44100}, {}),
+        ("Null Test (Full)", ns.Null_Test_Full, (A, B), dict(align_method="gcc-phat-fixed", **off),
+         {(2, PAIR_N): 3}),
+    ]
+    results, failures, k4_counts, by_path = {}, [], collections.Counter(), {}
+    try:
+        for label, cls, args, kw, k4_expect in nodes:
+            DeviceNode.DEVICE = "cuda"
+            for run_no in ("cold", "warm"):
+                reset_counts()
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                card = getattr(cls(), cls.FUNCTION)(*args, **kw)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t
+                counts = read_counts()
+            DeviceNode.DEVICE = "cpu"
+            t = time.perf_counter()
+            cpu = getattr(cls(), cls.FUNCTION)(*args, **kw)
+            cpu_wall = time.perf_counter() - t
+            k4 = counts["iir_lowpass"]
+            k4_counts.update(k4)
+            by_path[label] = sum(k4.values())
+            others = {name: c for name, c in counts.items() if name != "iir_lowpass" and c}
+            readings = compare_eval_node(label, card, cpu, failures)
+            results[label] = {"warm_wall_s": wall, "cpu_wall_s": cpu_wall, "k4": k4,
+                              "readings": readings}
+            log(f"eval node {label}: warm {wall:.4f} s on the card (CPU plain {cpu_wall:.2f} s); "
+                f"K4 calls {k4} (expected {k4_expect}); readings {readings}")
+            if k4 != k4_expect or others:
+                failures.append(f"{label}: launches {counts}, expected K4 {k4_expect} only")
+        DeviceNode.DEVICE = "cuda"
+        has_mpl = importlib.util.find_spec("matplotlib") is not None
+        if has_mpl:
+            null_card = ns.Null_Test_Full().execute(A, B, align_method="gcc-phat-fixed", **off)
+            t = time.perf_counter()
+            imgs = ns.Audio_Plotter().execute(A, null_card[0], null_card[1])
+            wall = time.perf_counter() - t
+            shapes = [tuple(i.shape) for i in imgs]
+            log(f"eval node Audio Plotter: matplotlib found, draws on: images {shapes} in "
+                f"{wall:.2f} s")
+            if any(s[1] < 100 or s[3] != 3 for s in shapes):
+                failures.append(f"Audio Plotter drew {shapes}")
+            results["Audio Plotter"] = {"wall_s": wall, "images": shapes}
+        else:
+            log("eval node Audio Plotter: matplotlib not installed here, so the plotter runs "
+                "with draws off only (inside Null Test (Full))")
+        abx = ep.ABX_Prepare().execute(A, B, clip_seconds=5.0, random_seed=3)
+        judged = ep.ABX_Judge().execute(abx[3], abx[3]["x_is"])[0]
+        log(f"eval node ABX Prepare/Judge: X is {abx[3]['x_is']}, clips "
+            f"{[tuple(x['waveform'].shape) for x in abx[:3]]}, judged {judged}")
+        if not judged["correct"] or abx[0]["waveform"].shape[-1] != 5 * EVAL_SR:
+            failures.append(f"ABX: {abx[3]}, {judged}")
+    finally:
+        DeviceNode.DEVICE = "cuda"
+    full = results["Null Test (Full)"]["readings"]
+    d_err = abs(full["delay_samples"] - PLANTED_DELAY)
+    g_err = abs(full["gain_db"] + PLANTED_GAIN_DB)
+    log(f"eval: planted delay {PLANTED_DELAY} read {full['delay_samples']:.4f} (|d| {d_err:.4f}, "
+        f"limit {RECOVER_DELAY}); planted gain {PLANTED_GAIN_DB} dB undone by "
+        f"{full['gain_db']:+.4f} dB (|d| {g_err:.4f}, limit {RECOVER_GAIN_DB})")
+    if not (d_err <= RECOVER_DELAY and g_err <= RECOVER_GAIN_DB):
+        failures.append(f"the planted delay/gain were not recovered: {full}")
+    if failures:
+        raise RuntimeError("; ".join(failures))
+    return {"nodes": results, "k4_counts": dict(k4_counts), "k4_by_path": by_path}
+
+
+def compare_eval_node(label: str, card, cpu, failures: list) -> dict:
+    """An eval node's card outputs against its CPU outputs: every DICT
+    reading and FLOAT within its limit, every AUDIO within ``EVAL_AUDIO``;
+    returns the card's readings (Null Test (Full): with its delay)."""
+    import numpy as np
+
+    def lim(key):
+        if key in ("null_rms_dbfs", "null_lufs"):
+            return EVAL_NULL_DB
+        if key in ("corr_coef", "scale_k"):
+            return 1e-4
+        return 0 if key == "overshoot_count" else EVAL_DB
+
+    readings = {}
+
+    def check(key, got, ref, limit):
+        readings[key] = got
+        if not abs(got - ref) <= limit or not np.isfinite(got):
+            failures.append(f"{label} {key}: card {got}, CPU {ref} (limit {limit})")
+
+    for i, (g, r) in enumerate(zip(card, cpu)):
+        if isinstance(g, dict) and "waveform" in g:
+            gw, rw = g["waveform"].numpy(), r["waveform"].numpy()
+            if gw.shape != rw.shape or not np.abs(gw - rw).max() <= EVAL_AUDIO:
+                failures.append(f"{label} output {i}: audio {gw.shape} vs {rw.shape}, max|d| "
+                                f"{np.abs(gw - rw).max() if gw.shape == rw.shape else 'n/a'}")
+        elif isinstance(g, dict):
+            for key in g:
+                check(key, float(g[key]), float(r[key]), lim(key))
+        elif isinstance(g, float):
+            name = {"Null Test (Full)": ("", "", "delay_ms", "gain_db"),
+                    "Audio Gain Match (1770)": ("", "gain_db", "ref_level", "in_level")}[label][i]
+            check(name, g, r, EVAL_DELAY * 1e3 / EVAL_SR if name == "delay_ms" else EVAL_DB)
+    if "delay_ms" in readings:
+        readings["delay_samples"] = readings["delay_ms"] * EVAL_SR / 1e3
+    return readings
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -866,10 +1452,13 @@ def main() -> int:
 
     attn_rows_ = attention_phase()
     mrf_rows_ = mrf_phase()
+    repair = repair_phase()
+    k4_rows = k4_phase()
     reference_phase()
     nodes = node_phase()
     served_reference_phase()
     pipe = pipeline_phase()
+    evals = eval_phase()
 
     attn_counts = collections.Counter(pipe["counts"])
     attn_paths = {"full config (seeded weights)": pipe["launches"]}
@@ -882,13 +1471,20 @@ def main() -> int:
                mrf_entry("mrf_fused_cm", mrf_rows_, fused,
                          {"HiFi-GAN trio, fused MRF": sum(fused.values())}),
                mrf_entry("mrf_rows", mrf_rows_, rows,
-                         {"HiFi-GAN trio, rows MRF": sum(rows.values())})]
+                         {"HiFi-GAN trio, rows MRF": sum(rows.values())}),
+               iir_entry(k4_rows, evals["k4_counts"], evals["k4_by_path"])]
     kernels[0]["launches_streaming"] = pipe["launches_streaming"]
+    kernels[0]["repair_shapes"] = repair["attn"]
+    kernels[1]["repair_shapes"] = [r for r in repair["mrf"] if r["entry"] == "mrf_fused_cm"]
+    kernels[2]["repair_shapes"] = [r for r in repair["mrf"] if r["entry"] == "mrf_rows"]
     for k in kernels:
         if not k["launches"]:
             raise RuntimeError(f"{k['name']} was not launched on its main path")
     log("node paths: " + "; ".join(f"{label}: warm one-shot {r['wall_s']:.3f} s wall "
                                    f"(RTF {r['rtf']:.1f}x)" for label, r in nodes.items()))
+    log(f"eval nodes, warm on {card}: " + "; ".join(
+        f"{label} {r['warm_wall_s']:.4f} s" for label, r in evals["nodes"].items()
+        if "warm_wall_s" in r))
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
     log(card)
     print(json.dumps({"kernels": kernels}), flush=True)

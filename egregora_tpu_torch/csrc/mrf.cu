@@ -1,5 +1,6 @@
-// mrf: the fused HiFi-GAN multi-receptive-field (MRF) block, bf16 in and
-// out, for Hopper (sm_90a).
+// mrf: the fused HiFi-GAN multi-receptive-field (MRF) block for Hopper
+// (sm_90a): bf16 in and out on the tensor cores, or float32 in and out in
+// SIMT FMA (the *_f32 entries, at the end of this file).
 //
 // Replaces two Pallas TPU kernels of egregora_tpu:
 //   ops/mrf_pallas.py::mrf_fused_cm (_mrf_kernel): [B, C, T], every branch
@@ -348,6 +349,199 @@ bool make_spec(Spec& sp, int nb, const int* ks, int nd, const int* ds, int c) {
   return true;
 }
 
+// ---- float32 entries --------------------------------------------------
+//
+// The same tile schedule in float32, for C of any size: each conv is
+// plain FMA on the SIMT cores (no TF32), thread (row group, output
+// channel) summing k * C products for RB rows at a time; the weights come
+// transposed, [k][C_in][C_out] per conv, so a warp's output channels read
+// consecutive words.  Both roundings agree in f32 (the plain version adds
+// the bias after the sum in both cases); CIRC adds it after the sum, the
+// rows entry starts the sum at it.  The tiles live in shared memory when
+// they fit LARGE_BUDGET with at least 16 samples; a C too wide for that
+// (about 200 and up at k = 11) keeps them in a device workspace the
+// wrapper allocates (mrf_f32_workspace_floats), block by block, still
+// read and written by one block between barriers.
+
+constexpr int RB = 4;                 // rows a thread sums at a time
+constexpr int WS_TT = 1024;           // time tile of the workspace layout
+
+template <bool CIRC, bool LEAKY_IN, bool RESID>
+__device__ void conv_tile_f32(const float* src, float* dst, const float* __restrict__ w,
+                              const float* __restrict__ bias, int c, int k, int d,
+                              int lo, int count, int g0, int t) {
+  const int s = ((k - 1) / 2) * d;
+  const int groups = (count + RB - 1) / RB;
+  for (int item = threadIdx.x; item < groups * c; item += THREADS) {
+    const int co = item % c;
+    const int r0 = lo + (item / c) * RB;
+    const float b = bias[co];
+    float acc[RB];
+#pragma unroll
+    for (int i = 0; i < RB; ++i) acc[i] = CIRC ? 0.f : b;
+    for (int j = 0; j < k; ++j) {
+      const float* srow = src + (r0 + j * d - s) * c;
+      const float* wj = w + size_t(j) * c * c + co;
+      for (int ci = 0; ci < c; ++ci) {
+        const float wv = wj[size_t(ci) * c];
+#pragma unroll
+        for (int i = 0; i < RB; ++i) {
+          float a = srow[i * c + ci];
+          if (LEAKY_IN) a = leaky(a);
+          acc[i] = fmaf(wv, a, acc[i]);
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < RB; ++i) {
+      const int row = r0 + i;
+      const int gi = g0 + row;
+      float v = CIRC ? acc[i] + b : acc[i];
+      float* dp = dst + row * c + co;
+      v = RESID ? *dp + v : leaky(v);
+      *dp = (gi >= 0 && gi < t) ? v : 0.f;
+    }
+  }
+}
+
+// CM: x, y are [B, C, T] and the convs add the bias after the sum; else
+// [B, T, C].  Grid (ceil(T / TT), B).  ws: null (tiles in shared memory)
+// or a workspace of per_block floats for each block.
+template <bool CM>
+__global__ void __launch_bounds__(THREADS)
+mrf_f32_kernel(const float* __restrict__ x, float* __restrict__ y,
+               const float* __restrict__ w, const float* __restrict__ bias, int c, int t,
+               int tt, int halo, Spec sp, float* ws, size_t per_block) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int l = tt + 2 * halo;
+  const int rows = l + 16;
+  float* cur = ws ? ws + per_block * (size_t(blockIdx.y) * gridDim.x + blockIdx.x)
+                  : reinterpret_cast<float*>(smem);
+  float* tmp = cur + rows * c;
+  float* sum = tmp + rows * c;               // used when sp.nb > 1
+  const int tid = threadIdx.x;
+  const int t0 = blockIdx.x * tt;
+  const int g0 = t0 - halo;
+  const size_t base = size_t(blockIdx.y) * c * t;
+  x += base;
+  y += base;
+
+  for (int i = tid; i < rows * c; i += THREADS) tmp[i] = 0.f;
+
+  for (int bi = 0; bi < sp.nb; ++bi) {
+    for (int i = tid; i < c * rows; i += THREADS) {
+      int ch, r;
+      if (CM) {
+        ch = i / rows;
+        r = i % rows;
+      } else {
+        r = i / c;
+        ch = i % c;
+      }
+      const int gi = g0 + r;
+      float v = 0.f;
+      if (r < l && gi >= 0 && gi < t) v = CM ? x[size_t(ch) * t + gi] : x[size_t(gi) * c + ch];
+      cur[r * c + ch] = v;
+    }
+    __syncthreads();
+
+    const int k = sp.k[bi];
+    const int hw = (k - 1) / 2;
+    int reach = 0;
+    for (int m = 0; m < sp.nd; ++m) reach += hw * (sp.d[m] + 1);
+    const float* wb = w + sp.w_off[bi];
+    const float* bb = bias + size_t(bi) * sp.nd * 2 * c;
+    const size_t conv_w = size_t(k) * c * c;
+    for (int m = 0; m < sp.nd; ++m) {
+      const int d = sp.d[m];
+      reach -= hw * d;
+      conv_tile_f32<CM, true, false>(cur, tmp, wb + (2 * m) * conv_w, bb + (2 * m) * c, c,
+                                     k, d, halo - reach, tt + 2 * reach, g0, t);
+      __syncthreads();
+      reach -= hw;
+      conv_tile_f32<CM, false, true>(tmp, cur, wb + (2 * m + 1) * conv_w,
+                                     bb + (2 * m + 1) * c, c, k, 1, halo - reach,
+                                     tt + 2 * reach, g0, t);
+      __syncthreads();
+    }
+    if (sp.nb > 1) {
+      for (int i = tid; i < tt * c; i += THREADS) {
+        const float v = cur[halo * c + i];
+        sum[i] = bi == 0 ? v : sum[i] + v;
+      }
+      __syncthreads();
+    }
+  }
+
+  const float nbf = float(sp.nb);
+  const float* src = sp.nb > 1 ? sum : cur + halo * c;
+  for (int i = tid; i < c * tt; i += THREADS) {
+    int ch, r;
+    if (CM) {
+      ch = i / tt;
+      r = i % tt;
+    } else {
+      r = i / c;
+      ch = i % c;
+    }
+    if (t0 + r >= t) continue;
+    float v = src[r * c + ch];
+    if (sp.nb > 1) v = v / nbf;
+    if (CM) {
+      y[size_t(ch) * t + t0 + r] = v;
+    } else {
+      y[size_t(t0 + r) * c + ch] = v;
+    }
+  }
+}
+
+int spec_halo(const Spec& sp) {
+  int halo = 0;
+  for (int bi = 0; bi < sp.nb; ++bi) {
+    int h = 0;
+    for (int m = 0; m < sp.nd; ++m) h += ((sp.k[bi] - 1) / 2) * (sp.d[m] + 1);
+    halo = h > halo ? h : halo;
+  }
+  return halo;
+}
+
+// (time tile, floats of a block's workspace or 0 for shared memory)
+void plan_f32(int c, int t, int halo, int nb, int& tt, size_t& per_block) {
+  const int row_bytes = c * 4;
+  const int fixed = 2 * (2 * halo + 16);
+  const int per = nb > 1 ? 3 : 2;
+  const int need = (t + 15) / 16 * 16;
+  tt = (SMALL_BUDGET / row_bytes - fixed) / per / 16 * 16;
+  if (tt < 64) tt = (LARGE_BUDGET / row_bytes - fixed) / per / 16 * 16;
+  tt = tt < MAX_TT ? tt : MAX_TT;
+  tt = tt < need ? tt : need;
+  per_block = 0;
+  if (tt < 16) {
+    tt = WS_TT < need ? WS_TT : need;
+    per_block = size_t(2 * (tt + 2 * halo + 16) + (nb > 1 ? tt : 0)) * c;
+  }
+}
+
+template <bool CM>
+int launch_f32(const float* x, float* y, const float* w, const float* bias, int b, int c,
+               int t, const Spec& sp, float* ws, cudaStream_t stream) {
+  if (b <= 0 || b > 65535 || t <= 0 || c <= 0) return int(cudaErrorInvalidValue);
+  const int halo = spec_halo(sp);
+  int tt;
+  size_t per_block;
+  plan_f32(c, t, halo, sp.nb, tt, per_block);
+  if (per_block && !ws) return int(cudaErrorInvalidValue);
+  const size_t smem = per_block ? 0
+      : size_t(c) * 4 * (2 * (tt + 2 * halo + 16) + (sp.nb > 1 ? tt : 0));
+  cudaError_t err = cudaFuncSetAttribute(
+      mrf_f32_kernel<CM>, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  if (err != cudaSuccess) return int(err);
+  const dim3 grid((t + tt - 1) / tt, b);
+  mrf_f32_kernel<CM><<<grid, THREADS, smem, stream>>>(
+      x, y, w, bias, c, t, tt, halo, sp, per_block ? ws : nullptr, per_block);
+  return int(cudaGetLastError());
+}
+
 }  // namespace
 
 // x, y: contiguous bf16 [b, c, t]; w: bf16, per branch, dilation and conv
@@ -373,4 +567,41 @@ extern "C" int mrf_branch_rows_bf16(const void* x, void* y, const void* w, const
   if (!make_spec(sp, 1, &k, nd, ds, c)) return int(cudaErrorInvalidValue);
   return launch<false>(x, y, w, static_cast<const float*>(bias), b, c, t, sp,
                        static_cast<cudaStream_t>(stream));
+}
+
+// Floats of device workspace the f32 entries need for these operands (0:
+// their tiles fit shared memory); nb = 1 and ks = &k for the rows entry.
+extern "C" long long mrf_f32_workspace_floats(int b, int c, int t, int nb, const int* ks,
+                                              int nd, const int* ds) {
+  Spec sp;
+  if (b <= 0 || t <= 0 || c <= 0 || !make_spec(sp, nb, ks, nd, ds, c)) return -1;
+  int tt;
+  size_t per_block;
+  plan_f32(c, t, spec_halo(sp), nb, tt, per_block);
+  return (long long)(per_block * size_t(b) * size_t((t + tt - 1) / tt));
+}
+
+// As mrf_fused_cm_bf16, in float32: w holds each conv transposed,
+// [k][c_in][c_out]; ws: mrf_f32_workspace_floats floats (or null if 0).
+extern "C" int mrf_fused_cm_f32(const void* x, void* y, const void* w, const void* bias,
+                                int b, int c, int t, int nb, const int* ks, int nd,
+                                const int* ds, void* ws, void* stream) {
+  Spec sp;
+  if (!make_spec(sp, nb, ks, nd, ds, c)) return int(cudaErrorInvalidValue);
+  return launch_f32<true>(static_cast<const float*>(x), static_cast<float*>(y),
+                          static_cast<const float*>(w), static_cast<const float*>(bias),
+                          b, c, t, sp, static_cast<float*>(ws),
+                          static_cast<cudaStream_t>(stream));
+}
+
+// As mrf_branch_rows_bf16, in float32: w [nd][2][k][c_in][c_out].
+extern "C" int mrf_branch_rows_f32(const void* x, void* y, const void* w, const void* bias,
+                                   int b, int t, int c, int k, int nd, const int* ds,
+                                   void* ws, void* stream) {
+  Spec sp;
+  if (!make_spec(sp, 1, &k, nd, ds, c)) return int(cudaErrorInvalidValue);
+  return launch_f32<false>(static_cast<const float*>(x), static_cast<float*>(y),
+                           static_cast<const float*>(w), static_cast<const float*>(bias),
+                           b, c, t, sp, static_cast<float*>(ws),
+                           static_cast<cudaStream_t>(stream));
 }

@@ -1,4 +1,13 @@
-"""The port's ComfyUI nodes, registered under the JAX package's keys."""
-from .super_resolution import NODE_CLASS_MAPPINGS, NODE_DISPLAY_NAME_MAPPINGS
+"""The port's ComfyUI nodes, registered under the JAX package's keys.
 
-__all__ = ["NODE_CLASS_MAPPINGS", "NODE_DISPLAY_NAME_MAPPINGS"]
+``NODE_CLASS_MAPPINGS`` / ``NODE_DISPLAY_NAME_MAPPINGS`` here are the
+package's merged registry (``egregora_tpu_torch``), read when asked for,
+so that importing one node module never imports the others.
+"""
+
+
+def __getattr__(name):
+    if name in ("NODE_CLASS_MAPPINGS", "NODE_DISPLAY_NAME_MAPPINGS"):
+        import egregora_tpu_torch
+        return getattr(egregora_tpu_torch, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

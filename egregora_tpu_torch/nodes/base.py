@@ -1,9 +1,10 @@
-"""Node-layer interop: comfy-style AUDIO dicts at the host boundary.
+"""Node-layer interop: comfy-style AUDIO and IMAGE at the host boundary.
 
-Counterpart of the AUDIO half of ``egregora_tpu/nodes/base.py``: inputs
-are coerced through ``core.audio.from_any``; returned AUDIO dicts carry
-a CPU ``waveform`` tensor ``[1, C, T]`` (the reference contract) plus the
-eval pack's extended keys (``sr``, ``samples``, ``meta``).
+Counterpart of ``egregora_tpu/nodes/base.py``: inputs are coerced
+through ``core.audio.from_any``; returned AUDIO dicts carry a CPU
+``waveform`` tensor ``[1, C, T]`` (the reference contract) plus the eval
+pack's extended keys (``sr``, ``samples``, ``meta``); IMAGE outputs are
+CPU float32 tensors ``[1, H, W, 3]`` in 0..1.
 """
 from __future__ import annotations
 
@@ -37,3 +38,43 @@ def comfy_audio(sr: int, samples_cn: Any, meta: Optional[dict] = None) -> Dict[s
 
 def buffer_to_comfy(buf: AudioBuffer) -> Dict[str, Any]:
     return comfy_audio(buf.sample_rate, buf.numpy(), buf.meta)
+
+
+class DeviceNode:
+    """Base of the eval and null-suite nodes: ``DEVICE`` is where their
+    compute runs, the card unless a caller sets ``"cpu"`` (on this class
+    for all of them, or on one node class)."""
+    DEVICE = "cuda"
+
+    def _coerced(self, x: Any) -> Dict[str, Any]:
+        """AUDIO-ish input -> ``{"sr", "cn": [C, N] float32 on DEVICE, "meta"}``."""
+        buf = from_any(x)
+        cn = torch.from_numpy(np.ascontiguousarray(buf.numpy(), np.float32)).to(self.DEVICE)
+        return {"sr": buf.sample_rate, "cn": cn, "meta": dict(buf.meta)}
+
+
+def host(x: torch.Tensor) -> np.ndarray:
+    """A result tensor as host numpy."""
+    return x.detach().cpu().numpy()
+
+
+def blank_image(h: int = 8, w: int = 8) -> torch.Tensor:
+    """IMAGE ``[1, H, W, 3]`` of zeros (the reference's ``_blank_image``)."""
+    return torch.zeros((1, h, w, 3), dtype=torch.float32)
+
+
+def image_from_figure(fig) -> torch.Tensor:
+    """A matplotlib figure as IMAGE ``[1, H, W, 3]`` in 0..1 (PNG at 110
+    dpi, tight bounding box, as the reference rasterizes)."""
+    import io
+
+    import matplotlib
+    matplotlib.use("Agg")
+    from PIL import Image
+
+    buf = io.BytesIO()
+    fig.savefig(buf, format="png", bbox_inches="tight", dpi=110)
+    fig.clf()
+    buf.seek(0)
+    arr = np.array(Image.open(buf).convert("RGB")).astype(np.float32) / 255.0
+    return torch.from_numpy(arr).unsqueeze(0)

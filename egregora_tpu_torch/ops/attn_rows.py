@@ -1,8 +1,12 @@
 """Wrapper of the hand-written attention kernel ``csrc/attn_rows.cu``.
 
 The port of ``egregora_tpu/ops/attn_pallas.py::flash_rows``: exact
-softmax attention ``[B*H, N, D] -> [B*H, N, D]`` in bf16.  A CUDA tensor
-goes to the kernel or raises; a CPU tensor goes to the plain version,
+softmax attention ``[B*H, N, D] -> [B*H, N, D]`` in bf16 or float32,
+for any head size D up to 256.  The kernel is built for D in
+``KERNEL_D``; another D is padded with zero columns to the next of them
+(zero columns add nothing to q.k, and the padded value columns are
+dropped), with the scale of the true D.  A CUDA tensor goes to the
+kernel or raises; a CPU tensor goes to the plain version,
 ``ops.attention.chunked_attention``, which has flash_rows's math
 (f32 scores scaled after the product, true row max, weights rounded to
 the value dtype, f32 accumulation).
@@ -13,28 +17,30 @@ import collections
 import ctypes
 
 import torch
+import torch.nn.functional as F
 
 from ..utils import cuda_build
 
-SUPPORTED_D = (32, 64, 256)
+KERNEL_D = (32, 64, 128, 256)     # head sizes csrc/attn_rows.cu is built for
+ENTRIES = {torch.bfloat16: "attn_rows_bf16", torch.float32: "attn_rows_f32"}
 
 # kernel launches since the last reset, in all and by shape (bh, n, d);
 # counted where the kernel launches and nowhere else
 launches = 0
 launches_by_shape: collections.Counter = collections.Counter()
 
-_FN = None
+_FNS: dict = {}
 
 
-def _kernel():
-    global _FN
-    if _FN is None:
-        fn = cuda_build.load("attn_rows").attn_rows_bf16
+def _kernel(dtype: torch.dtype):
+    fn = _FNS.get(dtype)
+    if fn is None:
+        fn = getattr(cuda_build.load("attn_rows"), ENTRIES[dtype])
         fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [
             ctypes.c_float, ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        _FN = fn
-    return _FN
+        _FNS[dtype] = fn
+    return fn
 
 
 def attn_rows(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -49,26 +55,30 @@ def attn_rows(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor
             raise ValueError(f"attn_rows: {name} {tuple(t.shape)} {t.dtype} "
                              f"{t.device} does not match q {tuple(q.shape)} "
                              f"{q.dtype} {q.device}")
-    if q.dtype != torch.bfloat16:
-        raise TypeError(f"attn_rows: the kernel takes bfloat16, got {q.dtype}")
+    if q.dtype not in ENTRIES:
+        raise TypeError(f"attn_rows: the kernel takes bfloat16 or float32, got {q.dtype}")
     if q.dim() != 3:
         raise ValueError(f"attn_rows: expected [BH, N, D], got {tuple(q.shape)}")
     bh, n, d = q.shape
-    if d not in SUPPORTED_D:
-        raise ValueError(f"attn_rows: head dim {d} not in {SUPPORTED_D}")
+    if not 0 < d <= KERNEL_D[-1]:
+        raise ValueError(f"attn_rows: head dim {d} is beyond the kernel's range: its "
+                         f"tiles hold at most {KERNEL_D[-1]} columns in shared memory")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("attn_rows: q, k and v must be contiguous")
     if not 0 < bh <= 65535 or n == 0:
         raise ValueError(f"attn_rows: unsupported shape {tuple(q.shape)}")
+    dk = next(s for s in KERNEL_D if s >= d)
+    if dk != d:
+        q, k, v = (F.pad(t, (0, dk - d)) for t in (q, k, v))
     o = torch.empty_like(q)
-    fn = _kernel()
+    fn = _kernel(q.dtype)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                 bh, n, d, float(d) ** -0.5, stream)
+                 bh, n, dk, float(d) ** -0.5, stream)
     if err:
         raise RuntimeError(f"attn_rows: launch failed with cudaError_t {err}")
     global launches
     launches += 1
     launches_by_shape[(bh, n, d)] += 1
-    return o
+    return o if dk == d else o[..., :d].contiguous()

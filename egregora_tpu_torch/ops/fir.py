@@ -6,6 +6,7 @@ strided frames, one float32 matmul for the whole signal.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 
 import numpy as np
@@ -15,6 +16,20 @@ import torch.nn.functional as F
 from .stft import device_tensor, frame_strided
 
 BLOCK = 1792  # output samples per frame
+
+
+@contextlib.contextmanager
+def exact_f32():
+    """float32 convolutions and matmuls on the card in full float32, not
+    TF32, whatever the global flags say (cuDNN's default is TF32, which
+    keeps about three digits); the flags are restored on exit."""
+    cudnn, mm = torch.backends.cudnn, torch.backends.cuda.matmul
+    prev = cudnn.allow_tf32, mm.allow_tf32
+    cudnn.allow_tf32 = mm.allow_tf32 = False
+    try:
+        yield
+    finally:
+        cudnn.allow_tf32, mm.allow_tf32 = prev
 
 
 @functools.lru_cache(maxsize=16)

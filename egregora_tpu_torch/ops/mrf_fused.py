@@ -2,10 +2,18 @@
 
 The port of ``egregora_tpu/ops/mrf_pallas.py::mrf_fused_cm``: one whole
 HiFi-GAN MRF block (every ResBlock branch and their mean) on ``[B, C,
-T]`` in one launch.  A CUDA tensor goes to the kernel or raises; a CPU
-tensor goes to the plain version, ``mrf_fused_cm_plain``, which rounds
-where the TPU kernel's ``_conv_circ`` does: each conv's f32 sum to the
-activation dtype, then the bias in that dtype.
+T]`` in one launch, bf16 or float32, any C.  A CUDA tensor goes to the
+kernel or raises; a CPU tensor goes to the plain version,
+``mrf_fused_cm_plain``, which rounds where the TPU kernel's
+``_conv_circ`` does: each conv's f32 sum to the activation dtype, then
+the bias in that dtype.
+
+On the card (``kernel_operands``) bf16 operands of C not a multiple of 16
+are padded with zero channels (zero activations, weights and bias stay
+exactly 0 through leaky, the convs and the residual, so the real
+channels are unchanged); float32 operands keep their C and travel with
+each conv's weights transposed to ``[k, C_in, C_out]``, with a device
+workspace when the tiles do not fit shared memory.
 
 Weights travel packed (``pack_resblock_weights``): ``w`` is one flat
 tensor holding, per branch, dilation iteration and conv (dilated, unit),
@@ -22,6 +30,7 @@ import torch
 import torch.nn.functional as F
 
 from ..utils import cuda_build
+from .fir import exact_f32
 
 # kernel launches since the last reset, in all and by shape (b, c, t);
 # counted where the kernel launches and nowhere else
@@ -29,6 +38,7 @@ launches = 0
 launches_by_shape: collections.Counter = collections.Counter()
 
 _FN = None
+_WS = None
 
 
 def branch_halo(k: int, dilations: Sequence[int]) -> int:
@@ -78,8 +88,9 @@ def _conv(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor, d: int,
     an f32 sum; the bias joins after the rounding to ``a.dtype``
     (``_conv_circ``) or before it (``_conv_rows``)."""
     k = w.shape[0]
-    y = F.conv1d(a.float(), w.permute(1, 2, 0).float(), padding=(k - 1) // 2 * d,
-                 dilation=d)
+    with exact_f32():
+        y = F.conv1d(a.float(), w.permute(1, 2, 0).float(), padding=(k - 1) // 2 * d,
+                     dilation=d)
     if round_then_bias:
         return y.to(a.dtype) + bias.to(a.dtype)[:, None]
     return (y + bias.float()[:, None]).to(a.dtype)
@@ -109,25 +120,67 @@ def mrf_fused_cm_plain(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
     return acc / len(kernels)
 
 
-def _kernel():
+def _kernel(dtype: torch.dtype):
     global _FN
     if _FN is None:
-        fn = cuda_build.load("mrf").mrf_fused_cm_bf16
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [
-            ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _FN = fn
-    return _FN
+        lib = cuda_build.load("mrf")
+        fns = {}
+        for dt, sym in ((torch.bfloat16, "mrf_fused_cm_bf16"), (torch.float32, "mrf_fused_cm_f32")):
+            fn = getattr(lib, sym)
+            fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [
+                ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p] + [ctypes.c_void_p] * (
+                    2 if dt == torch.float32 else 1)
+            fn.restype = ctypes.c_int
+            fns[dt] = fn
+        _FN = fns
+    return _FN[dtype]
+
+
+def workspace(x: torch.Tensor, b: int, c: int, t: int, kernels: Sequence[int],
+              dilations: Sequence[int]) -> torch.Tensor:
+    """The float32 entries' device workspace (empty when their tiles fit
+    shared memory)."""
+    global _WS
+    if _WS is None:
+        fn = cuda_build.load("mrf").mrf_f32_workspace_floats
+        fn.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_longlong
+        _WS = fn
+    ks = (ctypes.c_int * len(kernels))(*kernels)
+    ds = (ctypes.c_int * len(dilations))(*dilations)
+    n = _WS(b, c, t, len(kernels), ks, len(dilations), ds)
+    if n < 0:
+        raise ValueError(f"mrf: unsupported operands b={b} c={c} t={t} kernels "
+                         f"{tuple(kernels)} dilations {tuple(dilations)}")
+    return torch.empty(n, dtype=torch.float32, device=x.device)
+
+
+def kernel_operands(x: torch.Tensor, w: torch.Tensor, branches: List[torch.Tensor],
+                    bias: torch.Tensor, channel_dim: int):
+    """``(x, w, bias, C)`` as the entries of ``csrc/mrf.cu`` take them.
+    ``branches`` are ``w``'s per-branch views ``[..., C_out, C_in]``.
+    bf16: C padded with zero channels to a multiple of 16 (the mma k16
+    depth); float32: each conv's weights transposed to ``[k, C_in,
+    C_out]``."""
+    c = x.shape[channel_dim]
+    if x.dtype == torch.float32:
+        return x, torch.cat([wb.transpose(-1, -2).reshape(-1) for wb in branches]), bias, c
+    p = -c % 16
+    if not p:
+        return x, w, bias, c
+    x_pad = [0, 0] * (x.dim() - 1 - channel_dim % x.dim()) + [0, p]
+    w = torch.cat([F.pad(wb, (0, p, 0, p)).reshape(-1) for wb in branches])
+    return F.pad(x, x_pad), w, F.pad(bias, (0, p)).contiguous(), c + p
 
 
 def check_operands(name: str, x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
                    c: int, n_w: int, n_b: int) -> None:
-    """The kernels' contract on a CUDA call: bf16 contiguous activations
-    and weights, f32 contiguous bias, all on one device, C a multiple of
-    16, and weights and bias of the sizes the kernel sizes imply."""
-    if x.dtype != torch.bfloat16 or w.dtype != torch.bfloat16:
-        raise TypeError(f"{name}: the kernel takes bfloat16 activations and "
-                        f"weights, got {x.dtype} and {w.dtype}")
+    """The kernels' contract on a CUDA call: bf16 or float32 contiguous
+    activations and weights of one dtype, f32 contiguous bias, all on one
+    device, and weights and bias of the sizes the kernel sizes imply."""
+    if x.dtype not in (torch.bfloat16, torch.float32) or w.dtype != x.dtype:
+        raise TypeError(f"{name}: the kernel takes bfloat16 or float32 activations "
+                        f"and weights of the same dtype, got {x.dtype} and {w.dtype}")
     if bias.dtype != torch.float32:
         raise TypeError(f"{name}: bias must be float32, got {bias.dtype}")
     for label, t in (("weights", w), ("bias", bias)):
@@ -137,8 +190,8 @@ def check_operands(name: str, x: torch.Tensor, w: torch.Tensor, bias: torch.Tens
             raise ValueError(f"{name}: {label} must be contiguous")
     if not x.is_contiguous():
         raise ValueError(f"{name}: the activations must be contiguous")
-    if c % 16 or c <= 0:
-        raise ValueError(f"{name}: channels {c} are not a positive multiple of 16")
+    if c <= 0:
+        raise ValueError(f"{name}: channels {c} are not positive")
     if w.numel() != n_w or bias.numel() != n_b:
         raise ValueError(f"{name}: weights hold {w.numel()} values and bias "
                          f"{bias.numel()}, the kernel sizes need {n_w} and {n_b}")
@@ -161,17 +214,22 @@ def mrf_fused_cm(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
     if not (0 < nb <= 4 and 0 < nd <= 4 and 0 < b <= 65535 and t > 0):
         raise ValueError(f"mrf_fused_cm: unsupported shape {tuple(x.shape)}, "
                          f"kernels {tuple(kernels)}, dilations {tuple(dilations)}")
+    x, w, bias, ck = kernel_operands(x, w, branch_weights(w, c, kernels, nd), bias, 1)
+    extra = ()
+    if x.dtype == torch.float32:
+        ws = workspace(x, b, c, t, kernels, dilations)   # held until the launch is queued
+        extra = (ws.data_ptr(),)
     y = torch.empty_like(x)
     ks = (ctypes.c_int * nb)(*kernels)
     ds = (ctypes.c_int * nd)(*dilations)
-    fn = _kernel()
+    fn = _kernel(x.dtype)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = fn(x.data_ptr(), y.data_ptr(), w.data_ptr(), bias.data_ptr(),
-                 b, c, t, nb, ks, nd, ds, stream)
+                 b, ck, t, nb, ks, nd, ds, *extra, stream)
     if err:
         raise RuntimeError(f"mrf_fused_cm: launch failed with cudaError_t {err}")
     global launches
     launches += 1
     launches_by_shape[(b, c, t)] += 1
-    return y
+    return y if ck == c else y[:, :c].contiguous()

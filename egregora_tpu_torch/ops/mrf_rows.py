@@ -6,8 +6,10 @@ averages the branches, three launches for the vocoder's (3, 7, 11), as
 the JAX function does.  A CUDA tensor goes to the kernel or raises; a
 CPU tensor goes to the plain version, ``mrf_branch_rows_plain``, which
 rounds where ``_conv_rows`` does: the f32 bias joins the f32 sum before
-the one rounding.  Unlike the TPU kernel, any T is taken.  Weights are
-``ops.mrf_fused.pack_resblock_weights``'s.
+the one rounding.  Unlike the TPU kernel, any T is taken; bf16 or
+float32, any C (on the card as ``ops.mrf_fused`` says: bf16 padded to a
+multiple of 16 channels, float32 with transposed conv weights).
+Weights are ``ops.mrf_fused.pack_resblock_weights``'s.
 """
 from __future__ import annotations
 
@@ -18,7 +20,8 @@ from typing import Sequence
 import torch
 
 from ..utils import cuda_build
-from .mrf_fused import branch_plain, branch_weights, check_operands
+from .mrf_fused import (branch_plain, branch_weights, check_operands, kernel_operands,
+                        workspace)
 
 # kernel launches since the last reset, in all and by shape (b, t, c);
 # counted where the kernel launches and nowhere else
@@ -36,15 +39,20 @@ def mrf_branch_rows_plain(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
     return h.transpose(1, 2)
 
 
-def _kernel():
+def _kernel(dtype: torch.dtype):
     global _FN
     if _FN is None:
-        fn = cuda_build.load("mrf").mrf_branch_rows_bf16
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [
-            ctypes.c_void_p, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _FN = fn
-    return _FN
+        lib = cuda_build.load("mrf")
+        fns = {}
+        for dt, sym in ((torch.bfloat16, "mrf_branch_rows_bf16"),
+                        (torch.float32, "mrf_branch_rows_f32")):
+            fn = getattr(lib, sym)
+            fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [
+                ctypes.c_void_p] + [ctypes.c_void_p] * (2 if dt == torch.float32 else 1)
+            fn.restype = ctypes.c_int
+            fns[dt] = fn
+        _FN = fns
+    return _FN[dtype]
 
 
 def mrf_branch_rows(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
@@ -64,19 +72,24 @@ def mrf_branch_rows(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
     if not (0 < nd <= 4 and k % 2 == 1 and 0 < b <= 65535 and t > 0):
         raise ValueError(f"mrf_branch_rows: unsupported shape {tuple(x.shape)}, "
                          f"k={k}, dilations {tuple(dilations)}")
+    x, w, bias, ck = kernel_operands(x, w, [w], bias, -1)
+    extra = ()
+    if x.dtype == torch.float32:
+        ws = workspace(x, b, c, t, (k,), dilations)   # held until the launch is queued
+        extra = (ws.data_ptr(),)
     y = torch.empty_like(x)
     ds = (ctypes.c_int * nd)(*dilations)
-    fn = _kernel()
+    fn = _kernel(x.dtype)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = fn(x.data_ptr(), y.data_ptr(), w.data_ptr(), bias.data_ptr(),
-                 b, t, c, k, nd, ds, stream)
+                 b, t, ck, k, nd, ds, *extra, stream)
     if err:
         raise RuntimeError(f"mrf_branch_rows: launch failed with cudaError_t {err}")
     global launches
     launches += 1
     launches_by_shape[(b, t, c)] += 1
-    return y
+    return y if ck == c else y[..., :c].contiguous()
 
 
 def mrf_rows(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,

@@ -2,7 +2,8 @@
 blocked Toeplitz matmul.
 
 Counterpart of ``egregora_tpu/ops/resample.py`` (``resample``,
-``resample_poly``, ``resampled_length``).  Output length is
+``resample_poly``, ``resample_linear``, ``resampled_length``,
+``oversample``).  Output length is
 ``ceil(N * up / down)`` with output sample ``j`` at input time
 ``j * down / up`` (scipy ``resample_poly`` lengths).
 """
@@ -121,3 +122,16 @@ def resample(x_cs: torch.Tensor, src_sr: int, dst_sr: int, *,
     if mode == "linear":
         return resample_linear(x_cs, src_sr, dst_sr)
     return resample_poly(x_cs, src_sr, dst_sr, width=width, rolloff=rolloff, beta=beta)
+
+
+def oversample(x: torch.Tensor, factor: int) -> torch.Tensor:
+    """Integer oversampling along the last axis of ``[..., N]`` (true
+    peak): ``resample_poly`` with scipy.signal.resample_poly's default
+    design (Kaiser beta 5.0, 10 zero crossings a side, cutoff at the
+    input's Nyquist)."""
+    x = x.float()
+    if factor <= 1:
+        return x
+    y = resample_poly(x.reshape(-1, x.shape[-1]), 1, int(factor), width=10,
+                      rolloff=1.0, beta=5.0)
+    return y.reshape(x.shape[:-1] + (y.shape[-1],))

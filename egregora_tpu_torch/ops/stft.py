@@ -1,8 +1,13 @@
-"""STFT pieces of the FlashSR path: windows, framing, the windowed-DFT
-analysis matmul and the dense inverse with its overlap-add floor.
+"""STFT pieces: windows, framing, the complex STFT and its WOLA inverse
+(the eval path), the windowed-DFT analysis matmul and the dense inverse
+with its overlap-add floor (the FlashSR path).
 
-Counterpart of ``egregora_tpu/ops/stft.py`` (``hann_periodic``,
-``frame_strided``, ``stft_conv``, ``istft_dense``).  The DFT bases are
+Counterpart of ``egregora_tpu/ops/stft.py``.  Framing follows the
+reference meter: ``frames = 1 + max(0, (N - n_fft) // hop)``, no
+centring, the tail that does not fill a frame dropped, a signal shorter
+than one frame zero-padded.  ``stft`` windows with the symmetric Hann
+(``np.hanning``) unless asked for the periodic one and transforms with
+``torch.fft.rfft``.  The DFT bases of ``stft_conv``/``istft_dense`` are
 built in numpy with float32 angles, as the JAX package builds them, and
 cached per device.
 """
@@ -40,6 +45,10 @@ def device_tensor(array_fn, *args, device: str = "cpu") -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(array_fn(*args))).to(device)
 
 
+def num_frames(n: int, n_fft: int, hop: int) -> int:
+    return 1 + max(0, (n - n_fft) // hop)
+
+
 def frame_strided(x: torch.Tensor, n_fft: int, hop: int) -> torch.Tensor:
     """``[..., T] -> [..., frames, n_fft]`` with ``frames = 1 +
     max(0, (T - n_fft)//hop)``; the tail that does not fill a frame is
@@ -47,6 +56,52 @@ def frame_strided(x: torch.Tensor, n_fft: int, hop: int) -> torch.Tensor:
     if x.shape[-1] < n_fft:
         x = F.pad(x, (0, n_fft - x.shape[-1]))
     return x.unfold(-1, n_fft, hop)
+
+
+frame = frame_strided
+
+
+def stft(x: torch.Tensor, n_fft: int = 2048, hop: int = 512, *,
+         window: str = "hann") -> torch.Tensor:
+    """Complex STFT ``[..., N] -> [..., frames, n_fft//2+1]``."""
+    w = device_tensor(_window, n_fft, window, device=str(x.device))
+    return torch.fft.rfft(frame(x.float(), n_fft, hop) * w, dim=-1)
+
+
+def stft_mag(x: torch.Tensor, n_fft: int = 2048, hop: int = 512) -> torch.Tensor:
+    """Magnitude STFT in the reference meter's orientation ``[..., freqs,
+    frames]`` (symmetric Hann, tail-drop framing)."""
+    return stft(x, n_fft, hop, window="hann").abs().transpose(-1, -2)
+
+
+def istft(spec: torch.Tensor, n_fft: int, hop: int, length: int, *,
+          window: str = "hann_periodic") -> torch.Tensor:
+    """WOLA inverse STFT ``[..., frames, n_fft//2+1] -> [..., length]``:
+    synthesis window = analysis window, squared-window overlap-add
+    normalisation.  Where the window coverage is below 1e-3 of its peak
+    (the signal's edges) the output is 0 rather than amplified."""
+    dev = str(spec.device)
+    w = device_tensor(_window, n_fft, window, device=dev)
+    frames = torch.fft.irfft(spec, n=n_fft, dim=-1) * w          # [..., F, n_fft]
+    f = frames.shape[-2]
+    total = (f - 1) * hop + n_fft
+    pos = (torch.arange(f, device=spec.device)[:, None] * hop
+           + torch.arange(n_fft, device=spec.device)[None, :]).reshape(-1)
+    lead = frames.shape[:-2]
+    acc = frames.new_zeros(lead + (total,)).index_add_(-1, pos, frames.reshape(lead + (-1,)))
+    wsum = w.new_zeros(total).index_add_(0, pos, (w * w).repeat(f))
+    floor = 1e-3 * wsum.max()
+    keep = wsum >= floor
+    out = acc * keep / torch.where(keep, wsum, torch.ones_like(wsum))
+    if total >= length:
+        return out[..., :length]
+    return F.pad(out, (0, length - total))
+
+
+def spectrogram_db(x: torch.Tensor, n_fft: int = 2048, hop: int = 512,
+                   floor: float = 1e-9) -> torch.Tensor:
+    """``20 log10(|STFT| + floor)`` in the reference plotter's convention."""
+    return 20.0 * torch.log10(stft_mag(x, n_fft, hop) + floor)
 
 
 def _dft_phase(rows: int, cols: int, modulus: int) -> np.ndarray:

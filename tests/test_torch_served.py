@@ -236,6 +236,34 @@ def test_shipped_trio_on_band_limited_input(shipped):
     assert 1e-3 < spread and _rel(got, ref) <= 2 * spread
 
 
+def test_shipped_trio_quality_matches_jax(shipped):
+    """The served quality of each shipped trio: one 5.12 s synthetic pair
+    from the JAX package's ``distill.synth_pair_batch`` (what its
+    ``evaluate`` scores), the low-rate side through both pipelines in
+    float32, scored against the high-rate side with each package's
+    ``lsd_sisdr_report``.  LSD (mean, p95) and SI-SDR within 0.05 dB: the
+    HiFi-GAN trio's outputs agree to 3e-5 relative L2 and read within
+    2e-4 dB; the istft trio's head is ill-conditioned on this
+    band-limited input (outputs 3.5e-2 apart) and reads within 0.02 dB.
+    Both beat the pass-through's LSD."""
+    from egregora_tpu.eval.metrics import lsd_sisdr_report as j_report
+    from egregora_tpu_torch.eval.metrics import lsd_sisdr_report as t_report
+    name, jcfg, jparams, tcfg, sd = shipped
+    lr, hr = (np.asarray(v)[0] for v in j_distill.synth_pair_batch(
+        jax.random.PRNGKey(7), 1, j_pipe.CHUNK_SAMPLES))
+    jp = j_pipe.FlashSRPipeline(_f32(jcfg, jnp.float32), params=jparams)
+    tp = t_pipe.FlashSRPipeline(_f32(tcfg, torch.float32), params=sd, device="cpu")
+    y_j = np.asarray(jax.jit(jp.chunk_forward)(jp.params, jnp.asarray(lr[None])))[0]
+    y_t = tp.chunk_forward(torch.from_numpy(lr[None].copy()))[0]
+    ref = j_report(jnp.asarray(hr), jnp.asarray(y_j))
+    got = t_report(torch.from_numpy(hr.copy()), y_t)
+    assert set(got) == set(ref) == {"lsd_mean_db", "lsd_p95_db", "si_sdr_db"}
+    for key in ref:
+        assert abs(float(got[key]) - float(ref[key])) <= 0.05, (key, got[key], ref[key])
+    passthrough = t_report(torch.from_numpy(hr.copy()), torch.from_numpy(lr.copy()))
+    assert float(got["lsd_mean_db"]) < float(passthrough["lsd_mean_db"])
+
+
 def test_resolver_order(monkeypatch, tmp_path):
     """istft trio by default and for ``istft``; the HiFi-GAN trio for
     ``hifigan`` or when the istft file is missing; the seeded full
@@ -281,8 +309,15 @@ def test_node_contract_matches_jax(monkeypatch):
     category; the node's AUDIO dict round trip against the JAX node's,
     both running a narrow float32 compact pipeline with the same weights
     (samples within 1e-4, as ``tests/test_torch_pipeline.py``)."""
-    assert set(NODE_CLASS_MAPPINGS) == {"EgregoraAudioUpscaler"}
-    assert NODE_DISPLAY_NAME_MAPPINGS == j_node.NODE_DISPLAY_NAME_MAPPINGS
+    from egregora_tpu.nodes import eval_pack as j_ep
+    from egregora_tpu.nodes import null_suite as j_ns
+    # the package's registry: the 12 keys of the three ported node modules
+    keys = set(j_node.NODE_CLASS_MAPPINGS) | set(j_ep.NODE_CLASS_MAPPINGS) | set(
+        j_ns.NODE_CLASS_MAPPINGS)
+    assert len(keys) == 12 and set(NODE_CLASS_MAPPINGS) == keys
+    assert NODE_DISPLAY_NAME_MAPPINGS == {**j_node.NODE_DISPLAY_NAME_MAPPINGS,
+                                          **j_ep.NODE_DISPLAY_NAME_MAPPINGS,
+                                          **j_ns.NODE_DISPLAY_NAME_MAPPINGS}
     tn, jn = NODE_CLASS_MAPPINGS["EgregoraAudioUpscaler"], j_node.EgregoraAudioSuperResolution
     assert tn is t_node.EgregoraAudioSuperResolution
     assert tn.INPUT_TYPES() == jn.INPUT_TYPES()

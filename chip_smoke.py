@@ -6,53 +6,70 @@ NVIDIA card, from the root of a checkout:
 
 Phases, one line each on standard output:
 
-1. the card's name and power limit (``nvidia-smi``); the builds of
-   ``csrc/attn_rows.cu``, ``csrc/mrf.cu`` and ``csrc/iir_lowpass.cu``,
-   one ``nvcc`` each, at once;
+1. the card's name and power limit (``nvidia-smi``); the builds of the
+   five sources under ``egregora_tpu_torch/csrc/`` (``attn_rows``,
+   ``mrf``, ``iir_lowpass``, ``attn_online``, ``conv_edge``), one
+   ``nvcc`` each, at once;
 2. each kernel against its plain PyTorch version on the card, at the
    shapes the main paths give it and at a ragged length, beside planted
    faults that the limits must reject, with the kernel's, the plain
    version's and (attention) the library call's or (MRF) the module
    path's times:
-   - ``attn_rows``: relative L2 1e-2 and two bf16 ulps of the largest
-     output; fault: the last key tile dropped;
+   - ``attn_rows`` (including the published VAE mid block, 3 x 8192 x
+     512): relative L2 1e-2 and two bf16 ulps of the largest output;
+     fault: the last key tile dropped;
    - ``mrf_fused_cm`` and ``mrf_rows`` (every branch of an MRF block in
-     one launch, or one a launch): relative L2 1e-2 and four bf16 ulps,
-     over the block and over its first and last 120 samples; faults:
-     the per-layer re-zeroing outside the signal skipped, the last
+     one launch, or one a launch), at the served and the full config's
+     stages (C = 16 to 256): relative L2 1e-2 and four bf16 ulps, over
+     the block and over its first and last 120 samples; faults: the
+     per-layer re-zeroing outside the signal skipped, the last
      dilation's residual dropped;
-3. the repaired shapes: ``attn_rows`` at head sizes 24 and 40 (bf16) and
-   in float32, the MRF entries at C = 8 and 24 (bf16) and in float32
-   (float32 limits: relative L2 and max |d| 1e-5 of the largest output),
-   with the same planted faults; the upscaler node on a ``channel_floor=8``
-   HiFi-GAN config with the fused vocoder;
+3. the repaired shapes: ``attn_rows`` at head sizes 24, 40 and 320
+   (bf16) and in float32 (D up to 512), the MRF entries at C = 8 and 24
+   (bf16) and in float32 (float32 limits: relative L2 and max |d| 1e-5
+   of the largest output), with the same planted faults; the upscaler
+   node on a ``channel_floor=8`` HiFi-GAN config with the fused vocoder;
 4. K4 (``iir_lowpass``) against its plain version and float64 ``lfilter``
    (max |d| 2e-6) at the meter's 300 s of 48 kHz stereo and at ragged
    and near-unit-pole shapes; fault: the cross-tile carry dropped;
-5. a reference check of the full config (seeded weights) on one chunk:
+5. K1b (``flash_online``) at the attention lab's shapes and a ragged N
+   (bf16 limits; fault: the last key tile dropped) and K3
+   (``conv3x3_out1``) at the decoders' C = 24/64/128, the edge lab's
+   shapes, ragged F and M and its tile edges (float32 limits; fault: the
+   bottom halo row dropped), with SDPA's or cuDNN's time;
+6. a reference check of the full config (seeded weights) on one chunk:
    bf16 on the card against float32 arithmetic on the CPU with the same
    weights, and against the card pipeline with float32 plain attention
    (decoded mel, vocoder wave, the output's band above the crossover),
    and each attention call against the float32 plain version on its own
    inputs; the attention fault must fail every limit;
-6. the ``EgregoraAudioUpscaler`` node on a comfy AUDIO dict (a seeded
+7. the ``EgregoraAudioUpscaler`` node on a comfy AUDIO dict (a seeded
    12 s, 16 kHz signal, 3 chunks, to 48 kHz) with the shipped weights:
    the HiFi-GAN trio with the fused MRF kernel, the same trio with the
    rows kernel (``EGREGORA_MRF_PATH=rows``), and the default istft trio;
    one-shot through ``run`` and streaming (``max_batch=2``), with every
    kernel's launches counted by shape around each run; the kernels'
    vocoder wave against the module path's;
-7. the same reference check for one chunk of each shipped trio, with
+8. the same reference check for one chunk of each shipped trio, with
    its own planted fault;
-8. the full-config pipeline (seeded weights) one-shot and streaming, with
+9. the full-config pipeline (seeded weights) one-shot and streaming, with
    the attention launches counted by shape;
-9. the eval-pack and null-suite nodes at real sizes (the meter on 300 s
+10. the node on a converted reference trio at the published geometry: a
+   seeded upstream-layout ``.pth`` trio (weight-norm pairs in the
+   vocoder) in a temporary ``EGREGORA_TPU_WEIGHTS``, resolved as
+   "converted", on the module-path, fused and rows vocoders, with
+   ``attn_rows`` counted at D = 512 and the MRF kernels at C = 256/128/64;
+   one chunk bf16 on the card against float32 on the CPU beside the
+   attention fault;
+11. the eval-pack and null-suite nodes at real sizes (the meter on 300 s
    of 48 kHz stereo, the pair nodes on 60 s with a planted 37.25-sample
    delay and -3 dB gain), each held to the same code on the CPU, with
    K4's calls counted by shape and the warm wall time of each node;
-10. a JSON line ``{"kernels": [...]}`` whose times are the per-shape
-   times of phases 2 and 4 times the launches phases 6, 8 and 9 counted,
-   and, last, ``{"ok": true, ...}``.
+12. the two lab tools once (``tools/attn_flash_lab.py``,
+   ``tools/edge_conv_lab.py``), where K1b and K3 launch;
+13. a JSON line ``{"kernels": [...]}`` of all six kernels, whose times
+   are the per-shape times of phases 2, 4 and 5 times the launches that
+   phases 7, 9, 10, 11 and 12 counted, and, last, ``{"ok": true, ...}``.
 
 Any failure exits non-zero and prints no ``"ok"`` line.  With no CUDA
 device it exits non-zero at once.
@@ -76,12 +93,16 @@ BATCH = 3                    # chunks in the one-shot batch of that signal
 PATH_CALLS = {(8, 2048, 32): 5, (8, 512, 64): 6, (1, 8192, 256): 2}
 # and in the served trios' StudentUNet: one call, mid block, 4 heads
 SERVED_ATTN = (4, 512, 32)
+# the published checkpoints' VAE mid block: one head of 512 (2 calls a
+# batch); their UNet's attention is PATH_CALLS's
+CONVERTED_MID = (1, 8192, 512)
 RAGGED = [(8, 1000, 32), (8, 1000, 64), (1, 1000, 256)]
 KEY_TILE = 64                # keys per K/V tile of csrc/attn_rows.cu
 ATTN_REL_L2 = 1e-2           # kernel vs plain, relative L2 over the output
 
 
-SOURCES = ("attn_rows", "mrf", "iir_lowpass")   # egregora_tpu_torch/csrc/<name>.cu
+# egregora_tpu_torch/csrc/<name>.cu
+SOURCES = ("attn_rows", "mrf", "iir_lowpass", "attn_online", "conv_edge")
 
 
 def timed_build(name: str) -> float:
@@ -187,7 +208,7 @@ def attention_phase() -> list:
 
     gen = torch.Generator().manual_seed(0)
     rows = []
-    for heads, n, d in list(PATH_CALLS) + [SERVED_ATTN] + RAGGED:
+    for heads, n, d in list(PATH_CALLS) + [SERVED_ATTN, CONVERTED_MID] + RAGGED:
         bh = BATCH * heads
         q, k, v = (torch.randn(bh, n, d, generator=gen).to("cuda", torch.bfloat16)
                    for _ in range(3))
@@ -295,7 +316,8 @@ def mrf_entry(name: str, rows: list, counts: dict, by_path: dict) -> dict:
 # (C, T) -> where.  The served HiFi-GAN trio's three stages and the full
 # config's last stage (the one of C <= 64)
 MRF_SHAPES = {(64, 5120): "HiFi-GAN trio, stage 1", (32, 40960): "HiFi-GAN trio, stage 2",
-              (16, 245760): "HiFi-GAN trio, stage 3", (64, 245760): "full config, stage 3"}
+              (16, 245760): "HiFi-GAN trio, stage 3", (64, 245760): "full config, stage 3",
+              (256, 5120): "full config, stage 1", (128, 40960): "full config, stage 2"}
 MRF_RAGGED_T = 5000
 MRF_KERNELS, MRF_DILS = (3, 7, 11), (1, 3, 5)
 MRF_HALO = 60                # per-side reach of the k=11 branch
@@ -600,11 +622,13 @@ def reference_phase() -> None:
 
 def reset_counts() -> None:
     """Every kernel's launch counts to 0."""
+    from egregora_tpu_torch.ops import attn_flash as af
     from egregora_tpu_torch.ops import attn_rows as ar
+    from egregora_tpu_torch.ops import conv_edge as ce
     from egregora_tpu_torch.ops import iir_lowpass as il
     from egregora_tpu_torch.ops import mrf_fused as mf
     from egregora_tpu_torch.ops import mrf_rows as mr
-    for mod in (ar, mf, mr, il):
+    for mod in (ar, mf, mr, il, af, ce):
         mod.launches = 0
         mod.launches_by_shape.clear()
 
@@ -612,14 +636,18 @@ def reset_counts() -> None:
 def read_counts() -> dict:
     """Launches since ``reset_counts`` by kernel and shape; mrf_rows's
     (b, t, c) shapes are given as (b, c, t), as mrf_fused_cm's."""
+    from egregora_tpu_torch.ops import attn_flash as af
     from egregora_tpu_torch.ops import attn_rows as ar
+    from egregora_tpu_torch.ops import conv_edge as ce
     from egregora_tpu_torch.ops import iir_lowpass as il
     from egregora_tpu_torch.ops import mrf_fused as mf
     from egregora_tpu_torch.ops import mrf_rows as mr
     return {"attn_rows": dict(ar.launches_by_shape),
             "mrf_fused_cm": dict(mf.launches_by_shape),
             "mrf_rows": {(b, c, t): n for (b, t, c), n in mr.launches_by_shape.items()},
-            "iir_lowpass": dict(il.launches_by_shape)}
+            "iir_lowpass": dict(il.launches_by_shape),
+            "flash_online": dict(af.launches_by_shape),
+            "conv3x3_out1": dict(ce.launches_by_shape)}
 
 
 def set_env(**values) -> None:
@@ -770,7 +798,7 @@ def expected_counts(per_item: dict, b: int, batches: int) -> dict:
     ``SERVED_ATTN`` call a batch)."""
     heads, n, d = SERVED_ATTN
     out = {"attn_rows": {(b * heads, n, d): batches}, "mrf_fused_cm": {}, "mrf_rows": {},
-           "iir_lowpass": {}}
+           "iir_lowpass": {}, "flash_online": {}, "conv3x3_out1": {}}
     for kernel, shapes in per_item.items():
         out[kernel] = {(b, c, t): k * batches for (_, c, t), k in shapes.items()}
     return out
@@ -958,9 +986,11 @@ def bound(flops: float, nbytes: float, peak: float) -> tuple:
 
 # the repaired kernels' new shapes: attention (bh, n, d, dtype) -- the
 # legacy geometry's mid block (4 heads of 24 at B = 3), a ragged head
-# size, float32; MRF (c, t, dtype) at B = 3 -- channel_floor=8 and C = 24
+# size, float32, head sizes above 256 (320 is padded to 512; 512 runs
+# 32 q rows a block in bf16, 16 in float32); MRF (c, t, dtype) at B = 3 -- channel_floor=8 and C = 24
 # in bf16 (padded to 16 and 32 channels), C = 16 in float32
-REPAIR_ATTN = [(12, 512, 24, "bfloat16"), (8, 1000, 40, "bfloat16"), (12, 512, 32, "float32")]
+REPAIR_ATTN = [(12, 512, 24, "bfloat16"), (8, 1000, 40, "bfloat16"), (12, 512, 32, "float32"),
+               (2, 1000, 320, "bfloat16"), (1, 2048, 512, "float32"), (2, 300, 320, "float32")]
 REPAIR_MRF = [(8, 40960, "bfloat16"), (24, 40960, "bfloat16"), (16, 40960, "float32")]
 
 
@@ -993,7 +1023,7 @@ def repair_phase() -> dict:
                                    H100_BF16_FLOPS if dtype == torch.bfloat16 else H100_F32_FLOPS)
         ms = cuda_ms(lambda: ar.attn_rows(q, k, v), 20)
         plain_ms = cuda_ms(lambda: chunked_attention(q, k, v), 5, 1)
-        heads = 4 if d == 24 else bh // BATCH
+        heads = 4 if d == 24 else max(1, bh // BATCH)
         q4, k4, v4 = (t.view(-1, heads, n, d) for t in (q, k, v))
         lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4), 20)
         row = {"bh": bh, "n": n, "d": d, "dtype": dt, "max_abs_err": err, "rel_l2": rel,
@@ -1423,6 +1453,517 @@ def compare_eval_node(label: str, card, cpu, failures: list) -> dict:
     return readings
 
 
+# ---- the converted reference checkpoints at the published geometry ----
+
+def published_cfg():
+    """The published FlashSR checkpoints' geometry (what a user's real
+    vae.pth / student_ldm.pth / sr_vocoder.pth trio carries): VAE base 128,
+    mults (1, 2, 4), 2 res blocks, mid attention and quant convs; the
+    CompVis UNet of 128 channels, attention at ds 2 and 4, 8 heads; the
+    weight-normalised HiFi-GAN of 512 initial channels, floor 64."""
+    from egregora_tpu_torch.models.flashsr import pipeline as P
+    from egregora_tpu_torch.models.flashsr.vocoder import VocoderConfig
+    return P.FlashSRConfig(
+        vae=P.VAEConfig(base_channels=128, channel_mults=(1, 2, 4), latent_channels=16,
+                        num_res_blocks=2, groups=32, mid_attn=True, use_quant_conv=True),
+        unet=P.LDMUNetConfig(in_channels=32, out_channels=16, model_channels=128,
+                             channel_mult=(1, 2, 4), num_res_blocks=2,
+                             attention_resolutions=(2, 4), num_heads=8, groups=32),
+        vocoder=VocoderConfig(n_mels=256, upsample_initial=512, upsample_factors=(10, 8, 6),
+                              upsample_kernels=(20, 16, 12), resblock_kernels=(3, 7, 11),
+                              resblock_dilations=((1, 3, 5),) * 3, channel_floor=64))
+
+
+def upstream_state_dicts(cfg, seed: int) -> dict:
+    """Seeded weights for ``cfg`` as the three upstream state dicts: the
+    port's modules drawn from ``seed``, carried to the JAX package's flax
+    layout (``flax_tree``) and from there to each checkpoint's torch keys
+    and layouts by inverting the name maps: the CompVis fused qkv
+    head-major, 1D convs for qkv and proj_out, Linear ``[out, in]``, convs
+    ``[out, in, *k]``, ConvTranspose ``[in, out, k]``; the vocoder's
+    weights as ``weight_g`` / ``weight_v`` pairs; an upstream-only extra
+    key in the VAE, which the converter drops."""
+    import numpy as np
+
+    from egregora_tpu_torch.models.flashsr import pipeline as P
+    from egregora_tpu_torch.models.flashsr.ldm_unet import ldm_unet_name_map
+    from egregora_tpu_torch.models.flashsr.vae import audioldm_vae_name_map
+    from egregora_tpu_torch.models.flashsr.vocoder import hifigan_name_map
+    from egregora_tpu_torch.utils import weights
+
+    mods = P.FlashSRModules(cfg)
+    mods.init_params(seed)
+    maps = {"vae": audioldm_vae_name_map(cfg.vae).__self__,
+            "student_ldm": ldm_unet_name_map(cfg.unet).__self__,
+            "sr_vocoder": hifigan_name_map(cfg.vocoder).__self__}
+    heads = cfg.unet.num_heads
+    out = {}
+    for name, module in mods.by_name().items():
+        flat = weights._flatten(weights.flax_tree(module, values=True))
+        sd = {}
+        for tk, fk in maps[name].items():
+            tr = None
+            if isinstance(fk, tuple):
+                fk, tr = fk
+            w = flat[fk]
+            if tk.endswith("qkv.weight"):      # flax [Cin, 3C] slot-major -> [3C, Cin, 1]
+                oc = w.shape[1]
+                t = (w.T.reshape(3, heads, oc // (3 * heads), -1).transpose(1, 0, 2, 3)
+                     .reshape(oc, -1)[:, :, None])
+            elif tk.endswith("qkv.bias"):
+                t = w.reshape(3, heads, -1).transpose(1, 0, 2).reshape(-1)
+            elif callable(tr):                 # dense from a Linear or a 1D conv
+                t = w.T[:, :, None] if "proj_out" in tk else w.T
+            elif tr is not None:               # ConvTranspose1d
+                t = np.transpose(w, np.argsort(tr))
+            elif w.ndim >= 3 and tk.endswith("weight"):
+                t = np.transpose(w, np.argsort(tuple(range(2, w.ndim)) + (1, 0)))
+            elif w.ndim == 2 and tk.endswith("weight"):
+                t = w.T
+            else:
+                t = w
+            t = np.ascontiguousarray(t, np.float32)
+            if name == "sr_vocoder" and tk.endswith("weight") and t.ndim >= 2:
+                g = np.sqrt(np.sum(t ** 2, axis=tuple(range(1, t.ndim)), keepdims=True))
+                sd[tk[:-len("weight")] + "weight_v"] = 3.0 * t
+                sd[tk[:-len("weight")] + "weight_g"] = g
+            else:
+                sd[tk] = t
+        out[name] = sd
+    out["vae"]["loss.logvar"] = np.zeros((1,), np.float32)
+    return out
+
+
+def write_reference_trio(cfg, d, seed: int = 0) -> None:
+    """``upstream_state_dicts(cfg, seed)`` as ``vae.pth``,
+    ``student_ldm.pth`` and ``sr_vocoder.pth`` in ``d`` (``torch.save``)."""
+    import torch
+    d.mkdir(parents=True, exist_ok=True)
+    for name, sd in upstream_state_dicts(cfg, seed).items():
+        torch.save({k: torch.from_numpy(v) for k, v in sd.items()}, str(d / f"{name}.pth"))
+
+
+# the converted node's paths, one-shot on the 12 s input: label, switches,
+# MRF launches by (b, c, t) at batch 1 (the attention's are CONVERTED_CALLS)
+CONVERTED_PATHS = [
+    ("module-path vocoder", {"EGREGORA_FUSED_VOCODER": None, "EGREGORA_MRF_PATH": None}, {}),
+    ("fused MRF", {"EGREGORA_FUSED_VOCODER": "1", "EGREGORA_MRF_PATH": None},
+     {"mrf_fused_cm": {(1, 64, 245760): 1}}),
+    ("rows MRF", {"EGREGORA_FUSED_VOCODER": "1", "EGREGORA_MRF_PATH": "rows"},
+     {"mrf_rows": {(1, 256, 5120): 3, (1, 128, 40960): 3, (1, 64, 245760): 3}}),
+]
+CONVERTED_CALLS = dict(PATH_CALLS)
+CONVERTED_CALLS.pop((1, 8192, 256))
+CONVERTED_CALLS[CONVERTED_MID] = 2
+# relative L2 limits of the converted published trio, bf16 on the card
+# against float32 on the CPU with the same (bf16-rounded) weights, one
+# chunk; each lies between the sound reading (1.467e-2, 2.148e-2,
+# 2.144e-2) and that of every attention dropping its last 64 keys
+# (1.927e-2, 2.696e-2, 2.685e-2) on an H100 (PERF.md, Findings)
+CONVERTED_REF_LIMITS = {"mel_hr": 1.7e-2, "wave": 2.4e-2, "high_band": 2.4e-2}
+
+
+def converted_counts(per_item: dict, b: int, batches: int) -> dict:
+    """The converted node's launches at batch ``b`` over ``batches``."""
+    out = {k: {} for k in ("attn_rows", "mrf_fused_cm", "mrf_rows", "iir_lowpass",
+                           "flash_online", "conv3x3_out1")}
+    out["attn_rows"] = {(b * h, n, d): c * batches for (h, n, d), c in CONVERTED_CALLS.items()}
+    for kernel, shapes in per_item.items():
+        out[kernel] = {(b, c, t): k * batches for (_, c, t), k in shapes.items()}
+    return out
+
+
+def converted_phase() -> dict:
+    """The node on a converted reference trio at the published geometry.
+    A seeded upstream-layout trio is written to a temporary
+    ``$EGREGORA_TPU_WEIGHTS/flashsr``; the node resolves it ("converted":
+    geometry inferred from the shapes, converted, cached; later builds
+    read the cache) and runs the 12 s input one-shot on each path of
+    ``CONVERTED_PATHS`` (streaming ``max_batch=2`` on the first), with
+    launches counted by shape: ``attn_rows`` at D = 512 in the VAE mid
+    blocks, the MRF kernels at C = 256/128/64 on the rows path.  Then one
+    chunk, bf16 on the card against float32 on the CPU, beside every
+    attention dropping its last key tile, which the limits must reject,
+    and each attention call against the float32 plain version on its own
+    inputs."""
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    import numpy as np
+    import torch
+
+    from egregora_tpu_torch.models.flashsr import distill
+    from egregora_tpu_torch.models.flashsr import pipeline as P
+    from egregora_tpu_torch.nodes import super_resolution
+    from egregora_tpu_torch.nodes.base import to_buffer
+    from egregora_tpu_torch.ops import attention
+
+    cfg = published_cfg()
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_weights_"))
+    node_cls = super_resolution.NODE_CLASS_MAPPINGS["EgregoraAudioUpscaler"]
+    sr_in, sr_out = 16000, 48000
+    x = test_signal(SECONDS, sr_in, seed=0)
+    audio = {"waveform": torch.from_numpy(x[None]), "sample_rate": sr_in}
+    n_out = int(SECONDS * sr_out)
+    results = {"paths": {}}
+    try:
+        t = time.perf_counter()
+        write_reference_trio(cfg, root / "flashsr", seed=7)
+        results["write_s"] = time.perf_counter() - t
+        set_env(EGREGORA_TPU_WEIGHTS=str(root), EGREGORA_FLASHSR_VARIANT=None,
+                EGREGORA_FLASHSR_NUM_HEADS=None)
+        for i, (label, switches, per_item) in enumerate(CONVERTED_PATHS):
+            set_env(**switches)
+            node_cls._PIPE = None
+            t = time.perf_counter()
+            node = node_cls()
+            pipe = node._pipeline()
+            ready = time.perf_counter() - t
+            if pipe.weight_source != "converted" or pipe.cfg != cfg or pipe.device.type != "cuda":
+                raise RuntimeError(f"converted {label}: the node resolved {pipe.weight_source} "
+                                   f"on {pipe.device}, config {pipe.cfg}")
+            cached = (root / "flashsr" / distill.CACHE).exists()
+            log(f"converted {label}: pipeline ready in {ready:.1f} s "
+                f"({'converted from the .pth trio' if i == 0 else 'from the cache'}; "
+                f"cache written: {cached})")
+            for run_no in ("cold", "warm"):
+                reset_counts()
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                (out,) = node.run(audio, lowpass_input=False, output_sr=str(sr_out))
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t
+                counts = read_counts()
+                one = out["waveform"].numpy()
+                finite = bool(np.isfinite(one).all())
+                log(f"converted {label} one-shot ({run_no}): {wall:.3f} s wall, RTF "
+                    f"{SECONDS / wall:.1f}x real time, out {one.shape}, finite {finite}, "
+                    f"launches {counts}")
+                if one.shape != (1, 1, n_out) or not finite:
+                    raise RuntimeError(f"converted {label}: bad output {one.shape}, "
+                                       f"finite={finite}")
+                expect = converted_counts(per_item, BATCH, 1)
+                if counts != expect:
+                    raise RuntimeError(f"converted {label}: launches {counts}, expected {expect}")
+            results["paths"][label] = {"wall_s": wall, "rtf": SECONDS / wall, "counts": counts}
+            if i == 0:
+                reset_counts()
+                t = time.perf_counter()
+                stream = pipe.process(to_buffer(audio), output_sr=sr_out, max_batch=2).numpy()
+                torch.cuda.synchronize()
+                wall_s = time.perf_counter() - t
+                counts_s = read_counts()
+                rel = rel_l2(torch.from_numpy(stream), torch.from_numpy(one[0]))
+                log(f"converted {label} streaming max_batch=2: {wall_s:.3f} s wall, launches "
+                    f"{counts_s}; one-shot vs streaming relative L2 {rel:.3e} "
+                    f"(limit {NODE_STREAM_REL_L2:g})")
+                if counts_s != converted_counts(per_item, 2, 2):
+                    raise RuntimeError(f"converted streaming: launches {counts_s}")
+                if stream.shape != (1, n_out) or not rel <= NODE_STREAM_REL_L2:
+                    raise RuntimeError(f"converted: one-shot and streaming disagree: {rel}")
+                results["paths"][label]["streaming_wall_s"] = wall_s
+                module_pipe = pipe
+            else:        # the kernels' vocoder wave against the module path's
+                chunk = torch.from_numpy(test_signal(P.CHUNK_S, P.REQ_SR, seed=3)).to("cuda")
+                wav = pipe.synthesize(chunk)[1]
+                set_env(EGREGORA_FUSED_VOCODER=None)
+                module = pipe.synthesize(chunk)[1]
+                set_env(**switches)
+                rel = rel_l2(wav.float(), module.float())
+                log(f"converted {label}: vocoder wave vs the module path relative L2 "
+                    f"{rel:.3e} (limit {FUSED_WAVE_LIMIT:g})")
+                if not rel <= FUSED_WAVE_LIMIT:
+                    raise RuntimeError(f"converted {label}: the vocoder wave is {rel} "
+                                       "from the module path")
+                results["paths"][label]["wave_rel_l2"] = rel
+        set_env(EGREGORA_FUSED_VOCODER=None, EGREGORA_MRF_PATH=None)
+        results["reference"] = converted_reference(module_pipe, root / "flashsr")
+    finally:
+        set_env(EGREGORA_TPU_WEIGHTS=None, EGREGORA_FUSED_VOCODER=None, EGREGORA_MRF_PATH=None)
+        node_cls._PIPE = None
+        shutil.rmtree(root, ignore_errors=True)
+    return results
+
+
+def converted_reference(card, ckpt_dir) -> dict:
+    """One chunk of the converted pipeline ``card`` (bf16) against float32
+    arithmetic on the CPU with the same weights rounded to bf16: the
+    decoded mel, the vocoder's wave and the output's band above the
+    crossover; planted fault: every attention drops its last 64 keys.
+    Each attention call of the card's chunk is also held to the float32
+    plain version on its own inputs (``ATTN_CALL_LIMIT``)."""
+    import dataclasses
+
+    import torch
+
+    from egregora_tpu_torch.models.flashsr import distill
+    from egregora_tpu_torch.models.flashsr import pipeline as P
+    from egregora_tpu_torch.ops import attention
+
+    cfg, sd = distill.load_converted_flashsr(ckpt_dir)
+    x = torch.from_numpy(test_signal(P.CHUNK_S, P.REQ_SR, seed=2)[:, :P.CHUNK_SAMPLES])
+
+    def outputs(pipe):
+        xd = x.to(pipe.device)
+        with torch.inference_mode():
+            mel, wav = pipe.synthesize(xd)
+            y = pipe._postprocess(xd, wav, mel).float()
+        high = y - P.lowpass_fir(y, P.REQ_SR, pipe.cfg.crossover_hz)
+        return {"mel_hr": mel.float().cpu(), "wave": wav.float().cpu(),
+                "high_band": high.float().cpu()}
+
+    f32 = dataclasses.replace(cfg, **{k: dataclasses.replace(getattr(cfg, k), dtype=torch.float32)
+                                      for k in ("vae", "unet", "vocoder")})
+    rounded = {m: {k: v.bfloat16().float() for k, v in d.items()} for m, d in sd.items()}
+    t = time.perf_counter()
+    ref = outputs(P.FlashSRPipeline(f32, params=rounded, device="cpu"))
+    log(f"converted reference: one chunk f32 on the CPU {time.perf_counter() - t:.1f} s")
+    kernel, calls = attention.attn_rows, []
+
+    def checked(q, k, v):
+        got = kernel(q, k, v)
+        ref32 = attention.chunked_attention(q.float(), k.float(), v.float())
+        calls.append((tuple(q.shape), rel_l2(got.float(), ref32),
+                      rel_l2(drop_last_tile(q, k, v).float(), ref32)))
+        return got
+
+    try:
+        attention.attn_rows = checked
+        sound = outputs(card)
+        attention.attn_rows = drop_last_tile
+        planted = outputs(card)
+    finally:
+        attention.attn_rows = kernel
+    readings, failures, nan = {}, [], float("nan")
+    good, bad = max(c[1] for c in calls), min(c[2] for c in calls)
+    mid = [c for c in calls if c[0][-1] == 512]
+    log(f"converted reference attention per call ({len(calls)} calls, shapes "
+        f"{sorted(set(c[0] for c in calls))}): attn_rows vs float32 plain on the same inputs, "
+        f"relative L2 at most {good:.3e} (D = 512: {max((c[1] for c in mid), default=nan):.3e}; "
+        f"limit {ATTN_CALL_LIMIT:g}) {'ok' if good <= ATTN_CALL_LIMIT else 'FAIL'}; planted "
+        f"fault (last key tile dropped) at least {bad:.3e} (D = 512: "
+        f"{min((c[2] for c in mid), default=nan):.3e}) "
+        f"{'rejected' if bad > ATTN_CALL_LIMIT else 'NOT REJECTED'}")
+    readings["attn_call"] = (good, bad)
+    if len(mid) != 2:
+        failures.append(f"{len(mid)} attention calls at D = 512, expected 2")
+    if not good <= ATTN_CALL_LIMIT:
+        failures.append(f"attention per call: {good}")
+    if not bad > ATTN_CALL_LIMIT:
+        failures.append("attention per call: the dropped key tile passes")
+    for key, limit in CONVERTED_REF_LIMITS.items():
+        g, b = rel_l2(sound[key], ref[key]), rel_l2(planted[key], ref[key])
+        readings[key] = (g, b)
+        log(f"converted reference {key}: bf16 card vs f32 cpu relative L2 {g:.3e} "
+            f"(limit {limit:g}) {'ok' if g <= limit else 'FAIL'}; planted fault (last key "
+            f"tile dropped) {b:.3e} {'rejected' if b > limit else 'NOT REJECTED'}")
+        if not g <= limit:
+            failures.append(f"converted: card and CPU disagree on {key}: {g}")
+        if not b > limit:
+            failures.append(f"converted: the {key} limit does not reject the planted fault")
+    if failures:
+        raise RuntimeError("; ".join(failures))
+    return readings
+
+
+# ---- K1b (flash_online) and K3 (conv3x3_out1) against their plain versions ----
+
+# K1b: the attention lab's shapes (bh, n, d) and a ragged N, at the JAX
+# defaults (block_q 512, block_k 1024: the largest tile built for each D)
+K1B_SHAPES = [(26, 8192, 256), (208, 2048, 32), (26, 8192, 512), (6, 1000, 64)]
+# K3: (b, f, m, c, dtype, where) -- the decoders' last conv on one-shot's
+# chunk batch (C = 24 compact trios, 64 full config, 128 published), the
+# edge lab's geometry, ragged F and M, C off the vector and over a chunk
+K3_SHAPES = [(3, 512, 256, 24, "bfloat16", "compact trios' decoder"),
+             (3, 512, 256, 64, "bfloat16", "full config's decoder"),
+             (3, 512, 256, 128, "bfloat16", "published decoder"),
+             (26, 512, 256, 64, "bfloat16", "edge lab"),
+             (26, 512, 256, 128, "bfloat16", "edge lab, published width"),
+             (2, 37, 45, 64, "bfloat16", "ragged F and M"),
+             (1, 19, 70, 200, "bfloat16", "C over one chunk, off the vector"),
+             (3, 100, 77, 24, "float32", "float32")]
+K3_ROWS, K3_COLS = 8, 32     # a K3 block's output tile: rows a step, columns
+
+
+def drop_bottom_halo(x, w, bias):
+    """A planted fault of K3: every 8-row tile without the halo row below
+    it (its last row's taps of the next row left out), from the plain
+    version."""
+    import torch.nn.functional as F
+
+    from egregora_tpu_torch.ops import conv_edge as ce
+    out = ce.conv3x3_out1_plain(x, w, bias)
+    f, m = x.shape[1], x.shape[2]
+    xp = F.pad(x.float(), (0, 0, 1, 1, 1, 1))
+    wr = w[2, :, :, 0].to(x.dtype).float()                   # taps of the row below
+    below = sum(xp[:, 2:2 + f, dj:dj + m] @ wr[dj] for dj in range(3))
+    rows = [r for r in range(K3_ROWS - 1, f - 1, K3_ROWS)]
+    out[:, rows, :, 0] -= below[:, rows]
+    return out
+
+
+def k3_edges(y):
+    """K3's output at its tiles' edges: rows 8i and 8i + 7, columns 32j
+    and 32j + 31 (where a halo fault shows)."""
+    import torch
+    f, m = y.shape[1], y.shape[2]
+    rows = sorted({r for i in range(0, f, K3_ROWS) for r in (i, min(i + K3_ROWS, f) - 1)})
+    cols = sorted({c for j in range(0, m, K3_COLS) for c in (j, min(j + K3_COLS, m) - 1)})
+    return torch.cat([y[:, rows].flatten(), y[:, :, cols].flatten()])
+
+
+def edge_kernels_phase() -> dict:
+    """K1b and K3 against their plain versions on the card, beside planted
+    faults the limits must reject (K1b: the last key tile dropped; K3: the
+    bottom halo row dropped), with the kernel's, the plain version's and
+    the library call's times (SDPA; cuDNN ``F.conv2d`` on the same
+    channels-last input, bf16 out) and the bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from egregora_tpu_torch.ops import attn_flash as af
+    from egregora_tpu_torch.ops import conv_edge as ce
+
+    k1b, k3, failures = [], [], []
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    for bh, n, d in K1B_SHAPES:
+        q, k, v = (torch.randn(bh, n, d, generator=gen, device="cuda").bfloat16()
+                   for _ in range(3))
+        got = af.flash_online(q, k, v)
+        torch.cuda.synchronize()
+        plain = af.flash_online_plain(q, k, v)
+        ok, rel, err, limit = bf16_agreement(got, plain)
+        tile = af.kernel_tile(q.dtype, d, 512, 1024)[2]
+        m = (n - 1) // tile * tile or n // 2       # one key tile: drop half of it
+        bad = af.flash_online_plain(q, k[:, :m].contiguous(), v[:, :m].contiguous())
+        bad_ok, bad_rel, bad_err, _ = bf16_agreement(bad, plain)
+        flops = 4.0 * bh * n * n * d
+        bound_ms, bound_by = bound(flops, 8.0 * bh * n * d, H100_BF16_FLOPS)
+        reps = max(2, min(20, int(2e12 / flops)))
+        ms = cuda_ms(lambda: af.flash_online(q, k, v), reps)
+        plain_ms = cuda_ms(lambda: af.flash_online_plain(q, k, v), 1, 1)
+        q4, k4, v4 = (t.view(1, bh, n, d) for t in (q, k, v))
+        lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4), reps)
+        row = {"bh": bh, "n": n, "d": d, "tile": list(af.kernel_tile(q.dtype, d, 512, 1024)),
+               "max_abs_err": err, "rel_l2": rel, "max_abs_limit": limit,
+               "planted_max_abs_err": bad_err, "planted_rel_l2": bad_rel, "ms": ms,
+               "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": bound_ms,
+               "bound_by": bound_by, "tflops": flops / ms / 1e9}
+        k1b.append(row)
+        log(f"flash_online [{bh},{n},{d}] tile {row['tile']}: vs plain max|d| {err:.3e} "
+            f"(limit {limit:.3e}), rel L2 {rel:.3e} {'ok' if ok else 'FAIL'}; planted fault "
+            f"(last key tile dropped) max|d| {bad_err:.3e}, rel L2 {bad_rel:.3e} "
+            f"{'rejected' if not bad_ok else 'NOT REJECTED'}; kernel {ms:.4f} ms "
+            f"({row['tflops']:.1f} TFLOP/s), plain {plain_ms:.3f} ms, sdpa {lib_ms:.4f} ms, "
+            f"bound {bound_ms:.4f} ms ({bound_by})")
+        if not ok:
+            failures.append(f"flash_online [{bh},{n},{d}] disagrees: {rel}, {err}")
+        if bad_ok:
+            failures.append(f"flash_online [{bh},{n},{d}]: the planted fault passes")
+        del q, k, v, q4, k4, v4, got, plain, bad
+
+    for b, f, m, c, dt, where in K3_SHAPES:
+        dtype = getattr(torch, dt)
+        x = torch.randn(b, f, m, c, generator=gen, device="cuda").to(dtype)
+        w = 0.1 * torch.randn(3, 3, c, 1, generator=gen, device="cuda")
+        bias = torch.full((1,), 0.1, device="cuda")
+        got = ce.conv3x3_out1(x, w, bias)
+        torch.cuda.synchronize()
+        plain = ce.conv3x3_out1_plain(x, w, bias)
+        ok, rel, err = f32_agreement(got, plain)
+        edge_err = float((k3_edges(got) - k3_edges(plain)).abs().max())
+        bad_ok, bad_rel, bad_err = f32_agreement(drop_bottom_halo(x, w, bias), plain)
+        elt = x.element_size()
+        bound_ms, bound_by = bound(18.0 * b * f * m * c, b * f * m * (c * elt + 4.0),
+                                   H100_F32_FLOPS)
+        ms = cuda_ms(lambda: ce.conv3x3_out1(x, w, bias), 20)
+        plain_ms = cuda_ms(lambda: ce.conv3x3_out1_plain(x, w, bias), 3, 1)
+        xn, wn = x.permute(0, 3, 1, 2), w[..., 0].permute(2, 0, 1)[None].to(dtype)
+        lib_ms = cuda_ms(lambda: F.conv2d(xn, wn, bias.to(dtype), padding=1), 20)
+        row = {"b": b, "f": f, "m": m, "c": c, "dtype": dt, "where": where,
+               "max_abs_err": err, "edge_max_abs_err": edge_err, "rel_l2": rel,
+               "max_abs_limit": F32_REL * float(plain.abs().max()),
+               "planted_max_abs_err": bad_err, "planted_rel_l2": bad_rel, "ms": ms,
+               "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": bound_ms,
+               "bound_by": bound_by, "gb_per_s": b * f * m * (c * elt + 4.0) / ms / 1e6}
+        k3.append(row)
+        log(f"conv3x3_out1 [{b},{f},{m},{c}] {dt} ({where}): vs plain max|d| {err:.3e}, tile "
+            f"edges {edge_err:.3e} (limit {row['max_abs_limit']:.3e}), rel L2 {rel:.3e} "
+            f"{'ok' if ok else 'FAIL'}; planted fault (bottom halo row dropped) max|d| "
+            f"{bad_err:.3e}, rel L2 {bad_rel:.3e} {'rejected' if not bad_ok else 'NOT REJECTED'}; "
+            f"kernel {ms:.4f} ms ({row['gb_per_s']:.0f} GB/s), plain {plain_ms:.3f} ms, "
+            f"cudnn {lib_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+        if not ok:
+            failures.append(f"conv3x3_out1 [{b},{f},{m},{c}] {dt} disagrees: {rel}, {err}")
+        if bad_ok:
+            failures.append(f"conv3x3_out1 [{b},{f},{m},{c}]: the planted fault passes")
+        del x, got, plain
+    if failures:
+        raise RuntimeError("; ".join(failures))
+    return {"flash_online": k1b, "conv3x3_out1": k3}
+
+
+def lab_phase() -> dict:
+    """The two lab entry points (``python -m egregora_tpu_torch.tools.
+    attn_flash_lab`` / ``edge_conv_lab``), once at one round, with the
+    launches of every kernel counted: K1b and K3 run on no node path; the
+    labs are where they launch."""
+    from egregora_tpu_torch.tools import attn_flash_lab, edge_conv_lab
+
+    out = {}
+    for name, lab in (("attn_flash_lab", attn_flash_lab), ("edge_conv_lab", edge_conv_lab)):
+        reset_counts()
+        t = time.perf_counter()
+        rows = lab.sweep(rounds=1)
+        wall = time.perf_counter() - t
+        counts = read_counts()
+        log(f"{name}: {len(rows)} lines in {wall:.1f} s, launches "
+            f"{ {k: v for k, v in counts.items() if v} }")
+        out[name] = {"rows": rows, "counts": counts, "wall_s": wall}
+    if not out["attn_flash_lab"]["counts"]["flash_online"]:
+        raise RuntimeError("attn_flash_lab launched no flash_online")
+    if not out["edge_conv_lab"]["counts"]["conv3x3_out1"]:
+        raise RuntimeError("edge_conv_lab launched no conv3x3_out1")
+    return out
+
+
+def edge_entry(name: str, rows: list, counts: dict, by_path: dict) -> dict:
+    """The ``kernels`` line's entry of K1b or K3: ``counts`` maps a shape to
+    the launches the labs made; times and bounds are phase (ii)'s at that
+    shape (K1b at its default tile) times those launches."""
+    if name == "flash_online":
+        key = ("bh", "n", "d")
+        src, rep = "attn_online.cu", "egregora_tpu/ops/attn_flash.py:81"
+    else:
+        key = ("b", "f", "m", "c")
+        src, rep = "conv_edge.cu", "egregora_tpu/ops/conv_edge.py:66"
+    by_shape = {tuple(r[k] for k in key): r for r in rows if r.get("dtype", "bfloat16") == "bfloat16"}
+    missing = set(counts) - set(by_shape)
+    if missing:
+        raise RuntimeError(f"{name}: launches at shapes phase (ii) did not time: {missing}")
+
+    def total(k):
+        return sum(by_shape[s][k] * n for s, n in counts.items())
+
+    bound_ms = total("bound_ms")
+    by = collections.Counter()
+    for s, n in counts.items():
+        by[by_shape[s]["bound_by"]] += by_shape[s]["bound_ms"] * n
+    return {
+        "name": name, "route": "cuda", "source": f"egregora_tpu_torch/csrc/{src}",
+        "replaces": rep, "launches": sum(counts.values()),
+        "max_abs_err": max(r["max_abs_err"] for r in rows),
+        "ms": total("ms"), "plain_ms": total("plain_ms"), "bound_ms": bound_ms,
+        "bound_by": by.most_common(1)[0][0], "library_ms": total("library_ms"),
+        "library_call": ("torch.nn.functional.scaled_dot_product_attention"
+                         if name == "flash_online" else
+                         "torch.nn.functional.conv2d (cuDNN, bf16 out)"),
+        "launches_by_shape": {"x".join(map(str, s)): n for s, n in counts.items()},
+        "launches_by_path": by_path, "node_path_launches": 0, "shapes": rows,
+    }
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1454,25 +1995,41 @@ def main() -> int:
     mrf_rows_ = mrf_phase()
     repair = repair_phase()
     k4_rows = k4_phase()
+    edge = edge_kernels_phase()
     reference_phase()
     nodes = node_phase()
     served_reference_phase()
     pipe = pipeline_phase()
+    converted = converted_phase()
     evals = eval_phase()
+    labs = lab_phase()
 
     attn_counts = collections.Counter(pipe["counts"])
     attn_paths = {"full config (seeded weights)": pipe["launches"]}
-    for label, r in nodes.items():
+    for label, r in list(nodes.items()) + [(f"converted trio, {k}", r) for k, r
+                                           in converted["paths"].items()]:
         attn_counts.update(r["counts"]["attn_rows"])
         attn_paths[label] = sum(r["counts"]["attn_rows"].values())
-    fused = nodes["HiFi-GAN trio, fused MRF"]["counts"]["mrf_fused_cm"]
-    rows = nodes["HiFi-GAN trio, rows MRF"]["counts"]["mrf_rows"]
+    fused = collections.Counter(nodes["HiFi-GAN trio, fused MRF"]["counts"]["mrf_fused_cm"])
+    conv_fused = converted["paths"]["fused MRF"]["counts"]["mrf_fused_cm"]
+    fused.update(conv_fused)
+    rows = collections.Counter(nodes["HiFi-GAN trio, rows MRF"]["counts"]["mrf_rows"])
+    conv_rows = converted["paths"]["rows MRF"]["counts"]["mrf_rows"]
+    rows.update(conv_rows)
+    k1b_counts = labs["attn_flash_lab"]["counts"]["flash_online"]
+    k3_counts = labs["edge_conv_lab"]["counts"]["conv3x3_out1"]
     kernels = [attn_entry(attn_rows_, dict(attn_counts), attn_paths),
-               mrf_entry("mrf_fused_cm", mrf_rows_, fused,
-                         {"HiFi-GAN trio, fused MRF": sum(fused.values())}),
-               mrf_entry("mrf_rows", mrf_rows_, rows,
-                         {"HiFi-GAN trio, rows MRF": sum(rows.values())}),
-               iir_entry(k4_rows, evals["k4_counts"], evals["k4_by_path"])]
+               mrf_entry("mrf_fused_cm", mrf_rows_, dict(fused),
+                         {"HiFi-GAN trio, fused MRF": sum(fused.values()) - sum(conv_fused.values()),
+                          "converted trio, fused MRF": sum(conv_fused.values())}),
+               mrf_entry("mrf_rows", mrf_rows_, dict(rows),
+                         {"HiFi-GAN trio, rows MRF": sum(rows.values()) - sum(conv_rows.values()),
+                          "converted trio, rows MRF": sum(conv_rows.values())}),
+               iir_entry(k4_rows, evals["k4_counts"], evals["k4_by_path"]),
+               edge_entry("flash_online", edge["flash_online"], k1b_counts,
+                          {"attn_flash_lab": sum(k1b_counts.values())}),
+               edge_entry("conv3x3_out1", edge["conv3x3_out1"], k3_counts,
+                          {"edge_conv_lab": sum(k3_counts.values())})]
     kernels[0]["launches_streaming"] = pipe["launches_streaming"]
     kernels[0]["repair_shapes"] = repair["attn"]
     kernels[1]["repair_shapes"] = [r for r in repair["mrf"] if r["entry"] == "mrf_fused_cm"]
@@ -1482,6 +2039,9 @@ def main() -> int:
             raise RuntimeError(f"{k['name']} was not launched on its main path")
     log("node paths: " + "; ".join(f"{label}: warm one-shot {r['wall_s']:.3f} s wall "
                                    f"(RTF {r['rtf']:.1f}x)" for label, r in nodes.items()))
+    log("converted trio (published geometry): " + "; ".join(
+        f"{label}: warm one-shot {r['wall_s']:.3f} s wall (RTF {r['rtf']:.1f}x)"
+        for label, r in converted["paths"].items()))
     log(f"eval nodes, warm on {card}: " + "; ".join(
         f"{label} {r['warm_wall_s']:.4f} s" for label, r in evals["nodes"].items()
         if "warm_wall_s" in r))

@@ -1,14 +1,17 @@
 // attn_rows: exact softmax attention [B*H, N, D] -> [B*H, N, D] for Hopper
 // (sm_90a): bf16 in and out (attn_rows_bf16) or float32 in and out
-// (attn_rows_f32), D in {32, 64, 128, 256} (the wrapper pads other head
-// sizes up to 256 with zero columns).
+// (attn_rows_f32), D in {32, 64, 128, 256, 512} (the wrapper pads other
+// head sizes up to 512 with zero columns).
 //
 // Replaces the Pallas TPU kernel egregora_tpu/ops/attn_pallas.py::flash_rows
 // (_kernel), which holds a q-block's whole [block_q, N] f32 score row in
 // VMEM.  A Hopper SM has at most 227 KB of shared memory, so this kernel
 // streams the key axis instead: one block per (b*h, 64-row q tile), four
 // warps of 16 rows each, K/V tiles in shared memory, and an online softmax
-// with f32 running max and sum.
+// with f32 running max and sum.  At D = 512 the 64-row tile set (Q, K, V in
+// bf16 and the f32 accumulator: 320 KB) does not fit, so that head size
+// runs 32 q rows (two warps) a block against 32-key tiles (169 KB); the
+// f32 entry runs 16 q rows (one warp) a block there.
 //
 // bf16 entry: scores are scaled in f32 after the bf16 QK^T product (as
 // flash_rows does), the unnormalised weights are rounded to bf16 for the
@@ -41,16 +44,23 @@ using namespace nvcuda;
 
 namespace {
 
-constexpr int BM = 64;             // q rows per block
-constexpr int BN = 64;             // keys per K/V tile
-constexpr int WARPS = BM / 16;     // one warp per 16 q rows
-constexpr int THREADS = WARPS * 32;
 constexpr int VEC = 8;             // bf16 values per 16-byte load
 
 constexpr size_t align128(size_t x) { return (x + 127) / 128 * 128; }
 
+// BM q rows a block (one warp per 16), BN keys a K/V tile: 64 and 64 up
+// to D = 256, 32 and 32 at D = 512
 template <int D>
-struct Layout {
+struct Tile {
+  static constexpr int BM = D > 256 ? 32 : 64;
+  static constexpr int BN = D > 256 ? 32 : 64;
+  static constexpr int WARPS = BM / 16;
+  static constexpr int THREADS = WARPS * 32;
+};
+
+template <int D>
+struct Layout : Tile<D> {
+  static constexpr int BM = Tile<D>::BM, BN = Tile<D>::BN, WARPS = Tile<D>::WARPS;
   static constexpr int LDQ = D + 8;    // bf16 row pitch of the Q, K, V tiles
   static constexpr int LDS = BN + 4;   // f32 row pitch of a warp's scores
   static constexpr int LDP = BN + 8;   // bf16 row pitch of a warp's weights
@@ -65,12 +75,13 @@ struct Layout {
 };
 
 template <int D>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(Tile<D>::THREADS)
 attn_rows_kernel(const __nv_bfloat16* __restrict__ q,
                  const __nv_bfloat16* __restrict__ k,
                  const __nv_bfloat16* __restrict__ v,
                  __nv_bfloat16* __restrict__ o, int n, float scale) {
   using L = Layout<D>;
+  constexpr int BM = L::BM, BN = L::BN, THREADS = L::THREADS;
   static_assert(D % 16 == 0, "head dim must be a multiple of 16");
   static_assert(L::bytes <= 232448, "tile set exceeds 227 KB of shared memory");
   extern __shared__ __align__(128) unsigned char smem[];
@@ -202,12 +213,13 @@ attn_rows_kernel(const __nv_bfloat16* __restrict__ q,
 template <int D>
 int launch(const void* q, const void* k, const void* v, void* o, int bh, int n,
            float scale, cudaStream_t stream) {
-  const int smem = int(Layout<D>::bytes);
+  using L = Layout<D>;
+  const int smem = int(L::bytes);
   cudaError_t err = cudaFuncSetAttribute(
       attn_rows_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return int(err);
-  const dim3 grid((n + BM - 1) / BM, bh);
-  attn_rows_kernel<D><<<grid, THREADS, smem, stream>>>(
+  const dim3 grid((n + L::BM - 1) / L::BM, bh);
+  attn_rows_kernel<D><<<grid, L::THREADS, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), n, scale);
   return int(cudaGetLastError());
@@ -219,6 +231,9 @@ constexpr int FBN = 32;            // keys per K/V tile of the f32 entry
 
 template <int D>
 struct LayoutF32 {
+  static constexpr int BM = D > 256 ? 16 : 64;   // q rows a block, 16 a warp
+  static constexpr int WARPS = BM / 16;
+  static constexpr int THREADS = WARPS * 32;
   static constexpr int LDQ = D + 4;    // f32 row pitch of the Q, V and O tiles
   static constexpr int LDK = D + 1;    // K pitch: lane j reads row j, no bank conflicts
   static constexpr int LDS = FBN + 1;  // a warp's scores
@@ -231,11 +246,12 @@ struct LayoutF32 {
 };
 
 template <int D>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(LayoutF32<D>::THREADS)
 attn_rows_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, float* __restrict__ o, int n,
                      float scale) {
   using L = LayoutF32<D>;
+  constexpr int BM = L::BM, THREADS = L::THREADS;
   static_assert(D % 32 == 0, "head dim must be a multiple of 32");
   static_assert(L::bytes <= 232448, "tile set exceeds 227 KB of shared memory");
   extern __shared__ __align__(128) unsigned char smem[];
@@ -347,12 +363,13 @@ attn_rows_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 template <int D>
 int launch_f32(const void* q, const void* k, const void* v, void* o, int bh, int n,
                float scale, cudaStream_t stream) {
-  const int smem = int(LayoutF32<D>::bytes);
+  using L = LayoutF32<D>;
+  const int smem = int(L::bytes);
   cudaError_t err = cudaFuncSetAttribute(
       attn_rows_f32_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return int(err);
-  const dim3 grid((n + BM - 1) / BM, bh);
-  attn_rows_f32_kernel<D><<<grid, THREADS, smem, stream>>>(
+  const dim3 grid((n + L::BM - 1) / L::BM, bh);
+  attn_rows_f32_kernel<D><<<grid, L::THREADS, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o), n, scale);
   return int(cudaGetLastError());
@@ -372,6 +389,7 @@ extern "C" int attn_rows_bf16(const void* q, const void* k, const void* v, void*
     case 64: return launch<64>(q, k, v, o, bh, n, scale, s);
     case 128: return launch<128>(q, k, v, o, bh, n, scale, s);
     case 256: return launch<256>(q, k, v, o, bh, n, scale, s);
+    case 512: return launch<512>(q, k, v, o, bh, n, scale, s);
     default: return int(cudaErrorInvalidValue);
   }
 }
@@ -387,6 +405,7 @@ extern "C" int attn_rows_f32(const void* q, const void* k, const void* v, void* 
     case 64: return launch_f32<64>(q, k, v, o, bh, n, scale, s);
     case 128: return launch_f32<128>(q, k, v, o, bh, n, scale, s);
     case 256: return launch_f32<256>(q, k, v, o, bh, n, scale, s);
+    case 512: return launch_f32<512>(q, k, v, o, bh, n, scale, s);
     default: return int(cudaErrorInvalidValue);
   }
 }

@@ -1,9 +1,23 @@
-"""The shipped compact FlashSR trios, and the resolver of the node's weights.
+"""FlashSR weights for the node: converted reference checkpoints, the
+shipped compact trios, and the resolver that picks one.
 
 Counterpart of the loading half of ``egregora_tpu/models/flashsr/
-distill.py`` (``_cfg_from_json``, ``_LEGACY_DISTILLED``,
-``load_pretrained_with_cfg``, ``resolve_flashsr``).  The JAX package
-ships two distilled trios as data files, ``pretrained_istft.npz`` (the
+distill.py`` (``_cfg_to_json``, ``_cfg_from_json``, ``_LEGACY_DISTILLED``,
+``load_pretrained_with_cfg``, ``resolve_flashsr``) and of the JAX
+package's ``utils/weights.load_converted_flashsr``.
+
+Reference checkpoints: the three ``.pth`` files of upstream FlashSR
+(``vae.pth``, ``student_ldm.pth``, ``sr_vocoder.pth``) in
+``weights_dir()``.  Their geometry is inferred from the tensor shapes
+(``geometry.infer_flashsr_config``), each file is mapped by its upstream
+name map onto the JAX package's flax tree and then onto the port, and
+the converted arrays are cached beside them as ``flashsr_params.npz``
+with a ``flashsr_params.cfg.json`` sidecar, in the JAX package's format:
+a cache either package wrote loads in the other.  Nothing is ever
+downloaded: with files missing, the resolver falls through to the
+shipped trios.
+
+Shipped trios: the JAX package ships two distilled trios as data files, ``pretrained_istft.npz`` (the
 served default: phase-conditioned exciter ``SpectralVocoder``) and
 ``pretrained.npz`` (the HiFi-GAN ``SRVocoder``).  The port reads them in
 place, by path, from the checkout: flat ``/``-joined flax keys, float16
@@ -13,6 +27,7 @@ modules, key for key.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 from pathlib import Path
@@ -21,23 +36,45 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from ...utils.weights import params_from_jax, unflatten
-from .ldm_unet import LDMUNetConfig
-from .pipeline import FlashSRConfig
+from ...utils.weights import (convert_state_dict, flax_tree, load_params,
+                              load_torch_state_dict, params_from_jax, save_params,
+                              unflatten)
+from .geometry import infer_flashsr_config
+from .ldm_unet import LDMUNetConfig, ldm_unet_name_map
+from .pipeline import FlashSRConfig, FlashSRModules
 from .unet import UNetConfig
-from .vae import VAEConfig
-from .vocoder import VocoderConfig
+from .vae import VAEConfig, audioldm_vae_name_map
+from .vocoder import VocoderConfig, hifigan_name_map
 
 SHIPPED_DIR = Path(__file__).resolve().parents[3] / "egregora_tpu" / "models" / "flashsr"
 PRETRAINED = SHIPPED_DIR / "pretrained.npz"
 PRETRAINED_ISTFT = SHIPPED_DIR / "pretrained_istft.npz"
 CONVERTED_FILES = ("student_ldm.pth", "sr_vocoder.pth", "vae.pth")
+CACHE = "flashsr_params.npz"
+SIDECAR = "flashsr_params.cfg.json"
 
 StateDicts = Dict[str, Dict[str, torch.Tensor]]
 
 
 def _deep_tuple(v):
     return tuple(_deep_tuple(x) for x in v) if isinstance(v, list) else v
+
+
+def _cfg_to_json(cfg: FlashSRConfig) -> str:
+    """The geometry of a trio as the JAX package writes it: each
+    sub-config's fields but ``dtype`` (code policy, not checkpoint state),
+    the UNet tagged by kind."""
+    def enc(o):
+        return {f.name: getattr(o, f.name) for f in dataclasses.fields(o) if f.name != "dtype"}
+
+    return json.dumps({"vae": enc(cfg.vae), "unet": enc(cfg.unet),
+                       "unet_kind": ("ldm" if isinstance(cfg.unet, LDMUNetConfig)
+                                     else "student"),
+                       "vocoder": enc(cfg.vocoder),
+                       "crossover_hz": cfg.crossover_hz,
+                       "noise_seed": cfg.noise_seed,
+                       "envelope_match": cfg.envelope_match,
+                       "adaptive_crossover": cfg.adaptive_crossover})
 
 
 def _cfg_from_json(s: str) -> FlashSRConfig:
@@ -95,23 +132,70 @@ def weights_dir() -> Path:
     return root / "flashsr"
 
 
+def convert_flashsr_trio(cfg: FlashSRConfig, sds: Dict[str, Dict[str, np.ndarray]],
+                         d: Path) -> Dict[str, dict]:
+    """The three checkpoints' state dicts (keyed like the trio) mapped by
+    their upstream name maps onto the JAX package's flax trees for
+    ``cfg`` (numpy leaves), cached in ``d`` as ``CACHE`` with the
+    ``SIDECAR`` geometry."""
+    with torch.device("meta"):
+        mods = FlashSRModules(cfg)
+    maps = {"vae": audioldm_vae_name_map(cfg.vae),
+            "sr_vocoder": hifigan_name_map(cfg.vocoder),
+            "student_ldm": ldm_unet_name_map(cfg.unet)}
+    converted = {name: convert_state_dict(sds[name], flax_tree(m), name_map=maps[name])
+                 for name, m in mods.by_name().items()}
+    save_params(converted, d / CACHE)
+    (d / SIDECAR).write_text(_cfg_to_json(cfg))
+    return converted
+
+
+def load_converted_flashsr(ckpt_dir: Optional[Path] = None
+                           ) -> Optional[Tuple[FlashSRConfig, StateDicts]]:
+    """``(config, state dicts)`` of the reference checkpoints in
+    ``ckpt_dir`` (default ``weights_dir()``), or None when they are not
+    all there.  The cache comes first (its sidecar's geometry, or the full
+    config for a cache without one); else the three ``.pth`` files, with
+    the geometry inferred from their shapes, converted and cached.
+    Nothing is fetched."""
+    d = Path(ckpt_dir) if ckpt_dir is not None else weights_dir()
+    cache, sidecar = d / CACHE, d / SIDECAR
+    if cache.exists():
+        cfg = _cfg_from_json(sidecar.read_text()) if sidecar.exists() else FlashSRConfig()
+        return cfg, params_from_jax(cfg, load_params(cache))
+    missing = [f for f in CONVERTED_FILES if not (d / f).exists()]
+    if missing:
+        if len(missing) < len(CONVERTED_FILES):
+            print(f"[egregora_tpu_torch] FlashSR: {d} lacks {', '.join(missing)}; "
+                  "nothing is downloaded, the reference checkpoints are skipped")
+        return None
+    sds = {name: load_torch_state_dict(d / f"{name}.pth")
+           for name in ("vae", "student_ldm", "sr_vocoder")}
+    cfg = infer_flashsr_config(sds["vae"], sds["student_ldm"], sds["sr_vocoder"])
+    print(f"[egregora_tpu_torch] FlashSR geometry inferred from checkpoints: "
+          f"vae base={cfg.vae.base_channels} mults={cfg.vae.channel_mults}; "
+          f"unet mc={cfg.unet.model_channels} mult={cfg.unet.channel_mult} "
+          f"heads={cfg.unet.num_heads} (not shape-recoverable; "
+          f"EGREGORA_FLASHSR_NUM_HEADS overrides); vocoder "
+          f"init={cfg.vocoder.upsample_initial} factors={cfg.vocoder.upsample_factors}")
+    return cfg, params_from_jax(cfg, convert_flashsr_trio(cfg, sds, d))
+
+
 def resolve_flashsr(seed: int = 0) -> Tuple[FlashSRConfig, Optional[StateDicts], str]:
     """``(config, state dicts, source)`` for the node, in the JAX
     resolver's order:
 
     1. converted reference checkpoints (the cache ``flashsr_params.npz``
-       or all three ``.pth`` files in ``weights_dir()``): not ported yet,
-       raises ``NotImplementedError``; nothing is ever fetched;
+       or all three ``.pth`` files in ``weights_dir()``; "converted");
+       nothing is ever fetched;
     2. the shipped istft trio ``pretrained_istft.npz`` ("distilled-istft"),
        unless ``EGREGORA_FLASHSR_VARIANT=hifigan``;
     3. the shipped HiFi-GAN trio ``pretrained.npz`` ("distilled");
     4. the full config with no weights ("random": the pipeline draws
        them from ``seed``)."""
-    d = weights_dir()
-    if (d / "flashsr_params.npz").exists() or all((d / f).exists() for f in CONVERTED_FILES):
-        raise NotImplementedError(
-            f"converted FlashSR checkpoints in {d}: loading them is not ported "
-            "yet (a later slice; ROADMAP.md, Queue 1)")
+    converted = load_converted_flashsr()
+    if converted is not None:
+        return converted[0], converted[1], "converted"
     variant = os.environ.get("EGREGORA_FLASHSR_VARIANT", "").strip().lower()
     if variant != "hifigan":
         shipped = load_pretrained_with_cfg(PRETRAINED_ISTFT)

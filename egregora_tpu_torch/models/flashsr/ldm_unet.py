@@ -185,3 +185,122 @@ class LDMUNet(nn.Module):
                 idx += 1
         h = self.out_2(F.silu(self.out_0(h)))
         return h.float().permute(0, 2, 3, 1)
+
+
+def attn_qkv_transforms(num_heads: int):
+    """Converter transforms for the upstream AttentionBlock's fused qkv.
+
+    Upstream (use_new_attention_order=False, the CompVis/LDM default)
+    feeds qkv through QKVAttentionLegacy, which reads the 3C out-channels
+    HEAD-MAJOR: ``reshape(B*H, 3*hd, N)`` then split — channel index
+    ``h*(3*hd) + s*hd + d`` for head h, slot s in (q,k,v), dim d.
+    ``LDMAttentionBlock`` (here and in the JAX package) splits 3C into
+    three C blocks (slot-major:
+    ``s*C + h*hd + d``), so converted kernels/biases permute
+    (h, s, d) -> (s, h, d).  Returns ``(kernel_tr, bias_tr)``.
+    """
+
+    def qkv_kernel(v):
+        w = v[:, :, 0] if v.ndim == 3 else v          # conv1d -> [3C, Cin]
+        oc = w.shape[0]
+        hd = oc // (3 * num_heads)
+        w = (w.reshape(num_heads, 3, hd, -1)
+             .transpose(1, 0, 2, 3).reshape(oc, -1))
+        return w.T                                     # dense [Cin, 3C]
+
+    def qkv_bias(v):
+        hd = v.shape[0] // (3 * num_heads)
+        return v.reshape(num_heads, 3, hd).transpose(1, 0, 2).reshape(-1)
+
+    return qkv_kernel, qkv_bias
+
+
+def ldm_unet_name_map(cfg: LDMUNetConfig = LDMUNetConfig()):
+    """Upstream ``UNetModel`` torch keys -> the flax tree paths of the JAX
+    ``LDMUNet`` ('/'-joined; this module's names), built by replaying the
+    block and channel bookkeeping of the forward."""
+    m = {}
+    dense_t = lambda v: v[:, :, 0].T if v.ndim == 3 else v.T  # 1d conv -> dense
+
+    def gn(t, f):
+        m[f"{t}.weight"] = f"params/{f}/scale"
+        m[f"{t}.bias"] = f"params/{f}/bias"
+
+    def conv(t, f):
+        m[f"{t}.weight"] = f"params/{f}/kernel"
+        m[f"{t}.bias"] = f"params/{f}/bias"
+
+    def dense(t, f):
+        m[f"{t}.weight"] = (f"params/{f}/kernel", dense_t)
+        m[f"{t}.bias"] = f"params/{f}/bias"
+
+    def res(t, f, ch_in, ch_out):
+        gn(f"{t}.in_layers.0", f"{f}/in_layers_0")
+        conv(f"{t}.in_layers.2", f"{f}/in_layers_2")
+        dense(f"{t}.emb_layers.1", f"{f}/emb_layers_1")
+        gn(f"{t}.out_layers.0", f"{f}/out_layers_0")
+        conv(f"{t}.out_layers.3", f"{f}/out_layers_3")
+        if ch_in != ch_out:
+            conv(f"{t}.skip_connection", f"{f}/skip_connection")
+
+    qkv_kernel, qkv_bias = attn_qkv_transforms(cfg.num_heads)
+
+    def attn(t, f):
+        gn(f"{t}.norm", f"{f}/norm")
+        m[f"{t}.qkv.weight"] = (f"params/{f}/qkv/kernel", qkv_kernel)
+        m[f"{t}.qkv.bias"] = (f"params/{f}/qkv/bias", qkv_bias)
+        dense(f"{t}.proj_out", f"{f}/proj_out")
+
+    mc = cfg.model_channels
+    dense("time_embed.0", "time_embed_0")
+    dense("time_embed.2", "time_embed_2")
+    conv("input_blocks.0.0", "input_blocks_0_0")
+
+    ch, ds, idx = mc, 1, 1
+    for level, mult in enumerate(cfg.channel_mult):
+        for _ in range(cfg.num_res_blocks):
+            res(f"input_blocks.{idx}.0", f"input_blocks_{idx}_0", ch, mult * mc)
+            ch = mult * mc
+            if ds in cfg.attention_resolutions:
+                attn(f"input_blocks.{idx}.1", f"input_blocks_{idx}_1")
+            idx += 1
+        if level != len(cfg.channel_mult) - 1:
+            conv(f"input_blocks.{idx}.0.op", f"input_blocks_{idx}_0_op")
+            ds *= 2
+            idx += 1
+
+    res("middle_block.0", "middle_block_0", ch, ch)
+    attn("middle_block.1", "middle_block_1")
+    res("middle_block.2", "middle_block_2", ch, ch)
+
+    # skip-channel replay for the concat widths
+    chans = [mc]
+    c2, d2 = mc, 1
+    for level, mult in enumerate(cfg.channel_mult):
+        for _ in range(cfg.num_res_blocks):
+            c2 = mult * mc
+            chans.append(c2)
+        if level != len(cfg.channel_mult) - 1:
+            chans.append(c2)
+            d2 *= 2
+
+    idx = 0
+    for level, mult in reversed(list(enumerate(cfg.channel_mult))):
+        for i in range(cfg.num_res_blocks + 1):
+            ich = chans.pop()
+            res(f"output_blocks.{idx}.0", f"output_blocks_{idx}_0",
+                ch + ich, mult * mc)
+            ch = mult * mc
+            sub = 1
+            if ds in cfg.attention_resolutions:
+                attn(f"output_blocks.{idx}.{sub}", f"output_blocks_{idx}_{sub}")
+                sub += 1
+            if level and i == cfg.num_res_blocks:
+                conv(f"output_blocks.{idx}.{sub}.conv",
+                     f"output_blocks_{idx}_{sub}_conv")
+                ds //= 2
+            idx += 1
+
+    gn("out.0", "out_0")
+    conv("out.2", "out_2")
+    return m.get

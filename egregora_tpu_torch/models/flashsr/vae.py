@@ -4,9 +4,10 @@ Counterpart of ``egregora_tpu/models/flashsr/vae.py`` at the full
 config: an AudioLDM-family 2D conv VAE over the log-mel image with 4x
 spatial downsampling, the upstream mid ResBlock/Attn/ResBlock pair in
 both coders and the 1x1 (post_)quant convs.  The mid ``AttnBlock2D``
-(one head over the flattened token grid: N = 8192, D = 256 at full
-width) runs through ``ops.attention.mha``, i.e. the ``attn_rows`` kernel
-on the card.  Public functions take and return NHWC, as the JAX
+(one head over the flattened token grid: N = 8192 a chunk, D = 256 at
+the full config, 512 at the published checkpoints' geometry) runs
+through ``ops.attention.mha``, i.e. the ``attn_rows`` kernel on the
+card.  Public functions take and return NHWC, as the JAX
 package's do; inside, tensors are NCHW.  Submodule names follow the
 flax tree.
 """
@@ -198,3 +199,93 @@ class MelVAE(nn.Module):
 
     def forward(self, mel_img: torch.Tensor) -> torch.Tensor:
         return self.decode(self.encode(mel_img))
+
+
+def audioldm_vae_name_map(cfg: VAEConfig = VAEConfig()):
+    """AudioLDM/Stable-Diffusion AutoencoderKL naming (``encoder.down.*``
+    / ``decoder.up.*``, the layout FlashSR's ``vae.pth`` descends from)
+    -> the flax tree paths of the JAX ``MelVAE`` (this module's names,
+    ``/``-joined under ``params``; ``utils.weights.convert_state_dict``).
+
+    Covers the full upstream structure: conv_in, per-level res blocks
+    with nin_shortcut, down/upsample convs, the mid ResBlock/Attn/
+    ResBlock pair (when ``cfg.mid_attn``), norm_out, conv_out, and the
+    (post_)quant 1x1 convs (when ``cfg.use_quant_conv``).  Note the SD
+    decoder indexing quirk: ``up.{u}`` lists levels in REVERSE
+    application order, so u = L-1-i for our i-th applied level.
+    """
+    L = len(cfg.channel_mults)
+    R = cfg.num_res_blocks
+    m = {}
+
+    def attn_block(prefix_t, path_f):
+        m[f"{prefix_t}.norm.weight"] = f"{path_f}/GroupNorm_0/scale"
+        m[f"{prefix_t}.norm.bias"] = f"{path_f}/GroupNorm_0/bias"
+        for lin in ("q", "k", "v", "proj_out"):
+            m[f"{prefix_t}.{lin}.weight"] = f"{path_f}/{lin}/kernel"
+            m[f"{prefix_t}.{lin}.bias"] = f"{path_f}/{lin}/bias"
+
+    def res_block(prefix_t, path_f, has_shortcut):
+        m[f"{prefix_t}.norm1.weight"] = f"{path_f}/GroupNorm_0/scale"
+        m[f"{prefix_t}.norm1.bias"] = f"{path_f}/GroupNorm_0/bias"
+        m[f"{prefix_t}.conv1.weight"] = f"{path_f}/Conv_0/kernel"
+        m[f"{prefix_t}.conv1.bias"] = f"{path_f}/Conv_0/bias"
+        m[f"{prefix_t}.norm2.weight"] = f"{path_f}/GroupNorm_1/scale"
+        m[f"{prefix_t}.norm2.bias"] = f"{path_f}/GroupNorm_1/bias"
+        m[f"{prefix_t}.conv2.weight"] = f"{path_f}/Conv_1/kernel"
+        m[f"{prefix_t}.conv2.bias"] = f"{path_f}/Conv_1/bias"
+        if has_shortcut:
+            m[f"{prefix_t}.nin_shortcut.weight"] = f"{path_f}/Conv_2/kernel"
+            m[f"{prefix_t}.nin_shortcut.bias"] = f"{path_f}/Conv_2/bias"
+
+    # encoder
+    m["encoder.conv_in.weight"] = "params/encoder/Conv_0/kernel"
+    m["encoder.conv_in.bias"] = "params/encoder/Conv_0/bias"
+    for i in range(L):
+        ch_in = cfg.channel_mults[i - 1] if i else 1
+        for j in range(R):
+            shortcut = (j == 0 and cfg.channel_mults[i] != ch_in)
+            res_block(f"encoder.down.{i}.block.{j}",
+                      f"params/encoder/ResBlock_{i * R + j}", shortcut)
+        if i < L - 1:
+            m[f"encoder.down.{i}.downsample.conv.weight"] = f"params/encoder/Conv_{i + 1}/kernel"
+            m[f"encoder.down.{i}.downsample.conv.bias"] = f"params/encoder/Conv_{i + 1}/bias"
+    if cfg.mid_attn:
+        res_block("encoder.mid.block_1", f"params/encoder/ResBlock_{L * R}", False)
+        attn_block("encoder.mid.attn_1", "params/encoder/AttnBlock2D_0")
+        res_block("encoder.mid.block_2", f"params/encoder/ResBlock_{L * R + 1}", False)
+    m["encoder.norm_out.weight"] = "params/encoder/GroupNorm_0/scale"
+    m["encoder.norm_out.bias"] = "params/encoder/GroupNorm_0/bias"
+    m["encoder.conv_out.weight"] = f"params/encoder/Conv_{L}/kernel"
+    m["encoder.conv_out.bias"] = f"params/encoder/Conv_{L}/bias"
+
+    # decoder (applied mults are reversed; upstream up.{u}: u = L-1-i)
+    mults = tuple(reversed(cfg.channel_mults))
+    m["decoder.conv_in.weight"] = "params/decoder/Conv_0/kernel"
+    m["decoder.conv_in.bias"] = "params/decoder/Conv_0/bias"
+    off = 0
+    if cfg.mid_attn:
+        res_block("decoder.mid.block_1", "params/decoder/ResBlock_0", False)
+        attn_block("decoder.mid.attn_1", "params/decoder/AttnBlock2D_0")
+        res_block("decoder.mid.block_2", "params/decoder/ResBlock_1", False)
+        off = 2
+    for i in range(L):
+        u = L - 1 - i
+        ch_in = mults[i - 1] if i else mults[0]
+        for j in range(R):
+            shortcut = (j == 0 and mults[i] != ch_in)
+            res_block(f"decoder.up.{u}.block.{j}",
+                      f"params/decoder/ResBlock_{off + i * R + j}", shortcut)
+        if i < L - 1:
+            m[f"decoder.up.{u}.upsample.conv.weight"] = f"params/decoder/Conv_{i + 1}/kernel"
+            m[f"decoder.up.{u}.upsample.conv.bias"] = f"params/decoder/Conv_{i + 1}/bias"
+    m["decoder.norm_out.weight"] = "params/decoder/GroupNorm_0/scale"
+    m["decoder.norm_out.bias"] = "params/decoder/GroupNorm_0/bias"
+    m["decoder.conv_out.weight"] = f"params/decoder/Conv_{L}/kernel"
+    m["decoder.conv_out.bias"] = f"params/decoder/Conv_{L}/bias"
+    if cfg.use_quant_conv:
+        m["quant_conv.weight"] = "params/quant_conv/kernel"
+        m["quant_conv.bias"] = "params/quant_conv/bias"
+        m["post_quant_conv.weight"] = "params/post_quant_conv/kernel"
+        m["post_quant_conv.bias"] = "params/post_quant_conv/bias"
+    return m.get

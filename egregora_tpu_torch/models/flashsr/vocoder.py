@@ -291,6 +291,37 @@ class SpectralVocoder(nn.Module):
         return y[..., n_fft // 2: n_fft // 2 + f * hop]
 
 
+def hifigan_name_map(cfg: VocoderConfig = VocoderConfig()):
+    """Upstream HiFi-GAN generator (jik876 layout, the lineage FlashSR's
+    ``sr_vocoder.pth`` descends from) -> the flax tree paths of the JAX
+    ``SRVocoder`` (this module's names).
+
+    ``ups.N`` are ConvTranspose1d (torch ``[in, out, k]``) and need the
+    explicit ``(2, 0, 1)`` perm; ``resblocks.{s*K+j}.convs1.{d}`` is the
+    dilated conv (our ``Conv_{2d}``) and ``convs2.{d}`` the plain one
+    (``Conv_{2d+1}``).  weight_norm pairs fold upstream of this map.
+    """
+    m = {
+        "conv_pre.weight": "params/Conv_0/kernel",
+        "conv_pre.bias": "params/Conv_0/bias",
+        "conv_post.weight": "params/Conv_1/kernel",
+        "conv_post.bias": "params/Conv_1/bias",
+    }
+    nk = len(cfg.resblock_kernels)
+    for i in range(len(cfg.upsample_factors)):
+        m[f"ups.{i}.weight"] = (f"params/ConvTranspose_{i}/kernel", (2, 0, 1))
+        m[f"ups.{i}.bias"] = f"params/ConvTranspose_{i}/bias"
+        for j in range(nk):
+            idx = i * nk + j
+            base = f"params/MRF_{i}/ResBlock1D_{j}"
+            for d in range(len(cfg.resblock_dilations[j])):
+                m[f"resblocks.{idx}.convs1.{d}.weight"] = f"{base}/Conv_{2*d}/kernel"
+                m[f"resblocks.{idx}.convs1.{d}.bias"] = f"{base}/Conv_{2*d}/bias"
+                m[f"resblocks.{idx}.convs2.{d}.weight"] = f"{base}/Conv_{2*d+1}/kernel"
+                m[f"resblocks.{idx}.convs2.{d}.bias"] = f"{base}/Conv_{2*d+1}/bias"
+    return m.get
+
+
 def build_vocoder(cfg: VocoderConfig) -> nn.Module:
     """``SpectralVocoder`` for ``kind="istft"``, else ``SRVocoder``."""
     return SpectralVocoder(cfg) if cfg.kind == "istft" else SRVocoder(cfg)

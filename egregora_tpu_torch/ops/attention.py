@@ -3,7 +3,7 @@
 ``mha`` is what every attention block of the full config calls: the
 LDM UNet's ``LDMAttentionBlock`` (8 heads; N=2048, D=32 at ds=2 and
 N=512, D=64 at ds=4) and the VAE's mid ``AttnBlock2D`` (one head,
-N=8192, D=256).  It folds heads into the batch and runs the hand-written
+N=8192, D=256; D=512 at the published checkpoints' geometry).  It folds heads into the batch and runs the hand-written
 kernel (``ops.attn_rows``) on the card, or its plain version,
 ``chunked_attention``, for CPU tensors.
 """

@@ -2,8 +2,9 @@
 
 The port of ``egregora_tpu/ops/attn_pallas.py::flash_rows``: exact
 softmax attention ``[B*H, N, D] -> [B*H, N, D]`` in bf16 or float32,
-for any head size D up to 256.  The kernel is built for D in
-``KERNEL_D``; another D is padded with zero columns to the next of them
+for any head size D up to 512 (the published checkpoints' VAE mid block
+runs one head of 512).  The kernel is built for D in ``KERNEL_D``;
+another D is padded with zero columns to the next of them
 (zero columns add nothing to q.k, and the padded value columns are
 dropped), with the scale of the true D.  A CUDA tensor goes to the
 kernel or raises; a CPU tensor goes to the plain version,
@@ -21,7 +22,7 @@ import torch.nn.functional as F
 
 from ..utils import cuda_build
 
-KERNEL_D = (32, 64, 128, 256)     # head sizes csrc/attn_rows.cu is built for
+KERNEL_D = (32, 64, 128, 256, 512)     # head sizes csrc/attn_rows.cu is built for
 ENTRIES = {torch.bfloat16: "attn_rows_bf16", torch.float32: "attn_rows_f32"}
 
 # kernel launches since the last reset, in all and by shape (bh, n, d);

@@ -1,4 +1,4 @@
-"""Weight conversion from the JAX package's flax trees to the port.
+"""Weight conversion: the JAX package's flax trees and torch checkpoints.
 
 ``params_from_jax(cfg, flax_params)`` turns the JAX pipeline's parameter
 trio ``{"vae": {"params": ...}, "student_ldm": ..., "sr_vocoder": ...}``
@@ -22,15 +22,25 @@ for, a port parameter no leaf fills, or a shape that disagrees raises.
 A leaf without values (``jax.ShapeDtypeStruct``, from ``jax.eval_shape``)
 becomes a tensor on the ``meta`` device of the converted shape, so the
 full-width mapping can be checked without allocating it.
+
+Reference checkpoints (the ``.pth`` files of upstream FlashSR) go the
+JAX package's way: ``load_torch_state_dict`` reads one,
+``convert_state_dict`` maps it, by a name map, onto the flax tree the
+JAX package would build (``flax_tree`` derives that tree's keys and
+shapes from the port's own modules, inverting the mapping above), and
+``params_from_jax`` carries the result onto the port.  ``save_params``
+and ``load_params`` keep converted trees in the JAX package's flat npz
+format, so a cache either package writes, the other reads.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Iterator, Tuple
+from pathlib import Path
+from typing import Any, Callable, Dict, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
 
-from ..models.flashsr.layers import ConvTranspose1d, DenseGeneral
+from ..models.flashsr.layers import ConvTranspose1d, DenseGeneral, GroupNorm, LayerNorm
 from ..models.flashsr.pipeline import FlashSRConfig, FlashSRModules
 
 
@@ -40,6 +50,9 @@ def _leaves(tree: Any, prefix: Tuple[str, ...] = ()) -> Iterator[Tuple[Tuple[str
             yield from _leaves(v, prefix + (str(k),))
     else:
         yield prefix, tree
+
+
+_PERMS = {2: (1, 0), 3: (2, 1, 0), 4: (3, 2, 0, 1)}   # flax kernel -> torch weight
 
 
 def _convert(module: torch.nn.Module, path: Tuple[str, ...], ndim: int):
@@ -56,7 +69,7 @@ def _convert(module: torch.nn.Module, path: Tuple[str, ...], ndim: int):
         return key, (1, 2, 0), 2         # [k, Ci, Co] -> [Ci, Co, k], flipped
     if isinstance(owner, DenseGeneral):
         return key, None, None
-    return key, {2: (1, 0), 3: (2, 1, 0), 4: (3, 2, 0, 1)}.get(ndim), None
+    return key, _PERMS.get(ndim), None
 
 
 def module_from_jax(module: torch.nn.Module, flax_vars: Any) -> Dict[str, torch.Tensor]:
@@ -116,3 +129,172 @@ def params_from_jax(cfg: FlashSRConfig, flax_params: Dict[str, Any]
         raise KeyError(f"params_from_jax: unknown sub-models {sorted(extra)}")
     return {name: module_from_jax(m, flax_params[name])
             for name, m in mods.by_name().items()}
+
+
+# ---- reference checkpoints ------------------------------------------------
+
+def flax_tree(module: torch.nn.Module, values: bool = False) -> Dict[str, Any]:
+    """``{"params": ...}``: the flax variable tree of ``module``'s JAX
+    counterpart, the inverse of ``module_from_jax``'s mapping (norm
+    weights are ``scale``, other weights ``kernel`` in flax's layout).
+    Leaves are ``meta`` tensors of the flax shapes or, with ``values``,
+    numpy arrays of the module's parameters."""
+    tree: Dict[str, Any] = {}
+    for key, t in module.state_dict(keep_vars=True).items():
+        *mods, leaf = key.split(".")
+        owner = module.get_submodule(".".join(mods))
+        perm, flip = None, None
+        if leaf == "weight" and isinstance(owner, (GroupNorm, LayerNorm)):
+            leaf = "scale"
+        elif leaf == "weight":
+            leaf = "kernel"
+            if isinstance(owner, ConvTranspose1d):
+                perm, flip = (1, 2, 0), 2
+            elif not isinstance(owner, DenseGeneral):
+                perm = _PERMS.get(t.dim())
+        inv = None if perm is None else tuple(int(i) for i in np.argsort(perm))
+        if values:
+            v = t.detach().float().cpu()
+            if flip is not None:
+                v = v.flip(flip)
+            val = (v if inv is None else v.permute(inv)).contiguous().numpy()
+        else:
+            shape = tuple(t.shape)
+            val = torch.empty(shape if inv is None else tuple(shape[i] for i in inv),
+                              device="meta")
+        node = tree
+        for p in mods:
+            node = node.setdefault(p, {})
+        node[leaf] = val
+    return {"params": tree}
+
+
+def load_torch_state_dict(path: Path) -> Dict[str, np.ndarray]:
+    """A ``.pth`` file as numpy arrays, unwrapped from a module or a
+    ``{"state_dict": ...}`` dict as the JAX package unwraps it; entries
+    that are not tensors dropped.  Like the JAX package's, it unpickles
+    the whole file (``weights_only=False``): load only checkpoints you
+    trust."""
+    obj = torch.load(str(path), map_location="cpu", weights_only=False)
+    if hasattr(obj, "state_dict"):
+        obj = obj.state_dict()
+    if isinstance(obj, dict) and "state_dict" in obj:
+        obj = obj["state_dict"]
+    out = {}
+    for k, v in obj.items():
+        if hasattr(v, "detach"):
+            v = v.detach().cpu()
+            out[k] = (v.float() if v.dtype == torch.bfloat16 else v).numpy()
+    return out
+
+
+def _flatten(tree: Any, prefix: str = "") -> Dict[str, Any]:
+    flat: Dict[str, Any] = {}
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            flat.update(_flatten(v, f"{prefix}{k}/"))
+    else:
+        flat[prefix.rstrip("/")] = tree
+    return flat
+
+
+def save_params(params: Any, path: Path) -> None:
+    """A nested tree of arrays as a flat npz with ``/``-joined keys (the
+    JAX package's ``utils.weights.save_params`` format)."""
+    np.savez(path, **{k: np.asarray(v) for k, v in _flatten(params).items()})
+
+
+def load_params(path: Path) -> Dict[str, Any]:
+    """What ``save_params`` (of either package) wrote, as a nested tree of
+    numpy arrays."""
+    with np.load(path) as z:
+        return unflatten({k: z[k] for k in z.files})
+
+
+def fold_weight_norm(torch_sd: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+    """Merge torch ``weight_norm`` pairs: ``X.weight_g * X.weight_v /
+    ||X.weight_v||`` -> ``X.weight`` (norm over all dims but 0, torch's
+    default ``dim=0``).  HiFi-GAN checkpoints ship weight-normalised."""
+    out = {}
+    for k, v in torch_sd.items():
+        if k.endswith(".weight_v"):
+            base = k[: -len(".weight_v")]
+            g = torch_sd.get(base + ".weight_g")
+            if g is None:
+                out[k] = v
+                continue
+            axes = tuple(range(1, v.ndim))
+            norm = np.sqrt(np.sum(np.square(v), axis=axes, keepdims=True)) + 1e-12
+            out[base + ".weight"] = np.asarray(g) * v / norm
+        elif k.endswith(".weight_g") and k[: -len(".weight_g")] + ".weight_v" in torch_sd:
+            continue
+        else:
+            out[k] = v
+    return out
+
+
+def convert_state_dict(torch_sd: Dict[str, np.ndarray], target_tree: Any,
+                       name_map: Optional[Callable[[str], Any]] = None) -> Dict[str, Any]:
+    """Map a torch state dict onto a flax tree (leaves: anything with a
+    ``shape``, e.g. ``flax_tree``'s); returns the tree with numpy leaves.
+
+    ``name_map`` maps a torch key to the ``/``-joined flax path, or to a
+    ``(path, perm)`` pair where ``perm`` is a transpose or a callable
+    transform (applied even when shapes agree); None drops the key.
+    Without a map, keys match by normalised name (dots -> slashes,
+    ``weight`` -> ``kernel``).  torch Linear ``[out, in]`` and conv
+    ``[out, in, *k]`` weights are transposed to flax's ``[in, out]`` /
+    ``[*k, in, out]`` when the shapes say so, ConvTranspose's
+    ``[in, out, *k]`` as a fallback.  ``weight_norm`` pairs fold first.
+    Raises ``ValueError`` listing every target leaf left unfilled.
+    """
+    torch_sd = fold_weight_norm(torch_sd)
+    flat_target = _flatten(target_tree)
+    remaining = dict(flat_target)
+    out: Dict[str, np.ndarray] = {}
+
+    def norm(k: str) -> str:
+        return k.replace(".", "/").replace("/weight", "/kernel")
+
+    for tk, tv in torch_sd.items():
+        fk = name_map(tk) if name_map else None
+        if name_map and fk is None:
+            continue
+        perm_override = None
+        if isinstance(fk, tuple):
+            fk, perm_override = fk
+        if fk is None:
+            cand = norm(tk)
+            fk = next((k for k in remaining if k.endswith(cand)), None)
+        if fk is None or fk not in remaining:
+            continue
+        want = tuple(remaining[fk].shape)
+        v = tv
+        if callable(perm_override):
+            v = np.asarray(perm_override(v))
+        if v.shape != want:
+            if perm_override is not None and not callable(perm_override):
+                v = np.transpose(v, perm_override)
+            elif v.ndim == 2 and v.T.shape == want:
+                v = v.T
+            elif v.ndim >= 3:
+                for perm in (tuple(range(2, v.ndim)) + (1, 0),    # Conv
+                             tuple(range(2, v.ndim)) + (0, 1)):   # ConvTranspose
+                    if np.transpose(v, perm).shape == want:
+                        v = np.transpose(v, perm)
+                        break
+        if v.shape == want:
+            out[fk] = v
+            del remaining[fk]
+
+    if remaining:
+        need = [f"  need {k}: {tuple(v.shape)}" for k, v in sorted(remaining.items())[:15]]
+        offered = [f"  have {k}: {tuple(np.asarray(v).shape)}"
+                   for k, v in sorted(torch_sd.items())][:15]
+        raise ValueError(
+            f"convert_state_dict: {len(remaining)}/{len(flat_target)} target leaves "
+            "unmatched.\nUnfilled model leaves:\n" + "\n".join(need)
+            + "\nCheckpoint tensors:\n" + "\n".join(offered)
+            + "\nLikely a geometry mismatch: check the inferred config "
+            "(models/flashsr/geometry.py) or give an explicit name_map.")
+    return unflatten(out)

@@ -24,12 +24,14 @@ def card():
 
 @pytest.mark.parametrize("bh,n,d", [(16, 2048, 32), (16, 512, 64), (2, 1000, 256),
                                     (3, 77, 64), (1, 8192, 256), (12, 512, 24),
-                                    (4, 300, 40), (2, 500, 128), (3, 257, 96)])
+                                    (4, 300, 40), (2, 500, 128), (3, 257, 96),
+                                    (2, 1000, 320), (3, 2048, 512), (1, 77, 512)])
 def test_attn_rows_matches_plain(card, bh, n, d):
     """bf16 in and out, within ``chip_smoke.bf16_agreement``'s limits of
     the plain version (relative L2 1e-2, max |d| two bf16 ulps of the
     largest output); one launch counted, under its shape.  Head sizes
-    outside 32/64/128/256 go through the kernel padded with zero columns."""
+    outside 32/64/128/256/512 go through the kernel padded with zero
+    columns; 512 is the published checkpoints' VAE mid block."""
     gen = torch.Generator().manual_seed(n + d)
     q, k, v = (torch.randn(bh, n, d, generator=gen).to(card, torch.bfloat16)
                for _ in range(3))
@@ -44,7 +46,7 @@ def test_attn_rows_matches_plain(card, bh, n, d):
 
 
 @pytest.mark.parametrize("bh,n,d", [(16, 512, 32), (2, 300, 24), (1, 1000, 256),
-                                    (2, 100, 128), (3, 77, 48)])
+                                    (2, 100, 128), (3, 77, 48), (2, 300, 320), (1, 500, 512)])
 def test_attn_rows_f32_matches_plain(card, bh, n, d):
     """float32 in and out through ``attn_rows_f32`` (plain FMA, no TF32),
     within ``chip_smoke.f32_agreement``'s limits of the plain version
@@ -64,9 +66,9 @@ def test_attn_rows_rejects_what_it_does_not_take(card):
     q = torch.zeros(2, 64, 32, device=card, dtype=torch.float16)
     with pytest.raises(TypeError):
         ar.attn_rows(q, q, q)                       # float16
-    qb = torch.zeros(2, 64, 320, device=card, dtype=torch.bfloat16)
+    qb = torch.zeros(2, 64, 640, device=card, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="beyond the kernel's range"):
-        ar.attn_rows(qb, qb, qb)                    # head dim 320 > 256
+        ar.attn_rows(qb, qb, qb)                    # head dim 640 > 512
     qt = torch.zeros(2, 32, 64, device=card, dtype=torch.bfloat16).transpose(1, 2)
     with pytest.raises(ValueError):
         ar.attn_rows(qt, qt, qt)                    # not contiguous
@@ -184,3 +186,85 @@ def test_iir_lowpass_rejects_what_it_does_not_take(card):
         il.iir_lowpass(torch.zeros(2, 100, device=card, dtype=torch.float64), 0.9)
     with pytest.raises(ValueError):
         il.iir_lowpass(torch.zeros(100, 2, device=card).t(), 0.9)   # not contiguous
+
+
+def _flash_online_cases():
+    from egregora_tpu_torch.ops import attn_flash as af
+    cases = []
+    for dtype, tiles in ((torch.bfloat16, af.BF16_TILES), (torch.float32, af.F32_TILES)):
+        for d, (bqs, bks) in tiles.items():
+            cases += [(dtype, d, bq, bk) for bq in bqs for bk in bks]
+    return cases
+
+
+@pytest.mark.parametrize("dtype,d,bq,bk", _flash_online_cases())
+def test_flash_online_matches_plain(card, dtype, d, bq, bk):
+    """K1b at every built tile, bf16 and float32, at a ragged N (the last
+    key tile masked) and a head size padded to the built one, within
+    ``chip_smoke.kernel_agreement``'s limits of the plain version at the
+    same blocks; one launch counted."""
+    from egregora_tpu_torch.ops import attn_flash as af
+    gen = torch.Generator().manual_seed(d + bq + bk)
+    for bh, n, dd in ((3, 1000, d), (2, 129, d - 8)):
+        q, k, v = (torch.randn(bh, n, dd, generator=gen).to(card, dtype) for _ in range(3))
+        before = af.launches_by_shape[(bh, n, dd)]
+        got = af.flash_online(q, k, v, bq, bk)
+        torch.cuda.synchronize()
+        assert af.launches_by_shape[(bh, n, dd)] == before + 1
+        assert got.dtype == dtype and got.shape == q.shape
+        ok, rel, err, limit = chip_smoke.kernel_agreement(got, af.flash_online_plain(q, k, v, bq, bk))
+        assert ok, (bh, n, dd, rel, err, limit)
+
+
+def test_flash_online_rejects_what_it_does_not_take(card):
+    from egregora_tpu_torch.ops import attn_flash as af
+    q = torch.zeros(2, 64, 32, device=card, dtype=torch.float16)
+    with pytest.raises(TypeError):
+        af.flash_online(q, q, q)                    # float16
+    qb = torch.zeros(2, 64, 640, device=card, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="beyond the kernel's range"):
+        af.flash_online(qb, qb, qb)                 # head dim 640 > 512
+    qt = torch.zeros(2, 32, 64, device=card, dtype=torch.bfloat16).transpose(1, 2)
+    with pytest.raises(ValueError):
+        af.flash_online(qt, qt, qt)                 # not contiguous
+    q32 = torch.zeros(2, 64, 32, device=card, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):
+        af.flash_online(q32, q32, q32, block_q=0)   # no block
+
+
+@pytest.mark.parametrize("b,f,m,c,dtype", [
+    (3, 512, 256, 64, torch.bfloat16), (3, 512, 256, 128, torch.bfloat16),
+    (3, 512, 256, 24, torch.bfloat16), (2, 37, 45, 20, torch.bfloat16),
+    (1, 9, 33, 200, torch.bfloat16), (2, 64, 64, 128, torch.float32),
+    (1, 13, 70, 7, torch.float32)])
+def test_conv3x3_out1_matches_plain(card, b, f, m, c, dtype):
+    """K3 at the decoders' widths (C = 24/64/128), ragged F and M, C not a
+    multiple of the 16-byte vector and above one channel chunk, float32;
+    each at three row tiles; within the float32 limits of
+    ``chip_smoke.f32_agreement`` (the output is float32 in both dtypes);
+    one launch counted a call."""
+    from egregora_tpu_torch.ops import conv_edge as ce
+    gen = torch.Generator().manual_seed(f * m + c)
+    x = torch.randn(b, f, m, c, generator=gen).to(card, dtype)
+    w = (0.1 * torch.randn(3, 3, c, 1, generator=gen)).to(card)
+    bias = torch.tensor([0.25], device=card)
+    ref = ce.conv3x3_out1_plain(x, w, bias)
+    for f_tile in (64, 8, 13):
+        before = ce.launches_by_shape[(b, f, m, c)]
+        got = ce.conv3x3_out1(x, w, bias, f_tile=f_tile)
+        torch.cuda.synchronize()
+        assert ce.launches_by_shape[(b, f, m, c)] == before + 1
+        assert got.dtype == torch.float32 and got.shape == (b, f, m, 1)
+        ok, rel, err = chip_smoke.f32_agreement(got, ref)
+        assert ok, (f_tile, rel, err)
+
+
+def test_conv3x3_out1_rejects_what_it_does_not_take(card):
+    from egregora_tpu_torch.ops import conv_edge as ce
+    w, bias = torch.zeros(3, 3, 8, 1, device=card), torch.zeros(1, device=card)
+    with pytest.raises(TypeError):
+        ce.conv3x3_out1(torch.zeros(1, 4, 4, 8, device=card, dtype=torch.float16), w, bias)
+    with pytest.raises(ValueError):
+        ce.conv3x3_out1(torch.zeros(1, 4, 8, 4, device=card).transpose(2, 3), w, bias)
+    with pytest.raises(ValueError):
+        ce.conv3x3_out1(torch.zeros(1, 4, 4, 8, device=card), w.cpu(), bias)

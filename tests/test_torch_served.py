@@ -268,7 +268,9 @@ def test_resolver_order(monkeypatch, tmp_path):
     """istft trio by default and for ``istft``; the HiFi-GAN trio for
     ``hifigan`` or when the istft file is missing; the seeded full
     config when neither is there; converted checkpoints in the weights
-    directory raise (not ported), before anything is loaded."""
+    directory come first, before anything else is loaded (empty files
+    here, so reading them fails loud; ``tests/test_torch_checkpoint.py``
+    resolves real ones)."""
     monkeypatch.setenv("EGREGORA_TPU_WEIGHTS", str(tmp_path))
     calls = []
     real = t_distill.load_pretrained_with_cfg
@@ -294,12 +296,12 @@ def test_resolver_order(monkeypatch, tmp_path):
     assert t_distill.resolve_flashsr()[2] == "random"       # two of three: not converted
     (tmp_path / "flashsr" / t_distill.CONVERTED_FILES[2]).touch()
     n = len(calls)
-    with pytest.raises(NotImplementedError, match="converted"):
+    with pytest.raises(EOFError):                              # the .pth trio is read
         t_distill.resolve_flashsr()
     for f in t_distill.CONVERTED_FILES:
         (tmp_path / "flashsr" / f).unlink()
     (tmp_path / "flashsr" / "flashsr_params.npz").touch()
-    with pytest.raises(NotImplementedError, match="converted"):
+    with pytest.raises(EOFError):                              # the cache is read
         t_distill.resolve_flashsr()
     assert len(calls) == n
 

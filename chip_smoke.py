@@ -9,7 +9,9 @@ Phases, one line each on standard output:
 1. the card's name and power limit (``nvidia-smi``); the builds of the
    five sources under ``egregora_tpu_torch/csrc/`` (``attn_rows``,
    ``mrf``, ``iir_lowpass``, ``attn_online``, ``conv_edge``), one
-   ``nvcc`` each, at once;
+   ``nvcc`` each, at once; for each instantiation of the bf16 attention
+   core (``attn_core.cuh``), its registers, spills and stack from
+   ``ptxas -v`` and its dynamic shared memory;
 2. each kernel against its plain PyTorch version on the card, at the
    shapes the main paths give it and at a ragged length, beside planted
    faults that the limits must reject, with the kernel's, the plain
@@ -17,7 +19,11 @@ Phases, one line each on standard output:
    path's times:
    - ``attn_rows`` (including the published VAE mid block, 3 x 8192 x
      512): relative L2 1e-2 and two bf16 ulps of the largest output;
-     fault: the last key tile dropped;
+     fault: the last key tile dropped (64 keys, or the kernel's tile
+     where that is smaller: 32 at D = 512); each row also gives the
+     tile, the share of the bf16 peak and the previous design's time at
+     that shape with the speed-up over it (``BEFORE_MS``; in the log
+     text only, not in the ``kernels`` line);
    - ``mrf_fused_cm`` and ``mrf_rows`` (every branch of an MRF block in
      one launch, or one a launch), at the served and the full config's
      stages (C = 16 to 256): relative L2 1e-2 and four bf16 ulps, over
@@ -97,8 +103,25 @@ SERVED_ATTN = (4, 512, 32)
 # batch); their UNet's attention is PATH_CALLS's
 CONVERTED_MID = (1, 8192, 512)
 RAGGED = [(8, 1000, 32), (8, 1000, 64), (1, 1000, 256)]
-KEY_TILE = 64                # keys per K/V tile of csrc/attn_rows.cu
+KEY_TILE = 64                # keys the planted attention fault drops (fewer
+                             # where the kernel's key tile is smaller)
 ATTN_REL_L2 = 1e-2           # kernel vs plain, relative L2 over the output
+# device times (ms) of the attention kernels' previous design (WMMA with S,
+# P and O through shared memory; K1b on mma.sync with an O slab at D >= 256)
+# at these shapes, NVIDIA H100 80GB HBM3 at 700 W (PERF.md's kernel table):
+# the yardstick of the warpgroup-MMA core in the log lines (not in the
+# ``kernels`` line, which holds this run's measurements), by (bh, n, d, dtype)
+BEFORE_MS = {
+    "attn_rows": {(24, 2048, 32, "bfloat16"): 0.4681, (24, 512, 64, "bfloat16"): 0.0662,
+                  (3, 8192, 256, "bfloat16"): 5.3136, (12, 512, 32, "bfloat16"): 0.0441,
+                  (3, 8192, 512, "bfloat16"): 24.7507, (24, 1000, 32, "bfloat16"): 0.1174,
+                  (24, 1000, 64, "bfloat16"): 0.1591, (3, 1000, 256, "bfloat16"): 0.2158,
+                  (12, 512, 24, "bfloat16"): 0.1708, (8, 1000, 40, "bfloat16"): 0.1461,
+                  (12, 512, 32, "float32"): 0.0732, (2, 1000, 320, "bfloat16"): 0.4907,
+                  (1, 2048, 512, "float32"): 3.0898, (2, 300, 320, "float32"): 0.5223},
+    "flash_online": {(26, 8192, 256, "bfloat16"): 27.4618, (208, 2048, 32, "bfloat16"): 0.8395,
+                     (26, 8192, 512, "bfloat16"): 190.9238, (6, 1000, 64, "bfloat16"): 0.0432},
+}
 
 
 # egregora_tpu_torch/csrc/<name>.cu
@@ -188,12 +211,100 @@ def iir_agreement(got, ref):
     return bool(got.isfinite().all()) and err <= IIR_ABS, err
 
 
+def fault_tile(d: int) -> int:
+    """Keys the planted fault drops at head size ``d``: ``KEY_TILE``, or the
+    bf16 kernel's key tile where that is smaller (32 at D = 512)."""
+    from egregora_tpu_torch.ops import attn_rows as ar
+    return min(KEY_TILE, ar.kernel_tile(d)[2])
+
+
 def drop_last_tile(q, k, v):
     """A planted fault: attention that skips the last K/V tile (what a
     kernel that loses its tail tile computes), from the plain version."""
     from egregora_tpu_torch.ops.attention import chunked_attention
-    m = (k.shape[1] - 1) // KEY_TILE * KEY_TILE
+    tile = fault_tile(q.shape[-1])
+    m = (k.shape[1] - 1) // tile * tile
     return chunked_attention(q, k[:, :m].contiguous(), v[:, :m].contiguous())
+
+
+def against_before(kernel: str, row: dict, flops: float, peak: float) -> str:
+    """Adds to ``row`` the share of the dtype's peak; returns it as text for
+    the log line, with the previous design's time at the row's shape
+    (``BEFORE_MS``) and the speed-up over it, which stay in the text: the
+    ``kernels`` line holds only this run's measurements.  Both times are
+    CUDA events around back-to-back calls: at the smallest shapes the
+    host's launch path, not the kernel, sets them."""
+    before = BEFORE_MS[kernel].get((row["bh"], row["n"], row["d"], row.get("dtype", "bfloat16")))
+    row["peak_share"] = flops / (row["ms"] * 1e-3) / peak
+    text = f"{100 * row['peak_share']:.1f}% of the peak"
+    if before is not None:
+        text += f", previous design {before:.4f} ms ({before / row['ms']:.2f}x faster now)"
+    return text
+
+
+def bf16_layout(lib_name: str, d: int, bk: int):
+    """``(q rows, threads, dynamic shared memory bytes)`` of the bf16
+    attention block at tile (d, bk), from the library's own query
+    (``<lib>_bf16_layout``); None where that tile is not built."""
+    import ctypes
+
+    from egregora_tpu_torch.utils import cuda_build
+    out = (ctypes.c_int * 3)()
+    fn = getattr(cuda_build.load(lib_name), f"{lib_name}_bf16_layout")
+    return tuple(out) if fn(ctypes.c_int(d), ctypes.c_int(bk), out) == 0 else None
+
+
+def ptxas_report() -> list:
+    """Each instantiation of the bf16 attention core in both libraries:
+    registers, spills and stack from ``ptxas -v`` (kept beside each
+    build), and the block's q rows, threads and dynamic shared memory from
+    the library's layout query; logged one line each.  Fails where the
+    instantiations differ from the tiles the wrappers call
+    (``BF16_TILES``)."""
+    import re
+
+    from egregora_tpu_torch.ops import attn_flash as af
+    from egregora_tpu_torch.ops import attn_rows as ar
+    from egregora_tpu_torch.utils import cuda_build
+
+    wanted = {"attn_rows": {(d, bq, bk) for d, (bq, bk) in ar.BF16_TILES.items()},
+              "attn_online": {(d, bq, bk) for d, (bqs, bks) in af.BF16_TILES.items()
+                              for bq in bqs for bk in bks}}
+    rows = []
+    for lib_name in ("attn_rows", "attn_online"):
+        cur = None
+        for line in cuda_build.build_log(lib_name).splitlines():
+            m = re.search(r"attn_kernelILi(\d+)ELi(\d+)E", line)
+            if "Compiling entry function" in line:
+                cur = None
+                if m:
+                    d, bk = map(int, m.groups())
+                    layout = bf16_layout(lib_name, d, bk)
+                    if layout is None:
+                        raise RuntimeError(f"{lib_name}: no layout for the built tile {d}/{bk}")
+                    cur = {"library": lib_name, "d": d, "bk": bk,
+                           **dict(zip(("bq", "threads", "smem_bytes"), layout))}
+                    rows.append(cur)
+            elif cur is not None and "spill stores" in line:
+                st, sp, ld = map(int, re.findall(r"(\d+) bytes", line)[:3])
+                cur.update(stack_bytes=st, spill_store_bytes=sp, spill_load_bytes=ld)
+            elif cur is not None and "registers" in line:
+                cur["registers"] = int(re.search(r"Used (\d+) registers", line).group(1))
+        built = {(r["d"], r["bq"], r["bk"]) for r in rows if r["library"] == lib_name}
+        if built != wanted[lib_name]:
+            raise RuntimeError(f"{lib_name}: built tiles {sorted(built)} differ from the "
+                               f"wrapper's BF16_TILES {sorted(wanted[lib_name])}")
+    for r in rows:
+        # beside two consumer warpgroups the producer is a whole warpgroup,
+        # whose registers setmaxnreg moves to the consumers
+        rebalanced = r["threads"] % 128 == 0
+        log(f"ptxas {r['library']} bf16 D={r['d']} BQ={r['bq']} BK={r['bk']}: "
+            f"{r.get('registers')} registers"
+            + (" at entry (setmaxnreg: consumers 240, producer 24)" if rebalanced else "")
+            + f", spill stores {r.get('spill_store_bytes')} B, loads "
+            f"{r.get('spill_load_bytes')} B, stack {r.get('stack_bytes')} B; "
+            f"{r['smem_bytes']} B dynamic shared memory; {r['threads']} threads")
+    return rows
 
 
 def attention_phase() -> list:
@@ -226,18 +337,20 @@ def attention_phase() -> list:
         plain_ms = cuda_ms(lambda: chunked_attention(q, k, v), max(2, reps // 4), 1)
         q4, k4, v4 = (t.view(BATCH, heads, n, d) for t in (q, k, v))
         lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4), reps)
-        row = {"bh": bh, "n": n, "d": d, "max_abs_err": err, "rel_l2": rel,
+        row = {"bh": bh, "n": n, "d": d, "tile": list(ar.kernel_tile(d)),
+               "max_abs_err": err, "rel_l2": rel,
                "max_abs_limit": limit, "planted_max_abs_err": bad_err,
-               "planted_rel_l2": bad_rel, "ms": ms, "plain_ms": plain_ms,
-               "library_ms": lib_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-               "tflops": flops / ms / 1e9}
+               "planted_rel_l2": bad_rel, "planted_keys_dropped": fault_tile(d), "ms": ms,
+               "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": bound_ms,
+               "bound_by": bound_by, "tflops": flops / ms / 1e9}
+        before = against_before("attn_rows", row, flops, H100_BF16_FLOPS)
         rows.append(row)
-        log(f"attn_rows [{bh},{n},{d}]: vs plain max|d| {err:.3e} (limit {limit:.3e}), "
-            f"rel L2 {rel:.3e} (limit {ATTN_REL_L2:g}) {'ok' if ok else 'FAIL'}; "
-            f"planted fault (last key tile dropped) max|d| {bad_err:.3e}, rel L2 "
-            f"{bad_rel:.3e} {'rejected' if not bad_ok else 'NOT REJECTED'}; "
-            f"kernel {ms:.4f} ms ({row['tflops']:.1f} TFLOP/s), plain {plain_ms:.4f} ms, "
-            f"sdpa {lib_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+        log(f"attn_rows [{bh},{n},{d}] tile {row['tile']}: vs plain max|d| {err:.3e} (limit "
+            f"{limit:.3e}), rel L2 {rel:.3e} (limit {ATTN_REL_L2:g}) {'ok' if ok else 'FAIL'}; "
+            f"planted fault (last {fault_tile(d)}-key tile dropped) max|d| {bad_err:.3e}, "
+            f"rel L2 {bad_rel:.3e} {'rejected' if not bad_ok else 'NOT REJECTED'}; "
+            f"kernel {ms:.4f} ms ({row['tflops']:.1f} TFLOP/s, {before}), plain "
+            f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
         if not ok:
             raise RuntimeError(f"attn_rows disagrees with its plain version at "
                                f"[{bh},{n},{d}]: max |d| {err}, rel L2 {rel}")
@@ -1030,12 +1143,14 @@ def repair_phase() -> dict:
                "max_abs_limit": limit, "planted_rel_l2": bad_rel, "planted_max_abs_err": bad_err,
                "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": bound_ms,
                "bound_by": bound_by}
+        before = against_before("attn_rows", row, 4.0 * bh * n * n * d,
+                                H100_BF16_FLOPS if dtype == torch.bfloat16 else H100_F32_FLOPS)
         attn.append(row)
         log(f"repair attn_rows [{bh},{n},{d}] {dt}: vs plain max|d| {err:.3e} (limit "
-            f"{limit:.3e}), rel L2 {rel:.3e} {'ok' if ok else 'FAIL'}; planted fault (last key "
-            f"tile dropped) max|d| {bad_err:.3e}, rel L2 {bad_rel:.3e} "
-            f"{'rejected' if not bad_ok else 'NOT REJECTED'}; kernel {ms:.4f} ms, plain "
-            f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by})")
+            f"{limit:.3e}), rel L2 {rel:.3e} {'ok' if ok else 'FAIL'}; planted fault (last "
+            f"{fault_tile(d)}-key tile dropped) max|d| {bad_err:.3e}, rel L2 {bad_rel:.3e} "
+            f"{'rejected' if not bad_ok else 'NOT REJECTED'}; kernel {ms:.4f} ms ({before}), "
+            f"plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by})")
         if not ok:
             failures.append(f"attn_rows [{bh},{n},{d}] {dt} disagrees: {rel}, {err}")
         if bad_ok:
@@ -1850,13 +1965,14 @@ def edge_kernels_phase() -> dict:
                "planted_max_abs_err": bad_err, "planted_rel_l2": bad_rel, "ms": ms,
                "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": bound_ms,
                "bound_by": bound_by, "tflops": flops / ms / 1e9}
+        before = against_before("flash_online", row, flops, H100_BF16_FLOPS)
         k1b.append(row)
         log(f"flash_online [{bh},{n},{d}] tile {row['tile']}: vs plain max|d| {err:.3e} "
             f"(limit {limit:.3e}), rel L2 {rel:.3e} {'ok' if ok else 'FAIL'}; planted fault "
             f"(last key tile dropped) max|d| {bad_err:.3e}, rel L2 {bad_rel:.3e} "
             f"{'rejected' if not bad_ok else 'NOT REJECTED'}; kernel {ms:.4f} ms "
-            f"({row['tflops']:.1f} TFLOP/s), plain {plain_ms:.3f} ms, sdpa {lib_ms:.4f} ms, "
-            f"bound {bound_ms:.4f} ms ({bound_by})")
+            f"({row['tflops']:.1f} TFLOP/s, {before}), plain {plain_ms:.3f} ms, sdpa "
+            f"{lib_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
         if not ok:
             failures.append(f"flash_online [{bh},{n},{d}] disagrees: {rel}, {err}")
         if bad_ok:
@@ -1991,6 +2107,7 @@ def main() -> int:
     log(f"build: {', '.join(f'{n} in {s:.1f} s' for n, s in zip(SOURCES, built))} "
         f"(nvcc, sm_90a, in parallel: {time.perf_counter() - t0:.1f} s)")
 
+    ptxas = ptxas_report()
     attn_rows_ = attention_phase()
     mrf_rows_ = mrf_phase()
     repair = repair_phase()
@@ -2031,6 +2148,8 @@ def main() -> int:
                edge_entry("conv3x3_out1", edge["conv3x3_out1"], k3_counts,
                           {"edge_conv_lab": sum(k3_counts.values())})]
     kernels[0]["launches_streaming"] = pipe["launches_streaming"]
+    for k, lib in ((kernels[0], "attn_rows"), (kernels[4], "attn_online")):
+        k["ptxas"] = [r for r in ptxas if r["library"] == lib]
     kernels[0]["repair_shapes"] = repair["attn"]
     kernels[1]["repair_shapes"] = [r for r in repair["mrf"] if r["entry"] == "mrf_fused_cm"]
     kernels[2]["repair_shapes"] = [r for r in repair["mrf"] if r["entry"] == "mrf_rows"]

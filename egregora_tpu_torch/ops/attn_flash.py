@@ -10,9 +10,11 @@ last key block is masked) and any head size D up to 512 (another D than
 
 ``block_q`` and ``block_k`` are the kernel's tile where it is built for
 them (``BF16_TILES`` / ``F32_TILES`` by D: what fits a Hopper block's
-227 KB of shared memory and its registers); otherwise each is clamped to
-the largest built size not above it (or the smallest built size), so the
-JAX defaults (512, 1024) run as the largest tile of that D.  The result
+227 KB of shared memory and its registers; bf16 is the warpgroup-MMA
+core of ``csrc/attn_core.cuh``, float32 runs on the SIMT cores);
+otherwise each is clamped to the largest built size not above it (or the
+smallest built size), so the JAX defaults (512, 1024) run as the largest
+tile of that D.  The result
 does not depend on the tiling beyond float32 rounding.
 
 A CUDA tensor goes to the kernel or raises; a CPU tensor goes to the
@@ -34,9 +36,12 @@ import torch.nn.functional as F
 from ..utils import cuda_build
 
 KERNEL_D = (32, 64, 128, 256, 512)     # head sizes csrc/attn_online.cu is built for
-# (block_q options, block_k options) built for each D
-BF16_TILES = {32: ((64, 128), (32, 64, 128)), 64: ((64, 128), (32, 64, 128)),
-              128: ((64, 128), (32, 64)), 256: ((64,), (32, 64)), 512: ((32,), (32,))}
+# (block_q options, block_k options) built for each D: bf16 runs 64 q
+# rows a block (D = 512: two warpgroups split D over them, 32-key tiles to
+# fit the K/V ring); the library's attn_online_bf16_layout query answers
+# for the same tiles (held to it on the card)
+BF16_TILES = {32: ((64,), (64, 128)), 64: ((64,), (64, 128)), 128: ((64,), (64, 128)),
+              256: ((64,), (64,)), 512: ((64,), (32,))}
 F32_TILES = {32: ((32, 64), (32, 64)), 64: ((32, 64), (32, 64)),
              128: ((32, 64), (32, 64)), 256: ((32, 64), (32,)), 512: ((16,), (32,))}
 ENTRIES = {torch.bfloat16: ("attn_online_bf16", BF16_TILES),

@@ -6,8 +6,11 @@ for any head size D up to 512 (the published checkpoints' VAE mid block
 runs one head of 512).  The kernel is built for D in ``KERNEL_D``;
 another D is padded with zero columns to the next of them
 (zero columns add nothing to q.k, and the padded value columns are
-dropped), with the scale of the true D.  A CUDA tensor goes to the
-kernel or raises; a CPU tensor goes to the plain version,
+dropped), with the scale of the true D.  The bf16 kernel is the
+warpgroup-MMA core of ``csrc/attn_core.cuh`` (TMA K/V ring, O in
+registers) with flash_rows's rounding; float32 runs on the SIMT cores.
+A CUDA tensor goes to the kernel or raises; a CPU tensor goes to the
+plain version,
 ``ops.attention.chunked_attention``, which has flash_rows's math
 (f32 scores scaled after the product, true row max, weights rounded to
 the value dtype, f32 accumulation).
@@ -23,6 +26,11 @@ import torch.nn.functional as F
 from ..utils import cuda_build
 
 KERNEL_D = (32, 64, 128, 256, 512)     # head sizes csrc/attn_rows.cu is built for
+# bf16 tile by D: (q rows a block, keys a K/V tile).  A ring slot holds
+# one K and one V tile, and at D = 512 only 32 keys fit (two warpgroups
+# split D over the 64 rows).  The library's attn_rows_bf16_layout query
+# answers for the same tiles (held to it on the card)
+BF16_TILES = {32: (64, 128), 64: (64, 128), 128: (64, 128), 256: (64, 64), 512: (64, 32)}
 ENTRIES = {torch.bfloat16: "attn_rows_bf16", torch.float32: "attn_rows_f32"}
 
 # kernel launches since the last reset, in all and by shape (bh, n, d);
@@ -42,6 +50,13 @@ def _kernel(dtype: torch.dtype):
         fn.restype = ctypes.c_int
         _FNS[dtype] = fn
     return fn
+
+
+def kernel_tile(d: int) -> tuple:
+    """``(D the kernel runs, q rows a block, keys a tile)`` of the bf16
+    kernel at head size ``d``."""
+    dk = next(s for s in KERNEL_D if s >= d)
+    return (dk,) + BF16_TILES[dk]
 
 
 def attn_rows(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:

@@ -4,12 +4,16 @@
 plain C interface (no PyTorch headers, so a build takes seconds):
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-         -Xcompiler -fPIC -o _build/<name>-<hash>.so csrc/<name>.cu
+         -Xcompiler -fPIC -Xptxas -v -o _build/<name>-<hash>.so csrc/<name>.cu
 
-The file name carries a hash of the source and flags, so an edited
-source rebuilds and an unchanged one loads at once.  The compiler writes
-a temporary name that ``os.replace`` moves into place: there is no lock
-file, and a build that is cut off leaves no half-written library.
+The file name carries a hash of the flags, the source and every header
+in ``csrc/`` (``*.cuh``, which a quoted ``#include`` finds beside the
+source), so an edited source or header rebuilds and an unchanged one
+loads at once.  The compiler writes a temporary name that ``os.replace``
+moves into place: there is no lock file, and a build that is cut off
+leaves no half-written library.  ``ptxas -v``'s report (registers, shared
+memory and spills of each kernel) is kept beside the library as
+``_build/<name>-<hash>.log``.
 """
 from __future__ import annotations
 
@@ -25,7 +29,7 @@ PKG = Path(__file__).resolve().parents[1]
 CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "_build"
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-         "-shared", "-Xcompiler", "-fPIC")
+         "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
@@ -39,11 +43,21 @@ def nvcc() -> str:
     raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
 
 
-def library_path(name: str) -> Path:
-    """``_build/<name>-<hash>.so`` for the current source and flags."""
+def library_path(name: str, csrc: Path = CSRC) -> Path:
+    """``_build/<name>-<hash>.so`` for the current flags, source and
+    headers of ``csrc``."""
     h = hashlib.sha256(" ".join(FLAGS).encode())
-    h.update((CSRC / f"{name}.cu").read_bytes())
+    for src in [csrc / f"{name}.cu"] + sorted(csrc.glob("*.cuh")):
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+
+
+def build_log(name: str) -> str:
+    """The compiler's report of the current build of ``name`` (``ptxas -v``
+    lines), or "" before it is built."""
+    log = library_path(name).with_suffix(".log")
+    return log.read_text() if log.exists() else ""
 
 
 def build(name: str, timeout: float = 600.0) -> Path:
@@ -65,6 +79,7 @@ def build(name: str, timeout: float = 600.0) -> Path:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(f"CUDA build of {name} failed: nvcc exit {r.returncode}\n"
                            f"{r.stdout}")
+    path.with_suffix(".log").write_text(r.stdout)
     os.replace(tmp, path)
     return path
 

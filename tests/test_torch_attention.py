@@ -51,13 +51,13 @@ def test_plain_matches_flash_rows_bf16(b, n, d, bq):
 
 
 def _online(q, k, v, rescale=True, drop_last=False):
-    """``csrc/attn_rows.cu``'s arithmetic in PyTorch: 64-key tiles, f32
-    running max and sum, unnormalised weights rounded to bf16 (the sum
-    adds the rounded weights), f32 accumulator, one division and one
-    bf16 rounding at the end.  ``rescale=False`` and ``drop_last=True``
-    plant the faults a kernel could have."""
+    """``csrc/attn_rows.cu``'s arithmetic in PyTorch: the bf16 kernel's key
+    tiles (``BF16_TILES``), f32 running max and sum, unnormalised weights
+    rounded to bf16 (the sum adds the rounded weights), f32 accumulator,
+    one division and one bf16 rounding at the end.  ``rescale=False`` and
+    ``drop_last=True`` plant the faults a kernel could have."""
     b, n, d = q.shape
-    tile = chip_smoke.KEY_TILE
+    tile = ar.BF16_TILES[d][1]
     m = torch.full((b, n, 1), float("-inf"))
     l, acc = torch.zeros(b, n, 1), torch.zeros(b, n, d)
     starts = list(range(0, n, tile))
@@ -86,6 +86,60 @@ def test_bf16_limits_pass_kernel_math_and_reject_faults(b, n, d, fault):
            "plain_drop": lambda: chip_smoke.drop_last_tile(q, k, v)}[fault]()
     ok, rel, err, limit = chip_smoke.bf16_agreement(got, plain)
     assert ok == (fault == "none"), (rel, err, limit)
+
+
+def test_card_cases_cover_every_bf16_tile():
+    """``tests/test_torch_cuda.py``'s bf16 cases reach every built head
+    size at N = 1, 17 and 1000 with BH up to 26, and 8191 at D = 512."""
+    import test_torch_cuda
+    cases = set(test_torch_cuda.BF16_CASES)
+    for d in ar.KERNEL_D:
+        assert {n for dd, _, n in cases if dd == d} >= {1, 17, 1000}
+    assert (512, 3, 8191) in cases
+    assert max(bh for _, bh, _ in cases) == 26
+
+
+@pytest.mark.parametrize("d,tile", [
+    (32, (32, 64, 128)),      # UNet ds=2 and the served trios' mid block
+    (40, (64, 64, 128)),      # padded to 64
+    (64, (64, 64, 128)),      # UNet ds=4
+    (256, (256, 64, 64)),     # full config's VAE mid block
+    (320, (512, 64, 32)),     # padded to 512: two warpgroups split D
+    (512, (512, 64, 32)),     # published VAE mid block
+])
+def test_attn_rows_tile_choice(d, tile):
+    assert ar.kernel_tile(d) == tile
+
+
+def test_planted_fault_drops_the_kernels_smaller_tile():
+    """The planted fault drops ``KEY_TILE`` keys, or the kernel's key tile
+    where that is smaller: 32 at D = 512."""
+    assert chip_smoke.KEY_TILE == 64
+    assert {d: chip_smoke.fault_tile(d) for d in ar.KERNEL_D} == {
+        32: 64, 64: 64, 128: 64, 256: 64, 512: 32}
+    q, k, v = (torch.from_numpy(t).to(torch.bfloat16) for t in _qkv(1, 200, 512, 4))
+    dropped = chip_smoke.drop_last_tile(q, k, v)
+    assert torch.equal(dropped, chunked_attention(q, k[:, :192], v[:, :192]))
+
+
+def test_lab_loads_another_checkout_beside_this_one():
+    """``attn_flash_lab --root`` times another checkout's kernels in the
+    same process: ``load_checkout`` imports that checkout's package under
+    another name, whose wrappers run apart from this package's (here
+    their plain versions, on the CPU)."""
+    from pathlib import Path
+
+    from egregora_tpu_torch.ops import attn_flash
+    from egregora_tpu_torch.tools import attn_flash_lab as lab
+    other_af, other_ar = lab.load_checkout(Path(chip_smoke.__file__).parent)
+    assert other_ar is not ar and other_af is not attn_flash
+    assert other_af.__name__.endswith(".ops.attn_flash") and other_af.__name__ != attn_flash.__name__
+    assert other_af.BF16_TILES == attn_flash.BF16_TILES
+    assert lab.load_checkout(Path(chip_smoke.__file__).parent)[1] is other_ar
+    q, k, v = (torch.from_numpy(t).to(torch.bfloat16) for t in _qkv(2, 100, 32, 6))
+    assert torch.equal(other_ar.attn_rows(q, k, v), ar.attn_rows(q, k, v))
+    assert torch.equal(other_af.flash_online(q, k, v, 64, 64),
+                       attn_flash.flash_online(q, k, v, 64, 64))
 
 
 @pytest.mark.parametrize("n", [512, 300])

@@ -22,16 +22,26 @@ def card():
     return torch.device("cuda")
 
 
+# (d, bh, n) of more bf16 cases: N = 1, 17, 1000 at every built head size
+# (and tile) with BH up to 26, and N = 8191 at D = 512 (the published VAE
+# mid block's length, less one)
+BF16_CASES = [(d, bh, n) for d in ar.KERNEL_D
+              for bh, n in ((26, 1), (5, 17), (2, 1000), (26, 1000))] + [(512, 3, 8191)]
+
+
 @pytest.mark.parametrize("bh,n,d", [(16, 2048, 32), (16, 512, 64), (2, 1000, 256),
                                     (3, 77, 64), (1, 8192, 256), (12, 512, 24),
                                     (4, 300, 40), (2, 500, 128), (3, 257, 96),
-                                    (2, 1000, 320), (3, 2048, 512), (1, 77, 512)])
+                                    (2, 1000, 320), (3, 2048, 512), (1, 77, 512)]
+                         + [(bh, n, d) for d, bh, n in BF16_CASES])
 def test_attn_rows_matches_plain(card, bh, n, d):
     """bf16 in and out, within ``chip_smoke.bf16_agreement``'s limits of
     the plain version (relative L2 1e-2, max |d| two bf16 ulps of the
     largest output); one launch counted, under its shape.  Head sizes
     outside 32/64/128/256/512 go through the kernel padded with zero
-    columns; 512 is the published checkpoints' VAE mid block."""
+    columns; 512 is the published checkpoints' VAE mid block.  From one
+    key (a single ragged key tile) to 8191 (many tiles through the
+    ring)."""
     gen = torch.Generator().manual_seed(n + d)
     q, k, v = (torch.randn(bh, n, d, generator=gen).to(card, torch.bfloat16)
                for _ in range(3))
@@ -200,12 +210,14 @@ def _flash_online_cases():
 @pytest.mark.parametrize("dtype,d,bq,bk", _flash_online_cases())
 def test_flash_online_matches_plain(card, dtype, d, bq, bk):
     """K1b at every built tile, bf16 and float32, at a ragged N (the last
-    key tile masked) and a head size padded to the built one, within
+    key tile masked), a head size padded to the built one, one key, 17
+    keys with BH 26 and 8191 keys at D = 512, within
     ``chip_smoke.kernel_agreement``'s limits of the plain version at the
     same blocks; one launch counted."""
     from egregora_tpu_torch.ops import attn_flash as af
     gen = torch.Generator().manual_seed(d + bq + bk)
-    for bh, n, dd in ((3, 1000, d), (2, 129, d - 8)):
+    shapes = [(3, 1000, d), (2, 129, d - 8), (26, 1, d), (26, 17, d)]
+    for bh, n, dd in shapes + ([(3, 8191, d)] if d == 512 else []):
         q, k, v = (torch.randn(bh, n, dd, generator=gen).to(card, dtype) for _ in range(3))
         before = af.launches_by_shape[(bh, n, dd)]
         got = af.flash_online(q, k, v, bq, bk)
@@ -214,6 +226,21 @@ def test_flash_online_matches_plain(card, dtype, d, bq, bk):
         assert got.dtype == dtype and got.shape == q.shape
         ok, rel, err, limit = chip_smoke.kernel_agreement(got, af.flash_online_plain(q, k, v, bq, bk))
         assert ok, (bh, n, dd, rel, err, limit)
+
+
+def test_bf16_tiles_match_the_built_layout(card):
+    """The wrappers' ``BF16_TILES`` (which the CPU side and the planted
+    faults read) name the tiles each library builds, with its q rows:
+    ``<lib>_bf16_layout`` answers for each of them and for no other key
+    tile."""
+    from egregora_tpu_torch.ops import attn_flash as af
+    for d, (bq, bk) in ar.BF16_TILES.items():
+        assert chip_smoke.bf16_layout("attn_rows", d, bk)[0] == bq
+        assert chip_smoke.bf16_layout("attn_rows", d, bk // 2) is None
+    for d, (bqs, bks) in af.BF16_TILES.items():
+        for bk in bks:
+            assert chip_smoke.bf16_layout("attn_online", d, bk)[0] in bqs
+        assert chip_smoke.bf16_layout("attn_online", d, 16) is None
 
 
 def test_flash_online_rejects_what_it_does_not_take(card):

@@ -86,11 +86,11 @@ def test_flash_online_tiles_clamp_to_built():
     """Requested blocks map to the largest built tile not above them (the
     smallest where none is), per dtype and padded head size."""
     bf, f32 = torch.bfloat16, torch.float32
-    assert attn_flash.kernel_tile(bf, 32, 512, 1024) == (32, 128, 128)
+    assert attn_flash.kernel_tile(bf, 32, 512, 1024) == (32, 64, 128)
     assert attn_flash.kernel_tile(bf, 256, 512, 1024) == (256, 64, 64)
-    assert attn_flash.kernel_tile(bf, 320, 64, 64) == (512, 32, 32)
-    assert attn_flash.kernel_tile(bf, 128, 100, 48) == (128, 64, 32)
-    assert attn_flash.kernel_tile(bf, 64, 16, 16) == (64, 64, 32)
+    assert attn_flash.kernel_tile(bf, 320, 64, 64) == (512, 64, 32)
+    assert attn_flash.kernel_tile(bf, 128, 100, 48) == (128, 64, 64)
+    assert attn_flash.kernel_tile(bf, 64, 16, 16) == (64, 64, 64)
     assert attn_flash.kernel_tile(f32, 512, 512, 1024) == (512, 16, 32)
     assert attn_flash.kernel_tile(f32, 40, 32, 64) == (64, 32, 64)
     for table in (attn_flash.BF16_TILES, attn_flash.F32_TILES):

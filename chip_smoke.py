@@ -10,8 +10,9 @@ Phases, one line each on standard output:
    five sources under ``egregora_tpu_torch/csrc/`` (``attn_rows``,
    ``mrf``, ``iir_lowpass``, ``attn_online``, ``conv_edge``), one
    ``nvcc`` each, at once; for each instantiation of the bf16 attention
-   core (``attn_core.cuh``), its registers, spills and stack from
-   ``ptxas -v`` and its dynamic shared memory;
+   core (``attn_core.cuh``) and of the bf16 MRF core (``mrf_core.cuh``),
+   its registers, spills and stack from ``ptxas -v`` and its block (the
+   library's layout query, held to the wrappers' plan);
 2. each kernel against its plain PyTorch version on the card, at the
    shapes the main paths give it and at a ragged length, beside planted
    faults that the limits must reject, with the kernel's, the plain
@@ -29,7 +30,10 @@ Phases, one line each on standard output:
      stages (C = 16 to 256): relative L2 1e-2 and four bf16 ulps, over
      the block and over its first and last 120 samples; faults: the
      per-layer re-zeroing outside the signal skipped, the last
-     dilation's residual dropped;
+     dilation's residual dropped, every conv's last tap dropped (what a
+     weight slot released one tap early gives); each row also gives the
+     share of the bf16 peak and the previous design's time at that shape
+     with the speed-up over it (``BEFORE_MS``, in the log text only);
 3. the repaired shapes: ``attn_rows`` at head sizes 24, 40 and 320
    (bf16) and in float32 (D up to 512), the MRF entries at C = 8 and 24
    (bf16) and in float32 (float32 limits: relative L2 and max |d| 1e-5
@@ -106,11 +110,12 @@ RAGGED = [(8, 1000, 32), (8, 1000, 64), (1, 1000, 256)]
 KEY_TILE = 64                # keys the planted attention fault drops (fewer
                              # where the kernel's key tile is smaller)
 ATTN_REL_L2 = 1e-2           # kernel vs plain, relative L2 over the output
-# device times (ms) of the attention kernels' previous design (WMMA with S,
-# P and O through shared memory; K1b on mma.sync with an O slab at D >= 256)
-# at these shapes, NVIDIA H100 80GB HBM3 at 700 W (PERF.md's kernel table):
-# the yardstick of the warpgroup-MMA core in the log lines (not in the
-# ``kernels`` line, which holds this run's measurements), by (bh, n, d, dtype)
+# device times (ms) of the kernels' previous designs at these shapes,
+# NVIDIA H100 80GB HBM3 at 700 W (PERF.md): the yardstick of the
+# warpgroup-MMA cores in the log lines (not in the ``kernels`` line, which
+# holds this run's measurements).  Attention (WMMA with S, P and O through
+# shared memory; K1b on mma.sync with an O slab at D >= 256) by (bh, n, d,
+# dtype), from PERF.md's kernel table
 BEFORE_MS = {
     "attn_rows": {(24, 2048, 32, "bfloat16"): 0.4681, (24, 512, 64, "bfloat16"): 0.0662,
                   (3, 8192, 256, "bfloat16"): 5.3136, (12, 512, 32, "bfloat16"): 0.0441,
@@ -121,6 +126,13 @@ BEFORE_MS = {
                   (1, 2048, 512, "float32"): 3.0898, (2, 300, 320, "float32"): 0.5223},
     "flash_online": {(26, 8192, 256, "bfloat16"): 27.4618, (208, 2048, 32, "bfloat16"): 0.8395,
                      (26, 8192, 512, "bfloat16"): 190.9238, (6, 1000, 64, "bfloat16"): 0.0432},
+    # the MRF kernels' previous design (mma.sync m16n8k16, weights through
+    # L1, 16-row tiles), by (b, c, t): tools/mrf_lab.py --root on that
+    # checkout, the same card; mrf_rows is its three branch launches
+    "mrf_fused_cm": {(3, 64, 5120): 1.4082, (3, 32, 40960): 1.6983, (3, 16, 245760): 2.8966,
+                     (3, 64, 245760): 26.8346, (3, 128, 40960): 31.6933, (3, 256, 5120): 35.2718},
+    "mrf_rows": {(3, 64, 5120): 1.0964, (3, 32, 40960): 1.0190, (3, 16, 245760): 2.5749,
+                 (3, 64, 245760): 16.7464, (3, 128, 40960): 16.6623, (3, 256, 5120): 14.9814},
 }
 
 
@@ -227,14 +239,17 @@ def drop_last_tile(q, k, v):
     return chunked_attention(q, k[:, :m].contiguous(), v[:, :m].contiguous())
 
 
-def against_before(kernel: str, row: dict, flops: float, peak: float) -> str:
+def against_before(kernel: str, row: dict, flops: float, peak: float, key=None) -> str:
     """Adds to ``row`` the share of the dtype's peak; returns it as text for
     the log line, with the previous design's time at the row's shape
-    (``BEFORE_MS``) and the speed-up over it, which stay in the text: the
-    ``kernels`` line holds only this run's measurements.  Both times are
-    CUDA events around back-to-back calls: at the smallest shapes the
-    host's launch path, not the kernel, sets them."""
-    before = BEFORE_MS[kernel].get((row["bh"], row["n"], row["d"], row.get("dtype", "bfloat16")))
+    (``BEFORE_MS``; ``key``, or attention's (bh, n, d, dtype)) and the
+    speed-up over it, which stay in the text: the ``kernels`` line holds
+    only this run's measurements.  Both times are CUDA events around
+    back-to-back calls: at the smallest shapes the host's launch path, not
+    the kernel, sets them."""
+    if key is None:
+        key = (row["bh"], row["n"], row["d"], row.get("dtype", "bfloat16"))
+    before = BEFORE_MS[kernel].get(key)
     row["peak_share"] = flops / (row["ms"] * 1e-3) / peak
     text = f"{100 * row['peak_share']:.1f}% of the peak"
     if before is not None:
@@ -305,6 +320,90 @@ def ptxas_report() -> list:
             f"{r.get('spill_load_bytes')} B, stack {r.get('stack_bytes')} B; "
             f"{r['smem_bytes']} B dynamic shared memory; {r['threads']} threads")
     return rows
+
+
+def mrf_bf16_layout(c: int, t: int, halo: int, nb: int, cm: bool):
+    """The bf16 MRF block the library launches for C channels, T samples,
+    a halo, ``nb`` branches, channel-major or not, from its own query
+    (``mrf_bf16_layout``): (channels run, time tile, threads, dynamic
+    shared memory bytes, weight slots, wgmma N, taps a weight slice, leaky
+    tile kept), the order of ``ops.mrf_fused.Bf16Plan``; None where no
+    tile fits."""
+    import ctypes
+
+    from egregora_tpu_torch.utils import cuda_build
+    out = (ctypes.c_int * 8)()
+    fn = cuda_build.load("mrf").mrf_bf16_layout
+    fn.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return tuple(out) if fn(c, t, halo, nb, int(cm), out) == 0 else None
+
+
+# the bf16 MRF core's instantiations, (wgmma N, rounding, channel-major):
+# the fused entry's _conv_circ on [B, C, T], the rows entry's _conv_rows on
+# [B, T, C]
+MRF_INSTANCES = {(nc, r, cm) for nc in (16, 32, 64, 128)
+                 for r, cm in (("Circ", True), ("Rows", False))}
+
+
+def mrf_ptxas_report() -> list:
+    """Each instantiation of the bf16 MRF core (``mrf_core.cuh``):
+    registers, spills and stack from ``ptxas -v``, whether ptxas
+    serialised its wgmma (C7511), and the blocks it runs at the main
+    paths' shapes (the fused entry at C <= 64, the rows entry's three
+    branch launches at every C) from the library's layout query; logged
+    one line each.  Fails where the instantiations differ from
+    ``MRF_INSTANCES`` or a layout from the wrappers' ``bf16_plan``."""
+    import re
+
+    from egregora_tpu_torch.ops import mrf_fused as mf
+    from egregora_tpu_torch.utils import cuda_build
+
+    pat = re.compile(r"mrf_kernelILi(\d+)E\w*?(Circ|Rows)RoundingELb([01])E")
+    rows, cur, serialized = {}, None, set()
+    for line in cuda_build.build_log("mrf").splitlines():
+        m = pat.search(line)
+        key = (int(m.group(1)), m.group(2), m.group(3) == "1") if m else None
+        if "C7511" in line or "C7512" in line:
+            if key:
+                serialized.add(key)
+        elif "Compiling entry function" in line:
+            cur = rows.setdefault(key, {"nc": key[0], "rounding": key[1], "cm": key[2],
+                                        "tiles": []}) if key else None
+        elif cur is not None and "spill stores" in line:
+            st, sp, ld = map(int, re.findall(r"(\d+) bytes", line)[:3])
+            cur.update(stack_bytes=st, spill_store_bytes=sp, spill_load_bytes=ld)
+        elif cur is not None and "registers" in line:
+            cur["registers"] = int(re.search(r"Used (\d+) registers", line).group(1))
+    if set(rows) != MRF_INSTANCES:
+        raise RuntimeError(f"mrf: built instantiations {sorted(rows)} differ from "
+                           f"{sorted(MRF_INSTANCES)}")
+    for key, r in rows.items():
+        r["wgmma_serialized"] = key in serialized
+    for c, t in MRF_SHAPES:
+        launches = [("Circ", True, MRF_HALO, len(MRF_KERNELS))] if c <= 64 else []
+        launches += [("Rows", False, mf.branch_halo(k, MRF_DILS), 1) for k in MRF_KERNELS]
+        for rounding, cm, halo, nb in launches:
+            plan = mf.bf16_plan(c, t, halo, nb, cm)
+            got = mrf_bf16_layout(c, t, halo, nb, cm)
+            if plan is None or got != tuple(plan):
+                raise RuntimeError(f"mrf: the library's block {got} at C={c} T={t} halo {halo} "
+                                   f"differs from the wrappers' plan {plan}")
+            rows[(plan.nc, rounding, cm)]["tiles"].append(
+                {"c": c, "t": t, "halo": halo, "nb": nb, "tt": plan.tt, "threads": plan.threads,
+                 "smem_bytes": plan.smem_bytes, "stages": plan.stages, "q": plan.q})
+    out = [rows[k] for k in sorted(rows)]
+    for r in out:
+        tiles = "; ".join(f"C={b['c']} T={b['t']} halo {b['halo']}: TT={b['tt']}, "
+                          f"{b['threads']} threads, {b['smem_bytes']} B, {b['stages']} "
+                          f"slots of {b['q']} taps" for b in r["tiles"]) or "no main-path shape"
+        log(f"ptxas mrf bf16 N={r['nc']} {r['rounding']} "
+            f"{'[B,C,T]' if r['cm'] else '[B,T,C]'}: {r.get('registers')} registers"
+            f", spill stores "
+            f"{r.get('spill_store_bytes')} B, loads {r.get('spill_load_bytes')} B, stack "
+            f"{r.get('stack_bytes')} B{', wgmma serialised (C7511)' if r['wgmma_serialized'] else ''}"
+            f"; {tiles}")
+    return out
 
 
 def attention_phase() -> list:
@@ -439,6 +538,8 @@ MRF_HALO = 60                # per-side reach of the k=11 branch
 # branch's six convs reaches the output as up to two (the sound reading
 # on an H100); the planted faults read 22 ulps and more (PERF.md)
 MRF_ULPS = 4
+# the planted faults the MRF limits must reject (``mrf_planted``)
+MRF_FAULTS = ("no_rezero", "drop_residual", "drop_last_tap")
 
 
 def mrf_flops(c: int, t: int, b: int, kernels=MRF_KERNELS) -> float:
@@ -478,7 +579,8 @@ def mrf_planted(x_cm, w, bias, fault: str, round_then_bias: bool):
     by the halo without re-zeroing each layer outside [0, T) (what a
     kernel that skips its per-layer mask computes near the edges);
     ``"drop_residual"`` leaves the last dilation's residual add out of
-    every branch."""
+    every branch; ``"drop_last_tap"`` leaves every conv's last tap out
+    (what a kernel that releases a weight slot one tap early computes)."""
     import torch.nn.functional as F
 
     from egregora_tpu_torch.ops.mrf_fused import _conv, _leaky, branch_weights
@@ -486,11 +588,18 @@ def mrf_planted(x_cm, w, bias, fault: str, round_then_bias: bool):
     pad = MRF_HALO if fault == "no_rezero" else 0
     xe = F.pad(x_cm, (pad, pad))
     acc = None
+    def taps(wk):
+        if fault != "drop_last_tap":
+            return wk
+        wk = wk.clone()
+        wk[-1] = 0
+        return wk
+
     for bi, wb in enumerate(branch_weights(w, c, MRF_KERNELS, len(MRF_DILS))):
         h = xe
         for m, d in enumerate(MRF_DILS):
-            a = _conv(_leaky(h), wb[m, 0], bias[bi, m, 0], d, round_then_bias)
-            a = _conv(_leaky(a), wb[m, 1], bias[bi, m, 1], 1, round_then_bias)
+            a = _conv(_leaky(h), taps(wb[m, 0]), bias[bi, m, 0], d, round_then_bias)
+            a = _conv(_leaky(a), taps(wb[m, 1]), bias[bi, m, 1], 1, round_then_bias)
             if not (fault == "drop_residual" and m == len(MRF_DILS) - 1):
                 h = h + a
         acc = h if acc is None else acc + h
@@ -517,9 +626,10 @@ def mrf_agreement(got, ref):
 def mrf_phase() -> list:
     """Both MRF entry points of ``csrc/mrf.cu`` against their plain
     versions on the card, at the main paths' shapes and at a ragged T,
-    beside two planted faults that the limits must reject; times of the
-    kernel, the plain version and the module path (``MRF.forward``'s
-    cuDNN convs, the same function with the module's rounding)."""
+    beside the planted faults (``MRF_FAULTS``) that the limits must
+    reject; times of the kernel, the plain version and the module path
+    (``MRF.forward``'s cuDNN convs, the same function with the module's
+    rounding)."""
     import torch
 
     from egregora_tpu_torch.ops import mrf_fused as mf
@@ -563,7 +673,7 @@ def mrf_phase() -> list:
             ref = plain()
             ok, rel, err, edge, limit = mrf_agreement(got, ref)
             planted = {}
-            for fault in ("no_rezero", "drop_residual"):
+            for fault in MRF_FAULTS:
                 bad = mrf_planted(x, w, bias, fault, round_then_bias=circ)
                 b_ok, b_rel, b_err, b_edge, _ = mrf_agreement(bad, ref)
                 planted[fault] = {"ok": b_ok, "rel_l2": b_rel, "max_abs_err": b_err,
@@ -581,6 +691,7 @@ def mrf_phase() -> list:
                    "plain_ms": plain_ms,
                    "module_ms": module_ms, "bound_ms": bound_ms, "bound_by": bound_by,
                    "tflops": flops / ms / 1e9}
+            before = against_before(entry, row, flops, H100_BF16_FLOPS, key=(BATCH, c, t))
             rows.append(row)
             rejected = all(not p["ok"] for p in planted.values())
             log(f"{entry} [{BATCH},{c},{t}] ({row['where']}): vs plain max|d| {err:.3e}, "
@@ -589,8 +700,8 @@ def mrf_phase() -> list:
                 + ", ".join(f"{f}: rel L2 {p['rel_l2']:.3e} max|d| {p['max_abs_err']:.3e} "
                             f"edges {p['edge_max_abs_err']:.3e}" for f, p in planted.items())
                 + f" {'rejected' if rejected else 'NOT REJECTED'}; kernel {ms:.4f} ms "
-                f"({row['tflops']:.1f} TFLOP/s), plain {plain_ms:.4f} ms, module path "
-                f"(cuDNN) {module_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+                f"({row['tflops']:.1f} TFLOP/s, {before}), plain {plain_ms:.4f} ms, module "
+                f"path (cuDNN) {module_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
             if not ok:
                 failures.append(f"{entry} disagrees with its plain version at "
                                 f"[{BATCH},{c},{t}]: rel L2 {rel}, max |d| {err}, edges {edge}")
@@ -1188,7 +1299,7 @@ def repair_phase() -> dict:
             ref = plain()
             ok, rel, err, limit = agree(got, ref)
             planted = {f: agree(mrf_planted(x, w, bias, f, round_then_bias=circ), ref)
-                       for f in ("no_rezero", "drop_residual")}
+                       for f in MRF_FAULTS}
             rejected = all(not p[0] for p in planted.values())
             flops = mrf_flops(c, t, BATCH)
             launches = 1 if entry == "mrf_fused_cm" else len(MRF_KERNELS)
@@ -2108,6 +2219,7 @@ def main() -> int:
         f"(nvcc, sm_90a, in parallel: {time.perf_counter() - t0:.1f} s)")
 
     ptxas = ptxas_report()
+    mrf_ptxas = mrf_ptxas_report()
     attn_rows_ = attention_phase()
     mrf_rows_ = mrf_phase()
     repair = repair_phase()
@@ -2150,6 +2262,8 @@ def main() -> int:
     kernels[0]["launches_streaming"] = pipe["launches_streaming"]
     for k, lib in ((kernels[0], "attn_rows"), (kernels[4], "attn_online")):
         k["ptxas"] = [r for r in ptxas if r["library"] == lib]
+    for k, rounding in ((kernels[1], "Circ"), (kernels[2], "Rows")):
+        k["ptxas"] = [r for r in mrf_ptxas if r["rounding"] == rounding]
     kernels[0]["repair_shapes"] = repair["attn"]
     kernels[1]["repair_shapes"] = [r for r in repair["mrf"] if r["entry"] == "mrf_fused_cm"]
     kernels[2]["repair_shapes"] = [r for r in repair["mrf"] if r["entry"] == "mrf_rows"]

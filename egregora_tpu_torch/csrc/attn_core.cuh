@@ -52,11 +52,10 @@
 // state is f32; every product accumulates in f32.
 #pragma once
 
-#include <cuda.h>            // CUtensorMap and its enums (types only: no -lcuda)
-#include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math_constants.h>
-#include <stdint.h>
+
+#include "sm90.cuh"
 
 namespace attn_core {
 
@@ -94,89 +93,7 @@ struct Config {
   static_assert(bytes <= 232448, "tile set exceeds 227 KB of shared memory");
 };
 
-// ---- PTX wrappers -----------------------------------------------------------
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               :: "r"(bar), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" :: "r"(bar) : "memory");
-}
-
-// returns once the phase of parity `phase` has completed; a wait that
-// outlasts 2^28 polls (seconds, where a sound wait takes microseconds)
-// traps, so a broken pipeline fails its launch instead of hanging the card
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t phase) {
-  uint32_t done = 0, polls = 0;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(bar), "r"(phase) : "memory");
-    if (++polls == (1u << 28)) __trap();
-  } while (!done);
-}
-
-// one box of a 3-D tensor map (coordinates innermost first) into shared
-// memory, completing `bar`'s transaction bytes
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, int c0, int c1,
-                                         int c2, uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%2, %3, %4}], [%5];\n"
-      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(bar)
-      : "memory");
-}
-
-__device__ __forceinline__ void named_bar_sync(int id, int threads) {
-  asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(threads) : "memory");
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// pins registers in place across the surrounding wgmma fence or wait: the
-// compiler may neither read accumulators before wgmma.wait_group nor move
-// writes of operands past wgmma.fence
-template <int N>
-__device__ __forceinline__ void fence_regs(float* r) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void fence_regs(uint32_t* r) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i]) :: "memory");
-}
-
-// wgmma shared-memory matrix descriptor: start address, leading and
-// stride byte offsets (16-byte units), swizzle (1: 128 B, 2: 64 B)
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint32_t sbo,
-                                              uint32_t layout) {
-  return uint64_t((addr & 0x3FFFF) >> 4) | (uint64_t((lbo & 0x3FFFF) >> 4) << 16) |
-         (uint64_t((sbo & 0x3FFFF) >> 4) << 32) | (uint64_t(layout) << 62);
-}
+using namespace sm90;
 
 // d[N/2] (64 x N f32, the accumulator fragment) = / += A x B, k = 16:
 //   ss: A [64 x 16] and B [N x 16] K-major in shared memory;
@@ -537,25 +454,6 @@ attn_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUte
 }
 
 // ---- host side --------------------------------------------------------------
-
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// libcuda's cuTensorMapEncodeTiled, looked up through the runtime (no -lcuda)
-inline EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult status;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &status) ==
-            cudaSuccess &&
-        status == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
 
 // a tensor map over contiguous bf16 [bh, n, d] whose box is one panel of
 // `rows` rows; zero fill past n

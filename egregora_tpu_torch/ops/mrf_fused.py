@@ -8,12 +8,14 @@ kernel or raises; a CPU tensor goes to the plain version,
 ``_conv_circ`` does: each conv's f32 sum to the activation dtype, then
 the bias in that dtype.
 
-On the card (``kernel_operands``) bf16 operands of C not a multiple of 16
-are padded with zero channels (zero activations, weights and bias stay
-exactly 0 through leaky, the convs and the residual, so the real
-channels are unchanged); float32 operands keep their C and travel with
-each conv's weights transposed to ``[k, C_in, C_out]``, with a device
-workspace when the tiles do not fit shared memory.
+On the card (``kernel_operands``) bf16 operands are padded with zero
+channels to the width the warpgroup-MMA core runs (``kernel_width``: 16,
+32 or a multiple of 64; zero activations, weights and bias stay exactly 0
+through leaky, the convs and the residual, so the real channels are
+unchanged), and ``bf16_plan`` mirrors the core's tile plan (the library
+reports its own through ``mrf_bf16_layout``); float32 operands keep their
+C and travel with each conv's weights transposed to ``[k, C_in, C_out]``,
+with a device workspace when the tiles do not fit shared memory.
 
 Weights travel packed (``pack_resblock_weights``): ``w`` is one flat
 tensor holding, per branch, dilation iteration and conv (dilated, unit),
@@ -24,7 +26,7 @@ from __future__ import annotations
 
 import collections
 import ctypes
-from typing import List, Sequence, Tuple
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -44,6 +46,85 @@ _WS = None
 def branch_halo(k: int, dilations: Sequence[int]) -> int:
     """Per-side reach of one ResBlock chain: ``sum_d ((k-1)//2)(d+1)``."""
     return sum(((k - 1) // 2) * (d + 1) for d in dilations)
+
+
+# the bf16 core's block (csrc/mrf_core.cuh): 227 KB of shared memory at
+# most, two consumer warpgroups and a producer warp, a weight ring of up
+# to 8 slots
+SMEM_LIMIT = 232448
+THREADS = 288
+MAX_STAGES = 8
+
+
+class Bf16Plan(NamedTuple):
+    """The bf16 block of ``csrc/mrf_core.cuh`` (``mrf_bf16_layout``'s
+    answer, in its order)."""
+    c: int            # channels the kernel runs (C padded with zeros)
+    tt: int           # time tile of a block
+    threads: int
+    smem_bytes: int   # dynamic shared memory
+    stages: int       # slots of the weight ring
+    nc: int           # output channels of one accumulator pass (wgmma N)
+    q: int            # taps a weight slice holds
+    lk: int           # 1: leaky(h) kept in a tile of its own
+
+
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def kernel_width(c: int) -> int:
+    """Channels the bf16 core runs for C: 16, 32 or a multiple of 64."""
+    return 16 if c <= 16 else 32 if c <= 32 else _round_up(c, 64)
+
+
+def bf16_plan(c: int, t: int, halo: int, nb: int, cm: bool) -> Optional[Bf16Plan]:
+    """``make_plan`` of ``csrc/mrf_core.cuh``: for C channels (padded to
+    ``kernel_width``), T samples, a halo of ``halo`` a side, ``nb``
+    branches (a branch-sum tile when more than one), channel-major ``cm``
+    (a transpose staging tile) or not.  The time tile is the largest
+    multiple of 16, at most ``2 MT 64 - 128`` (one pass of the M tiles a
+    warpgroup keeps in registers over the first conv's rows) and no longer
+    than T needs, whose tiles fit 227 KB beside a 32 KB weight ring (two
+    slots where that leaves none).  A third tile holding leaky(h) is kept
+    where the time tile it leaves is no shorter than 256 samples or than
+    the tile without it; the ring then grows into what is left, up to 8
+    slots.  None where no tile fits."""
+    c = kernel_width(c)
+    nc = c if c <= 128 else (128 if c % 128 == 0 else 64)
+    pb = min(c, 64) * 2
+    q = 1 if nc < c else {16: 16, 32: 8, 64: 2, 128: 1}[nc]
+    slice_bytes = q * nc * pb
+    mt = {16: 8, 32: 6, 64: 4, 128: 2}[nc]
+    hl = _round_up(halo, 8)
+
+    def smem(tt: int, stages: int, lk: int) -> int:
+        rows = _round_up(hl + tt + halo, 16)
+        sp = rows if (rows // 8) % 2 else rows + 8
+        cur = rows * c * 2
+        tmp = max(cur, c * sp * 2) if cm else cur
+        branch_sum = tt * c * 2 if nb > 1 else 0
+        return (_round_up(cur, 1024) * (1 + lk) + _round_up(tmp, 1024)
+                + _round_up(branch_sum, 1024) + stages * slice_bytes + 16 * stages + 1024)
+
+    def longest(lk: int) -> Tuple[int, int]:
+        ring = 32768 // slice_bytes
+        for stages in ((ring, 2) if ring > 2 else (2,)):
+            for tt in range(min(2 * mt * 64 - 128, _round_up(t, 16)), 15, -16):
+                if smem(tt, stages, lk) <= SMEM_LIMIT:
+                    return tt, stages
+        return 0, 0
+
+    (plain, plain_stages), (with_lk, lk_stages) = longest(0), longest(1)
+    if with_lk and with_lk >= min(plain, 256):
+        tt, stages, lk = with_lk, lk_stages, 1
+    elif plain:
+        tt, stages, lk = plain, plain_stages, 0
+    else:
+        return None
+    while stages < MAX_STAGES and smem(tt, stages + 1, lk) <= SMEM_LIMIT:
+        stages += 1
+    return Bf16Plan(c, tt, THREADS, smem(tt, stages, lk), stages, nc, q, lk)
 
 
 def pack_resblock_weights(mrf: torch.nn.Module, dtype: torch.dtype
@@ -159,13 +240,12 @@ def kernel_operands(x: torch.Tensor, w: torch.Tensor, branches: List[torch.Tenso
                     bias: torch.Tensor, channel_dim: int):
     """``(x, w, bias, C)`` as the entries of ``csrc/mrf.cu`` take them.
     ``branches`` are ``w``'s per-branch views ``[..., C_out, C_in]``.
-    bf16: C padded with zero channels to a multiple of 16 (the mma k16
-    depth); float32: each conv's weights transposed to ``[k, C_in,
-    C_out]``."""
+    bf16: C padded with zero channels to ``kernel_width(C)``; float32:
+    each conv's weights transposed to ``[k, C_in, C_out]``."""
     c = x.shape[channel_dim]
     if x.dtype == torch.float32:
         return x, torch.cat([wb.transpose(-1, -2).reshape(-1) for wb in branches]), bias, c
-    p = -c % 16
+    p = kernel_width(c) - c
     if not p:
         return x, w, bias, c
     x_pad = [0, 0] * (x.dim() - 1 - channel_dim % x.dim()) + [0, p]
@@ -197,6 +277,16 @@ def check_operands(name: str, x: torch.Tensor, w: torch.Tensor, bias: torch.Tens
                          f"{bias.numel()}, the kernel sizes need {n_w} and {n_b}")
 
 
+def check_tile(name: str, x: torch.Tensor, c: int, t: int, kernels: Sequence[int],
+               dilations: Sequence[int], cm: bool) -> None:
+    """Raises where no bf16 block of the core fits shared memory (C too
+    wide for the chain's halo)."""
+    halo = max(branch_halo(k, dilations) for k in kernels)
+    if x.dtype == torch.bfloat16 and bf16_plan(c, t, halo, len(kernels), cm) is None:
+        raise ValueError(f"{name}: no bf16 tile of C={c} with a halo of {halo} samples fits "
+                         f"{SMEM_LIMIT} bytes of shared memory")
+
+
 def mrf_fused_cm(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
                  kernels: Sequence[int] = (3, 7, 11),
                  dilations: Sequence[int] = (1, 3, 5)) -> torch.Tensor:
@@ -214,6 +304,7 @@ def mrf_fused_cm(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
     if not (0 < nb <= 4 and 0 < nd <= 4 and 0 < b <= 65535 and t > 0):
         raise ValueError(f"mrf_fused_cm: unsupported shape {tuple(x.shape)}, "
                          f"kernels {tuple(kernels)}, dilations {tuple(dilations)}")
+    check_tile("mrf_fused_cm", x, c, t, kernels, dilations, cm=True)
     x, w, bias, ck = kernel_operands(x, w, branch_weights(w, c, kernels, nd), bias, 1)
     extra = ()
     if x.dtype == torch.float32:

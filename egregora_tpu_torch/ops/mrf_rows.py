@@ -7,8 +7,8 @@ the JAX function does.  A CUDA tensor goes to the kernel or raises; a
 CPU tensor goes to the plain version, ``mrf_branch_rows_plain``, which
 rounds where ``_conv_rows`` does: the f32 bias joins the f32 sum before
 the one rounding.  Unlike the TPU kernel, any T is taken; bf16 or
-float32, any C (on the card as ``ops.mrf_fused`` says: bf16 padded to a
-multiple of 16 channels, float32 with transposed conv weights).
+float32, any C (on the card as ``ops.mrf_fused`` says: bf16 padded to the
+core's width, float32 with transposed conv weights).
 Weights are ``ops.mrf_fused.pack_resblock_weights``'s.
 """
 from __future__ import annotations
@@ -20,8 +20,8 @@ from typing import Sequence
 import torch
 
 from ..utils import cuda_build
-from .mrf_fused import (branch_plain, branch_weights, check_operands, kernel_operands,
-                        workspace)
+from .mrf_fused import (branch_plain, branch_weights, check_operands, check_tile,
+                        kernel_operands, workspace)
 
 # kernel launches since the last reset, in all and by shape (b, t, c);
 # counted where the kernel launches and nowhere else
@@ -72,6 +72,7 @@ def mrf_branch_rows(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
     if not (0 < nd <= 4 and k % 2 == 1 and 0 < b <= 65535 and t > 0):
         raise ValueError(f"mrf_branch_rows: unsupported shape {tuple(x.shape)}, "
                          f"k={k}, dilations {tuple(dilations)}")
+    check_tile("mrf_branch_rows", x, c, t, (k,), dilations, cm=False)
     x, w, bias, ck = kernel_operands(x, w, [w], bias, -1)
     extra = ()
     if x.dtype == torch.float32:

@@ -22,15 +22,12 @@ on the card only:
 from __future__ import annotations
 
 import argparse
-import hashlib
-import importlib
-import importlib.util
 import sys
-from pathlib import Path
 
 import torch
 import torch.nn.functional as F
 
+from .. import tools
 from ..ops import attn_flash, attn_rows
 from ..ops.attention import chunked_attention
 from . import cuda_ms
@@ -41,19 +38,9 @@ HEADS = {"vae-mid": 1, "unet-ds2": 8, "vae-mid-published": 1}
 
 
 def load_checkout(root) -> tuple:
-    """``(attn_flash, attn_rows)`` of the checkout at ``root``: its package
-    imported under another name beside this one, so that both designs run
-    in one process; each builds its kernels under its own ``_build/``."""
-    pkg = Path(root).resolve() / "egregora_tpu_torch"
-    name = "egregora_tpu_torch_" + hashlib.sha1(str(pkg).encode()).hexdigest()[:8]
-    if name not in sys.modules:
-        spec = importlib.util.spec_from_file_location(
-            name, pkg / "__init__.py", submodule_search_locations=[str(pkg)])
-        mod = importlib.util.module_from_spec(spec)
-        sys.modules[name] = mod
-        spec.loader.exec_module(mod)
-    return (importlib.import_module(f"{name}.ops.attn_flash"),
-            importlib.import_module(f"{name}.ops.attn_rows"))
+    """``(attn_flash, attn_rows)`` of the checkout at ``root``, beside this
+    package's (``tools.load_checkout``)."""
+    return tools.load_checkout(root, "attn_flash", "attn_rows")
 
 
 def sweep(rounds: int = 6, names=None, seed: int = 0, extra=(), other=None) -> list:

@@ -101,8 +101,8 @@ def _mrf_operands(card, b, c, t, seed, dtype=torch.bfloat16):
 def test_mrf_fused_cm_matches_plain(card, b, c, t):
     """One launch, counted under its shape; within ``chip_smoke.mrf_agreement``'s
     limits of the plain version (relative L2 1e-2, max |d| four bf16 ulps
-    of the largest output, over the block and over its edges).  C not a
-    multiple of 16 runs padded with zero channels."""
+    of the largest output, over the block and over its edges).  C other
+    than 16, 32 or a multiple of 64 runs padded with zero channels."""
     from egregora_tpu_torch.ops import mrf_fused as mf
     x, w, bias = _mrf_operands(card, b, c, t, seed=c + t)
     before, before_shape = mf.launches, mf.launches_by_shape[(b, c, t)]
@@ -119,7 +119,8 @@ def test_mrf_fused_cm_matches_plain(card, b, c, t):
                                    (1, 8, 700), (2, 24, 300)])
 def test_mrf_branch_rows_matches_plain(card, b, c, t):
     """Each branch one launch on [B, T, C], counted under (b, t, c); the
-    three averaged as ``mrf_rows``; C = 256 takes the large tile budget."""
+    three averaged as ``mrf_rows``; C = 256 takes two passes of 128
+    output channels."""
     from egregora_tpu_torch.ops import mrf_fused as mf
     from egregora_tpu_torch.ops import mrf_rows as mr
     x, w, bias = _mrf_operands(card, b, c, t, seed=c * t)
@@ -135,6 +136,83 @@ def test_mrf_branch_rows_matches_plain(card, b, c, t):
     ok, rel, err, edge, limit = chip_smoke.mrf_agreement(got.transpose(1, 2),
                                                          (acc / 3).transpose(1, 2))
     assert ok, (rel, err, edge, limit)
+
+
+def _mrf_bf16_check(card, entry, b, c, t, kernels=(3, 7, 11), dils=(1, 3, 5), seed=0):
+    """One bf16 block through ``entry`` ("fused": one ``mrf_fused_cm``
+    launch on [B, C, T]; "rows": one ``mrf_branch_rows`` launch a branch on
+    [B, T, C], averaged) with random weights of the given schedule, held
+    to ``chip_smoke.mrf_agreement``'s limits of the entry's plain version;
+    the launches counted under the shape."""
+    from egregora_tpu_torch.ops import mrf_fused as mf
+    from egregora_tpu_torch.ops import mrf_rows as mr
+    gen = torch.Generator().manual_seed(seed + 31 * c + t)
+    nb, nd = len(kernels), len(dils)
+    w = (torch.randn(2 * nd * sum(kernels) * c * c, generator=gen) / (5 * c) ** 0.5).to(
+        card, torch.bfloat16)
+    bias = (0.1 * torch.randn(nb, nd, 2, c, generator=gen)).to(card)
+    x = (0.5 * torch.randn(b, c, t, generator=gen)).to(card, torch.bfloat16)
+    if entry == "fused":
+        before = mf.launches_by_shape[(b, c, t)]
+        got = mf.mrf_fused_cm(x, w, bias, kernels, dils)
+        torch.cuda.synchronize()
+        assert mf.launches_by_shape[(b, c, t)] == before + 1
+        ref = mf.mrf_fused_cm_plain(x, w, bias, kernels, dils)
+    else:
+        xr = x.transpose(1, 2).contiguous()
+        branch_w = mf.branch_weights(w, c, kernels, nd)
+        before = mr.launches_by_shape[(b, t, c)]
+        got = sum(mr.mrf_branch_rows(xr, wb, bias[i], dils) for i, wb in enumerate(branch_w))
+        torch.cuda.synchronize()
+        assert mr.launches_by_shape[(b, t, c)] == before + nb
+        got = (got / nb).transpose(1, 2)
+        ref = (sum(mr.mrf_branch_rows_plain(xr, wb, bias[i], dils)
+                   for i, wb in enumerate(branch_w)) / nb).transpose(1, 2)
+    assert got.dtype == torch.bfloat16 and got.shape == (b, c, t)
+    ok, rel, err, edge, limit = chip_smoke.mrf_agreement(got, ref)
+    assert ok, (entry, b, c, t, kernels, dils, rel, err, edge, limit)
+
+
+@pytest.mark.parametrize("entry", ["fused", "rows"])
+@pytest.mark.parametrize("c", [8, 16, 24, 32, 48, 64, 128, 256, 320])
+def test_mrf_bf16_tile_edges(card, entry, c):
+    """Both bf16 entries of the warpgroup-MMA core at the edges of its time
+    tile TT (``bf16_plan``'s at the k = 11 branch's halo, which the rows
+    entry's widest launch and the fused entry take): T = 1, TT - 1, TT,
+    TT + 1 and 3 TT + 5 (four tiles, the last ragged), B = 1 to 3; C
+    padded to 16, 32 or a multiple of 64 where it is not one."""
+    from egregora_tpu_torch.ops import mrf_fused as mf
+    fused = entry == "fused"
+    tt = mf.bf16_plan(c, 10 ** 6, 60, 3 if fused else 1, fused).tt
+    for i, t in enumerate((1, tt - 1, tt, tt + 1, 3 * tt + 5)):
+        _mrf_bf16_check(card, entry, 1 + i % 3, c, t)
+
+
+@pytest.mark.parametrize("entry", ["fused", "rows"])
+@pytest.mark.parametrize("c,t,kernels,dils", [
+    (32, 1000, (3, 5), (1, 2)), (64, 777, (3, 5), (1, 2)),
+    (16, 2500, (3, 5, 7, 9), (1, 3, 5, 7)), (64, 1500, (3, 5, 7, 9), (1, 3, 5, 7)),
+    (128, 600, (3, 5, 7, 9), (1, 3, 5, 7))])
+def test_mrf_bf16_schedules(card, entry, c, t, kernels, dils):
+    """Schedules other than the vocoder's: two branches of two dilations,
+    and four branches of four (a halo of 80, whose first convs take two
+    passes of the M tiles a warpgroup keeps in registers, so each weight
+    slice streams twice)."""
+    _mrf_bf16_check(card, entry, 2, c, t, kernels, dils)
+
+
+def test_mrf_bf16_layout_matches_the_plan(card):
+    """The library's ``mrf_bf16_layout`` (the block it launches) is the
+    wrappers' ``bf16_plan`` at every width, halo and entry, including
+    where no tile fits."""
+    from egregora_tpu_torch.ops import mrf_fused as mf
+    for c in (8, 16, 24, 32, 48, 64, 96, 128, 192, 256, 320, 336):
+        for halo in (0, 12, 36, 60, 80):
+            for nb, cm in ((3, True), (1, False), (1, True), (4, True)):
+                for t in (1, 100, 5120, 245760):
+                    plan = mf.bf16_plan(c, t, halo, nb, cm)
+                    got = chip_smoke.mrf_bf16_layout(c, t, halo, nb, cm)
+                    assert got == (None if plan is None else tuple(plan)), (c, t, halo, nb, cm)
 
 
 @pytest.mark.parametrize("b,c,t", [(1, 16, 1000), (2, 8, 333), (1, 24, 600), (1, 256, 300)])

@@ -155,3 +155,184 @@ def test_apply_fused_dispatch(monkeypatch):
     het = dataclasses.replace(tc, resblock_dilations=((1, 3, 5), (1, 3, 5), (2, 6, 12)))
     with pytest.raises(NotImplementedError, match="resblock_dilations"):
         t_voc.apply_fused(t_voc.SRVocoder(het), torch.from_numpy(mel))
+
+
+# ---- the bf16 core's tile plan (csrc/mrf_core.cuh, mirrored by
+# mrf_fused.bf16_plan; the card tests hold it to mrf_bf16_layout) ----
+
+# (C, T, halo, branches, channel-major) -> (channels run, time tile,
+# shared memory bytes, weight slots, wgmma N, taps a slice, leaky tile) at the main
+# paths' shapes: the fused entry (three branches, halo 60) and each rows
+# launch (one branch, halo 12 / 36 / 60 for k = 3 / 7 / 11)
+MAIN_PLANS = {
+    (16, 245760, 60, 3, True): (16, 896, 194688, 8, 16, 16, 1),
+    (32, 40960, 60, 3, True): (32, 640, 223264, 2, 32, 8, 1),
+    (64, 5120, 60, 3, True): (64, 288, 231456, 2, 64, 2, 1),
+    (64, 245760, 60, 3, True): (64, 288, 231456, 2, 64, 2, 1),
+    (64, 245760, 60, 1, False): (64, 384, 230432, 2, 64, 2, 1),
+    (64, 245760, 12, 1, False): (64, 384, 226368, 4, 64, 2, 1),
+    (128, 40960, 60, 1, False): (128, 128, 230432, 2, 128, 1, 1),
+    (128, 40960, 36, 1, False): (128, 128, 226368, 4, 128, 1, 1),
+    (256, 5120, 60, 1, False): (256, 64, 230432, 2, 128, 1, 0),
+    (256, 5120, 12, 1, False): (256, 128, 230464, 4, 128, 1, 0),
+}
+
+
+@pytest.mark.parametrize("key", sorted(MAIN_PLANS))
+def test_bf16_plan_at_the_main_path_shapes(key):
+    """The tile the core takes at each main-path shape: a multiple of 16
+    within 227 KB, 288 threads, C padded to 16, 32 or a multiple of 64,
+    wgmma N = C up to 128 and 128 above, taps a weight slice as the
+    layout allows."""
+    c, t, halo, nb, cm = key
+    plan = mrf_fused.bf16_plan(c, t, halo, nb, cm)
+    assert plan is not None and plan.threads == 288
+    assert plan.tt % 16 == 0 and plan.smem_bytes <= mrf_fused.SMEM_LIMIT
+    assert (plan.c, plan.tt, plan.smem_bytes, plan.stages, plan.nc, plan.q, plan.lk) == MAIN_PLANS[key]
+
+
+def test_bf16_plan_widths_and_limits():
+    """``kernel_width`` pads C to what the core runs; short signals take a
+    tile no longer than T needs; the widest channel counts shrink the tile
+    to 16 samples and, past what fits 227 KB, have no plan, which the
+    wrappers' ``check_tile`` turns into a ValueError."""
+    widths = {c: mrf_fused.kernel_width(c) for c in (1, 8, 16, 17, 24, 32, 33, 48, 64, 65,
+                                                      128, 192, 256, 320, 321)}
+    assert widths == {1: 16, 8: 16, 16: 16, 17: 32, 24: 32, 32: 32, 33: 64, 48: 64, 64: 64,
+                      65: 128, 128: 128, 192: 192, 256: 256, 320: 320, 321: 384}
+    assert mrf_fused.bf16_plan(64, 1, 60, 3, True).tt == 16
+    assert mrf_fused.bf16_plan(64, 100, 60, 3, True).tt == 112
+    assert mrf_fused.bf16_plan(320, 4096, 60, 3, True).tt == 16
+    assert mrf_fused.bf16_plan(336, 4096, 60, 3, True) is None
+    x = torch.zeros(1, 336, 8, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="no bf16 tile"):
+        mrf_fused.check_tile("mrf_fused_cm", x, 336, 8, KERNELS, DILS, cm=True)
+    mrf_fused.check_tile("mrf_fused_cm", x.float(), 336, 8, KERNELS, DILS, cm=True)   # f32: no tile
+    for c in (16, 32, 64, 128, 256):
+        tts = [mrf_fused.bf16_plan(c, 10 ** 6, h, 3, True).tt for h in (12, 36, 60)]
+        assert tts == sorted(tts, reverse=True)
+
+
+def _leaky(v):
+    return torch.nn.functional.leaky_relu(v, 0.1)
+
+
+def _tiled_schedule(x, w, bias, kernels, dils, tt):
+    """The bf16 core's schedule in float32 on the CPU, block by block: a
+    tile of ``HL + TT + H`` rows (HL: the halo rounded up to 8; rows
+    rounded up to 16) loaded with zeros outside [0, T); each conv computes
+    rows ``[HL - reach, +64 ceil((TT + 2 reach) / 64))`` of its output
+    (reach: what the rest of the chain still needs), clamps reads past the
+    tile to its last row and drops writes past it, and re-zeroes rows
+    outside the signal; ``tmp`` starts as NaN, so a needed row that reads
+    a row no conv wrote comes out NaN."""
+    b, c, t = x.shape
+    nd = len(dils)
+    halo = max(mrf_fused.branch_halo(k, dils) for k in kernels)
+    hl = -(-halo // 8) * 8
+    rows = -(-(hl + tt + halo) // 16) * 16
+    y = torch.empty_like(x)
+    for t0 in range(0, t, tt):
+        idx = torch.arange(rows) + t0 - hl
+        inside = (idx >= 0) & (idx < t)
+        tile = torch.zeros(b, c, rows)
+        tile[..., inside] = x[..., idx[inside]]
+        acc = None
+        for bi, wb in enumerate(mrf_fused.branch_weights(w, c, kernels, nd)):
+            k = kernels[bi]
+            hw = (k - 1) // 2
+            reach = mrf_fused.branch_halo(k, dils)
+            cur, tmp = tile.clone(), torch.full_like(tile, float("nan"))
+            for m, d in enumerate(dils):
+                for u in (0, 1):
+                    dd = 1 if u else d
+                    reach -= hw * dd
+                    lo = hl - reach
+                    rr = torch.arange(lo, min(lo + 64 * -(-(tt + 2 * reach) // 64), rows))
+                    src = tmp if u else _leaky(cur)
+                    out = bias[bi, m, u][:, None].expand(b, c, len(rr)).clone()
+                    for j in range(k):
+                        ij = (rr + j * dd - hw * dd).clamp(max=rows - 1)
+                        out = out + torch.einsum("oi,bir->bor", wb[m, u, j], src[..., ij])
+                    keep = inside[rr]
+                    if u:
+                        cur[..., rr] = torch.where(keep, cur[..., rr] + out, 0.0)
+                    else:
+                        tmp[..., rr] = torch.where(keep, _leaky(out), 0.0)
+            h = cur[..., hl: hl + tt]
+            acc = h if acc is None else acc + h
+        y[..., t0: t0 + tt] = (acc / len(kernels))[..., : min(tt, t - t0)]
+    return y
+
+
+@pytest.mark.parametrize("c,t,kernels,dils,tt", [
+    (16, 2 * 896 + 37, KERNELS, DILS, None), (24, 300, (3, 5), (1, 2), None),
+    (16, 333, (3, 5, 7, 9), (1, 3, 5, 7), None), (16, 200, KERNELS, DILS, 16),
+    (16, 77, KERNELS, DILS, 64)])
+def test_tiled_schedule_is_the_block(c, t, kernels, dils, tt):
+    """The core's tile schedule (time tile from ``bf16_plan`` or forced)
+    computes the plain block: every row of every tile gets its exact
+    receptive field, whatever the tile's edges, the schedule and the
+    rounding of the conv windows to 64-row M tiles."""
+    gen = torch.Generator().manual_seed(c + t)
+    nd = len(dils)
+    w = torch.randn(2 * nd * sum(kernels) * c * c, generator=gen) / (5 * c) ** 0.5
+    bias = 0.1 * torch.randn(len(kernels), nd, 2, c, generator=gen)
+    x = 0.5 * torch.randn(2, c, t, generator=gen)
+    halo = max(mrf_fused.branch_halo(k, dils) for k in kernels)
+    tt = tt or mrf_fused.bf16_plan(c, t, halo, len(kernels), True).tt
+    got = _tiled_schedule(x, w, bias, kernels, dils, tt)
+    ref = mrf_fused.mrf_fused_cm_plain(x, w, bias, kernels, dils)
+    assert torch.isfinite(got).all()
+    assert (got - ref).abs().max() <= 1e-5 * ref.abs().max()
+
+
+@pytest.mark.parametrize("c,channel_dim", [(24, 1), (48, 1), (80, -1), (16, -1)])
+def test_kernel_operands_pad_bf16_to_the_core_width(c, channel_dim):
+    """bf16 operands travel padded with zero channels to ``kernel_width(C)``
+    (activations, every conv's C_out and C_in, and the bias), the real
+    channels untouched; a width the core runs passes through as it is."""
+    kernels, nd = (3, 5), 2
+    gen = torch.Generator().manual_seed(c)
+    w = torch.randn(2 * nd * sum(kernels) * c * c, generator=gen).to(torch.bfloat16)
+    bias = torch.randn(len(kernels), nd, 2, c, generator=gen)
+    shape = (2, c, 7) if channel_dim == 1 else (2, 7, c)
+    x = torch.randn(shape, generator=gen).to(torch.bfloat16)
+    xk, wk, bk, ck = mrf_fused.kernel_operands(
+        x, w, mrf_fused.branch_weights(w, c, kernels, nd), bias, channel_dim)
+    assert ck == mrf_fused.kernel_width(c)
+    if ck == c:
+        assert xk is x and wk is w and bk is bias
+        return
+    assert torch.equal(xk.narrow(channel_dim, 0, c), x)
+    assert not xk.narrow(channel_dim, c, ck - c).any()
+    assert torch.equal(bk[..., :c], bias) and not bk[..., c:].any()
+    for wb, wpad in zip(mrf_fused.branch_weights(w, c, kernels, nd),
+                        mrf_fused.branch_weights(wk, ck, kernels, nd)):
+        assert torch.equal(wpad[..., :c, :c], wb)
+        assert not wpad[..., c:, :].any() and not wpad[..., :, c:].any()
+
+
+def test_mrf_lab_loads_another_checkout_and_needs_the_card():
+    """``tools/mrf_lab.py --root`` times another checkout's MRF kernels in
+    the same process: ``load_checkout`` imports that checkout's package
+    under another name, whose wrappers run apart from this package's (here
+    their plain versions, on the CPU); the sweep itself refuses to run
+    without a card."""
+    from pathlib import Path
+
+    from egregora_tpu_torch.tools import mrf_lab
+    root = Path(mrf_fused.__file__).resolve().parents[2]
+    other_mf, other_mr = mrf_lab.load_checkout(root)
+    assert other_mf is not mrf_fused and other_mr is not mrf_rows
+    assert other_mf.__name__.endswith(".ops.mrf_fused")
+    _, tm = _mrf(16, seed=9)
+    w, b = mrf_fused.pack_resblock_weights(tm, torch.bfloat16)
+    x = torch.from_numpy(_x((1, 16, 50), 4)).to(torch.bfloat16)
+    assert torch.equal(other_mf.mrf_fused_cm(x, w, b, KERNELS, DILS),
+                       mrf_fused.mrf_fused_cm(x, w, b, KERNELS, DILS))
+    xr = x.transpose(1, 2).contiguous()
+    assert torch.equal(other_mr.mrf_rows(xr, w, b, KERNELS, DILS),
+                       mrf_rows.mrf_rows(xr, w, b, KERNELS, DILS))
+    with pytest.raises(RuntimeError, match="CUDA card"):
+        mrf_lab.sweep(rounds=1, turns=1, shapes=[(16, 64)])

@@ -12,7 +12,11 @@ Phases, one line each on standard output:
    ``nvcc`` each, at once; for each instantiation of the bf16 attention
    core (``attn_core.cuh``) and of the bf16 MRF core (``mrf_core.cuh``),
    its registers, spills and stack from ``ptxas -v`` and its block (the
-   library's layout query, held to the wrappers' plan);
+   library's layout query, held to the wrappers' plan); the same for K3's
+   three kernels and K4's (``ptxas conv_edge`` / ``ptxas iir_lowpass``
+   lines: K3's blocks at ``K3_SHAPES`` and K4's tile held to the
+   wrappers'), and the SASS lines (``cuobjdump -sass``) that show K3's
+   bf16 route on the tensor cores (HGMMA) fed by TMA (UTMALDG);
 2. each kernel against its plain PyTorch version on the card, at the
    shapes the main paths give it and at a ragged length, beside planted
    faults that the limits must reject, with the kernel's, the plain
@@ -41,12 +45,19 @@ Phases, one line each on standard output:
    node on a ``channel_floor=8`` HiFi-GAN config with the fused vocoder;
 4. K4 (``iir_lowpass``) against its plain version and float64 ``lfilter``
    (max |d| 2e-6) at the meter's 300 s of 48 kHz stereo and at ragged
-   and near-unit-pole shapes; fault: the cross-tile carry dropped;
+   and near-unit-pole shapes; faults: the cross-tile carry dropped, and a
+   look-back that stops after one predecessor's aggregate (invisible at
+   the 48 kHz pole, rejected at 0.9999); each row also gives the share of
+   the bytes bound and the previous design's time at that shape with the
+   speed-up over it (``BEFORE_MS``, in the log text only);
 5. K1b (``flash_online``) at the attention lab's shapes and a ragged N
    (bf16 limits; fault: the last key tile dropped) and K3
    (``conv3x3_out1``) at the decoders' C = 24/64/128, the edge lab's
-   shapes, ragged F and M and its tile edges (float32 limits; fault: the
-   bottom halo row dropped), with SDPA's or cuDNN's time;
+   shapes, ragged F and M and its tile edges (float32 limits; faults: the
+   bottom halo row dropped, and the tensor-core route's left column of
+   tap partials zeroed at every strip edge, where M spans two strips or
+   more), with SDPA's or cuDNN's time; K3's rows also give the share of
+   the bytes bound and the previous design's time;
 6. a reference check of the full config (seeded weights) on one chunk:
    bf16 on the card against float32 arithmetic on the CPU with the same
    weights, and against the card pipeline with float32 plain attention
@@ -133,6 +144,16 @@ BEFORE_MS = {
                      (3, 64, 245760): 26.8346, (3, 128, 40960): 31.6933, (3, 256, 5120): 35.2718},
     "mrf_rows": {(3, 64, 5120): 1.0964, (3, 32, 40960): 1.0190, (3, 16, 245760): 2.5749,
                  (3, 64, 245760): 16.7464, (3, 128, 40960): 16.6623, (3, 256, 5120): 14.9814},
+    # K3's previous design (staged halo, FMA on the CUDA cores, 32 x 8 tiles)
+    # by (b, f, m, c, dtype), and K4's (two or three launches a call) by (c,
+    # n): the final chip_smoke.py run of that code, the same card model
+    "conv3x3_out1": {(3, 512, 256, 24, "bfloat16"): 0.0602, (3, 512, 256, 64, "bfloat16"): 0.1167,
+                     (3, 512, 256, 128, "bfloat16"): 0.2224,
+                     (26, 512, 256, 64, "bfloat16"): 0.5456,
+                     (26, 512, 256, 128, "bfloat16"): 1.0743, (2, 37, 45, 64, "bfloat16"): 0.0630,
+                     (1, 19, 70, 200, "bfloat16"): 0.0925, (3, 100, 77, 24, "float32"): 0.0380},
+    "iir_lowpass": {(2, 14_400_000): 0.1728, (2, 2_880_000): 0.0376, (1, 100): 0.0219,
+                    (3, 32_769): 0.0359, (1, 4_194_304): 0.0251},
 }
 
 
@@ -157,6 +178,13 @@ def card_line() -> str:
                         "--format=csv,noheader"], capture_output=True,
                        text=True, timeout=60, check=True)
     return r.stdout.strip().splitlines()[0]
+
+
+def graph_ms(fn, reps: int) -> float:
+    """Device time of ``fn()`` without the host's launch path: a CUDA graph
+    of ``reps`` calls (``tools.graph_ms``)."""
+    from egregora_tpu_torch.tools import graph_ms as timed
+    return timed(fn, reps)
 
 
 def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
@@ -237,6 +265,23 @@ def drop_last_tile(q, k, v):
     tile = fault_tile(q.shape[-1])
     m = (k.shape[1] - 1) // tile * tile
     return chunked_attention(q, k[:, :m].contiguous(), v[:, :m].contiguous())
+
+
+def bound_share(kernel: str, row: dict, key) -> str:
+    """Adds to ``row`` the share of its bound (``bound_ms / ms``, and over
+    ``graph_ms``, the device time without the host's launch path); returns
+    them as text for the log line, with the previous design's time at the
+    row's shape (``BEFORE_MS[kernel][key]``, events around back-to-back
+    calls as ``ms``) and the speed-up over it, which stay in the text
+    only."""
+    row["bound_share"] = row["bound_ms"] / row["ms"]
+    row["graph_bound_share"] = row["bound_ms"] / row["graph_ms"]
+    text = (f"{100 * row['bound_share']:.1f}% of the bound; device {row['graph_ms']:.4f} ms "
+            f"in a CUDA graph, {100 * row['graph_bound_share']:.1f}%")
+    before = BEFORE_MS[kernel].get(key)
+    if before is not None:
+        text += f", previous design {before:.4f} ms ({before / row['ms']:.2f}x faster now)"
+    return text
 
 
 def against_before(kernel: str, row: dict, flops: float, peak: float, key=None) -> str:
@@ -404,6 +449,118 @@ def mrf_ptxas_report() -> list:
             f"{r.get('stack_bytes')} B{', wgmma serialised (C7511)' if r['wgmma_serialized'] else ''}"
             f"; {tiles}")
     return out
+
+
+def conv_edge_layout(c: int, aligned: bool = True):
+    """The block K3's library launches for a bf16 x of C channels (16-byte
+    aligned or not), from its own query (``conv_edge_bf16_layout``): the
+    order of ``ops.conv_edge.Plan``; None for an invalid C."""
+    import ctypes
+
+    from egregora_tpu_torch.utils import cuda_build
+    out = (ctypes.c_int * 6)()
+    fn = cuda_build.load("conv_edge").conv_edge_bf16_layout
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return tuple(out) if fn(c, int(aligned), out) == 0 else None
+
+
+def ptxas_entries(name: str) -> dict:
+    """Registers, spills and stack of each kernel of ``csrc/<name>.cu``
+    from its build's ``ptxas -v`` report, by mangled name."""
+    import re
+
+    from egregora_tpu_torch.utils import cuda_build
+    rows, cur = {}, None
+    for line in cuda_build.build_log(name).splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            cur = rows.setdefault(m.group(1), {})
+        elif cur is not None and "spill stores" in line:
+            st, sp, ld = map(int, re.findall(r"(\d+) bytes", line)[:3])
+            cur.update(stack_bytes=st, spill_store_bytes=sp, spill_load_bytes=ld)
+        elif cur is not None and "registers" in line:
+            cur["registers"] = int(re.search(r"Used (\d+) registers", line).group(1))
+    return rows
+
+
+def sass_lines(name: str, opcodes) -> dict:
+    """The first SASS line of each opcode in the built ``csrc/<name>.cu``
+    (``cuobjdump -sass``, beside ``nvcc``), None where it has none."""
+    import os
+
+    from egregora_tpu_torch.utils import cuda_build
+    tool = os.path.join(os.path.dirname(cuda_build.nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(cuda_build.library_path(name))],
+                          capture_output=True, text=True, timeout=120, check=True).stdout
+    out = {}
+    for op in opcodes:
+        hit = next((ln for ln in sass.splitlines() if f" {op}" in ln), None)
+        out[op] = None if hit is None else " ".join(hit.split("/*")[1].split("*/")[1].split())
+    return out
+
+
+def edge_ptxas_report() -> dict:
+    """K3's and K4's kernels: registers, spills and stack from ``ptxas -v``;
+    K3's blocks at ``K3_SHAPES`` from the library's layout query, held to
+    the wrapper's plan, and the SASS lines that show the bf16 route on the
+    tensor cores (HGMMA) fed by TMA (UTMALDG); K4's tile, threads and
+    look-back window from its layout query, held to the wrapper's; logged
+    one line each.  Fails where a layout differs from the plan or the SASS
+    lacks either instruction."""
+    import torch
+
+    from egregora_tpu_torch.ops import conv_edge as ce
+    from egregora_tpu_torch.ops import iir_lowpass as il
+    entries = ptxas_entries("conv_edge")
+    kernels = {"tensor cores": "conv_edge_tc", "CUDA cores bf16": "conv_edge_kernelI13__nv_bfloat16",
+               "CUDA cores float32": "conv_edge_kernelIf"}
+    k3 = {}
+    for label, key in kernels.items():
+        found = [r for mangled, r in entries.items() if key in mangled]
+        if len(found) != 1:
+            raise RuntimeError(f"conv_edge: {len(found)} built kernels match {key}")
+        k3[label] = dict(found[0])
+    blocks = []
+    for b, f, m, c, dt, _ in K3_SHAPES:
+        if dt != "bfloat16":
+            continue
+        plan = ce.bf16_plan(c)
+        got = conv_edge_layout(c)
+        if got != tuple(plan):
+            raise RuntimeError(f"conv_edge: the library's block {got} at C={c} differs from "
+                               f"the wrapper's plan {tuple(plan)}")
+        rows = ce.segment_rows(b, f, m, 64, plan,
+                               torch.cuda.get_device_properties(0).multi_processor_count)
+        blocks.append({"b": b, "f": f, "m": m, "c": c, "route": plan.route, "rows": rows,
+                       "threads": plan.threads, "smem_bytes": plan.smem_bytes,
+                       "stages": plan.stages,
+                       "blocks": -(-m // plan.cols) * -(-f // rows) * b})
+    sass = sass_lines("conv_edge", ("HGMMA", "UTMALDG", "HMMA"))
+    for label, r in k3.items():
+        log(f"ptxas conv_edge {label}: {r.get('registers')} registers, spill stores "
+            f"{r.get('spill_store_bytes', 0)} B, loads {r.get('spill_load_bytes', 0)} B, stack "
+            f"{r.get('stack_bytes', 0)} B")
+    log("ptxas conv_edge blocks (library layout = wrapper plan): " + "; ".join(
+        f"[{k['b']},{k['f']},{k['m']},{k['c']}] route {k['route']}, {k['rows']} rows a segment, "
+        f"{k['blocks']} blocks of {k['threads']} threads, {k['smem_bytes']} B, {k['stages']} stages"
+        for k in blocks))
+    log(f"sass conv_edge: HGMMA {sass['HGMMA']!r}; UTMALDG {sass['UTMALDG']!r}; "
+        f"HMMA {sass['HMMA']!r}")
+    if not (sass["HGMMA"] and sass["UTMALDG"]):
+        raise RuntimeError(f"conv_edge: the built library lacks HGMMA or UTMALDG: {sass}")
+    k4 = [dict(r) for mangled, r in ptxas_entries("iir_lowpass").items() if "iir_lookback" in mangled]
+    out = il.layout()
+    if len(k4) != 1 or out != (il.TILE, il.THREADS, il.WINDOW):
+        raise RuntimeError(f"iir_lowpass: kernels {k4}, layout {out} against the "
+                           f"wrapper's {(il.TILE, il.THREADS, il.WINDOW)}")
+    r = k4[0]
+    log(f"ptxas iir_lowpass iir_lookback: {r.get('registers')} registers, spill stores "
+        f"{r.get('spill_store_bytes', 0)} B, loads {r.get('spill_load_bytes', 0)} B, stack "
+        f"{r.get('stack_bytes', 0)} B; tile {out[0]} samples, {out[1]} threads, look-back "
+        f"window {out[2]} (library layout = wrapper's)")
+    return {"conv3x3_out1": {"kernels": k3, "blocks": blocks, "sass": sass},
+            "iir_lowpass": {"kernel": r, "tile": out[0], "threads": out[1], "window": out[2]}}
 
 
 def attention_phase() -> list:
@@ -855,6 +1012,7 @@ def reset_counts() -> None:
     for mod in (ar, mf, mr, il, af, ce):
         mod.launches = 0
         mod.launches_by_shape.clear()
+    ce.launches_by_route.clear()
 
 
 def read_counts() -> dict:
@@ -1402,7 +1560,7 @@ K4_SHAPES = [((2, 14_400_000), K48, "300 s of 48 kHz stereo (the meter)"),
 
 
 def dropped_carry(x, k):
-    """A planted fault of K4: every 4096-sample tile scanned from a zero
+    """A planted fault of K4: every tile (``TILE`` samples) scanned from a zero
     state (the cross-tile carry dropped), from the plain version."""
     import torch.nn.functional as F
 
@@ -1413,13 +1571,44 @@ def dropped_carry(x, k):
     return il.iir_lowpass_plain(xp, k).reshape(c, nt * il.TILE)[:, :n]
 
 
+def one_step_lookback(x, k):
+    """A planted fault of K4's look-back: it stops after one predecessor's
+    aggregate, so each tile's carry is the previous tile's end state from
+    a zero state (the carry into that tile left out), from the plain
+    version and the float64 powers.  It differs from the sound scan by
+    p^TILE times that left-out carry: invisible at the 48 kHz pole
+    (p^8192 ~ 1e-56), about 0.44 of it at pole 0.9999."""
+    import torch
+    import torch.nn.functional as F
+
+    from egregora_tpu_torch.ops import iir_lowpass as il
+    c, n = x.shape
+    nt = -(-n // il.TILE)
+    xp = F.pad(x, (0, nt * il.TILE - n)).reshape(c * nt, il.TILE)
+    local = il.iir_lowpass_plain(xp, k).reshape(c, nt, il.TILE)
+    carry = torch.zeros_like(local[..., 0])
+    carry[:, 1:] = local[:, :-1, -1]
+    pw = torch.from_numpy(il.pole_tables(float(k))[1:il.TILE + 1]).to(x.device)
+    return (local + carry[..., None] * pw).reshape(c, nt * il.TILE)[:, :n]
+
+
+def one_step_visible(k: float) -> bool:
+    """Whether ``one_step_lookback`` must fail the limit at pole k: where
+    k^TILE times a carry of the signal's scale is above it."""
+    from egregora_tpu_torch.ops import iir_lowpass as il
+    return k ** il.TILE > 1e-3
+
+
 def k4_phase() -> list:
     """``iir_lowpass`` (K4) against its plain version on the card and
-    against float64 ``scipy.signal.lfilter`` on the host, beside the
-    planted dropped carry (which needs more than one tile to show), with
-    its time, the plain version's and the bound: 8 bytes a sample (one
-    float32 read, one written) at the HBM rate.  No PyTorch call computes
-    a first-order recurrence, so there is no library time."""
+    against float64 ``scipy.signal.lfilter`` on the host, beside two
+    planted faults (which need more than one tile to show): the cross-tile
+    carry dropped, and a look-back that stops after one predecessor's
+    aggregate (rejected where the pole makes it visible,
+    ``one_step_visible``), with its time, the plain version's and the
+    bound: 8 bytes a sample (one float32 read, one written) at the HBM
+    rate.  No PyTorch call computes a first-order recurrence, so there is
+    no library time."""
     import torch
     from scipy.signal import lfilter
 
@@ -1439,26 +1628,40 @@ def k4_phase() -> list:
         plain_err64 = iir_agreement(plain.cpu(), ref64)[1]
         tiles = -(-n // il.TILE)
         bad_ok, bad_err = iir_agreement(dropped_carry(x, k), plain) if tiles > 1 else (None, None)
+        one_ok, one_err = (iir_agreement(one_step_lookback(x, k), plain) if tiles > 2
+                           else (None, None))
         reps = max(3, min(200, int(2e9 / (c * n))))
         ms = cuda_ms(lambda: il.iir_lowpass(x, k), reps)
+        dev_ms = graph_ms(lambda: il.iir_lowpass(x, k), min(reps, 20))
         plain_ms = cuda_ms(lambda: il.iir_lowpass_plain(x, k), 2, 1)
         bound_ms = 8.0 * c * n / H100_BYTES_PER_S * 1e3
         row = {"c": c, "n": n, "k": k, "where": where, "max_abs_err": err,
                "max_abs_err_f64": err64, "plain_max_abs_err_f64": plain_err64,
-               "planted_max_abs_err": bad_err, "limit": IIR_ABS, "ms": ms, "plain_ms": plain_ms,
+               "planted_max_abs_err": bad_err, "planted_one_step_max_abs_err": one_err,
+               "limit": IIR_ABS, "ms": ms, "graph_ms": dev_ms, "plain_ms": plain_ms,
                "bound_ms": bound_ms, "bound_by": "bytes", "gb_per_s": 8.0 * c * n / ms / 1e6}
+        share = bound_share("iir_lowpass", row, (c, n))
         rows.append(row)
         planted = ("n/a (one tile)" if bad_ok is None else
                    f"{bad_err:.3e} {'rejected' if not bad_ok else 'NOT REJECTED'}")
+        visible = one_step_visible(k)
+        one = ("n/a (two tiles or fewer)" if one_ok is None else
+               f"{one_err:.3e} " + ("rejected" if not one_ok else
+                                    "NOT REJECTED" if visible else
+                                    f"passes, invisible at this pole (p^{il.TILE} = "
+                                    f"{k ** il.TILE:.1e})"))
         log(f"iir_lowpass [{c},{n}] k={k:.6f} ({where}): vs plain max|d| {err:.3e}, vs float64 "
             f"lfilter {err64:.3e} (plain {plain_err64:.3e}; limit {IIR_ABS:g}) "
-            f"{'ok' if ok and ok64 else 'FAIL'}; planted fault (cross-tile carry dropped) "
-            f"{planted}; kernel {ms:.4f} ms ({row['gb_per_s']:.0f} GB/s), plain "
-            f"{plain_ms:.3f} ms, bound {bound_ms:.4f} ms (bytes)")
+            f"{'ok' if ok and ok64 else 'FAIL'}; planted faults: cross-tile carry dropped "
+            f"{planted}, one-step look-back {one}; kernel {ms:.4f} ms "
+            f"({row['gb_per_s']:.0f} GB/s, {share}), plain {plain_ms:.3f} ms, bound "
+            f"{bound_ms:.4f} ms (bytes)")
         if not (ok and ok64):
             failures.append(f"iir_lowpass [{c},{n}] disagrees: {err} / {err64}")
         if bad_ok:
             failures.append(f"iir_lowpass [{c},{n}]: the dropped carry passes")
+        if one_ok and visible:
+            failures.append(f"iir_lowpass [{c},{n}] k={k}: the one-step look-back passes")
         del x, got, plain
     if failures:
         raise RuntimeError("; ".join(failures))
@@ -2009,7 +2212,10 @@ K3_SHAPES = [(3, 512, 256, 24, "bfloat16", "compact trios' decoder"),
              (2, 37, 45, 64, "bfloat16", "ragged F and M"),
              (1, 19, 70, 200, "bfloat16", "C over one chunk, off the vector"),
              (3, 100, 77, 24, "float32", "float32")]
-K3_ROWS, K3_COLS = 8, 32     # a K3 block's output tile: rows a step, columns
+# K3's tile edges: the CUDA-core route's 8 x 32 block tile; the tensor-core
+# route's 64-column strips and its F segments (multiples of 8 rows where
+# the grid shortens them) lie on the same edges
+K3_ROWS, K3_COLS = 8, 32
 
 
 def drop_bottom_halo(x, w, bias):
@@ -2026,6 +2232,26 @@ def drop_bottom_halo(x, w, bias):
     below = sum(xp[:, 2:2 + f, dj:dj + m] @ wr[dj] for dj in range(3))
     rows = [r for r in range(K3_ROWS - 1, f - 1, K3_ROWS)]
     out[:, rows, :, 0] -= below[:, rows]
+    return out
+
+
+def drop_strip_left(x, w, bias):
+    """A planted fault of K3's tensor-core route: the stencil's left
+    column of tap partials taken as zero at every strip edge (the outputs
+    at columns 64j, j >= 1, without their taps of column 64j - 1), from
+    the plain version.  Only an M above one strip shows it."""
+    import torch.nn.functional as F
+
+    from egregora_tpu_torch.ops import conv_edge as ce
+    out = ce.conv3x3_out1_plain(x, w, bias)
+    f, m = x.shape[1], x.shape[2]
+    cols = list(range(ce.STRIP, m, ce.STRIP))
+    if not cols:
+        return out
+    xp = F.pad(x.float(), (0, 0, 1, 1, 1, 1))
+    wl = w[:, 0, :, 0].to(x.dtype).float()                   # taps of the column to the left
+    left = sum(xp[:, di:di + f, cols] @ wl[di] for di in range(3))
+    out[:, :, cols, 0] -= left
     return out
 
 
@@ -2101,30 +2327,44 @@ def edge_kernels_phase() -> dict:
         ok, rel, err = f32_agreement(got, plain)
         edge_err = float((k3_edges(got) - k3_edges(plain)).abs().max())
         bad_ok, bad_rel, bad_err = f32_agreement(drop_bottom_halo(x, w, bias), plain)
+        strips = m > ce.STRIP
+        strip_ok, strip_rel, strip_err = (f32_agreement(drop_strip_left(x, w, bias), plain)
+                                          if strips else (None, None, None))
         elt = x.element_size()
         bound_ms, bound_by = bound(18.0 * b * f * m * c, b * f * m * (c * elt + 4.0),
                                    H100_F32_FLOPS)
         ms = cuda_ms(lambda: ce.conv3x3_out1(x, w, bias), 20)
+        dev_ms = graph_ms(lambda: ce.conv3x3_out1(x, w, bias), 20)
         plain_ms = cuda_ms(lambda: ce.conv3x3_out1_plain(x, w, bias), 3, 1)
         xn, wn = x.permute(0, 3, 1, 2), w[..., 0].permute(2, 0, 1)[None].to(dtype)
         lib_ms = cuda_ms(lambda: F.conv2d(xn, wn, bias.to(dtype), padding=1), 20)
         row = {"b": b, "f": f, "m": m, "c": c, "dtype": dt, "where": where,
                "max_abs_err": err, "edge_max_abs_err": edge_err, "rel_l2": rel,
                "max_abs_limit": F32_REL * float(plain.abs().max()),
-               "planted_max_abs_err": bad_err, "planted_rel_l2": bad_rel, "ms": ms,
+               "planted_max_abs_err": bad_err, "planted_rel_l2": bad_rel,
+               "planted_strip_max_abs_err": strip_err, "planted_strip_rel_l2": strip_rel,
+               "route": ce.TC if ce.plan_of(x).route else ce.CC, "ms": ms, "graph_ms": dev_ms,
                "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": bound_ms,
                "bound_by": bound_by, "gb_per_s": b * f * m * (c * elt + 4.0) / ms / 1e6}
+        share = bound_share("conv3x3_out1", row, (b, f, m, c, dt))
         k3.append(row)
-        log(f"conv3x3_out1 [{b},{f},{m},{c}] {dt} ({where}): vs plain max|d| {err:.3e}, tile "
-            f"edges {edge_err:.3e} (limit {row['max_abs_limit']:.3e}), rel L2 {rel:.3e} "
-            f"{'ok' if ok else 'FAIL'}; planted fault (bottom halo row dropped) max|d| "
+        strip = ("n/a (one strip)" if not strips else
+                 f"max|d| {strip_err:.3e}, rel L2 {strip_rel:.3e} "
+                 f"{'rejected' if not strip_ok else 'NOT REJECTED'}")
+        log(f"conv3x3_out1 [{b},{f},{m},{c}] {dt} ({where}; {row['route']}): vs plain max|d| "
+            f"{err:.3e}, tile edges {edge_err:.3e} (limit {row['max_abs_limit']:.3e}), rel L2 "
+            f"{rel:.3e} {'ok' if ok else 'FAIL'}; planted faults: bottom halo row dropped max|d| "
             f"{bad_err:.3e}, rel L2 {bad_rel:.3e} {'rejected' if not bad_ok else 'NOT REJECTED'}; "
-            f"kernel {ms:.4f} ms ({row['gb_per_s']:.0f} GB/s), plain {plain_ms:.3f} ms, "
-            f"cudnn {lib_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+            f"strip edge's left partials zero {strip}; kernel {ms:.4f} ms "
+            f"({row['gb_per_s']:.0f} GB/s, {share}), plain {plain_ms:.3f} ms, cudnn "
+            f"{lib_ms:.4f} ms ({lib_ms / ms:.2f}x the kernel's time), bound {bound_ms:.4f} ms "
+            f"({bound_by})")
         if not ok:
             failures.append(f"conv3x3_out1 [{b},{f},{m},{c}] {dt} disagrees: {rel}, {err}")
         if bad_ok:
             failures.append(f"conv3x3_out1 [{b},{f},{m},{c}]: the planted fault passes")
+        if strip_ok:
+            failures.append(f"conv3x3_out1 [{b},{f},{m},{c}]: the strip-edge fault passes")
         del x, got, plain
     if failures:
         raise RuntimeError("; ".join(failures))
@@ -2136,18 +2376,23 @@ def lab_phase() -> dict:
     attn_flash_lab`` / ``edge_conv_lab``), once at one round, with the
     launches of every kernel counted: K1b and K3 run on no node path; the
     labs are where they launch."""
+    from egregora_tpu_torch.ops import conv_edge as ce
     from egregora_tpu_torch.tools import attn_flash_lab, edge_conv_lab
 
     out = {}
     for name, lab in (("attn_flash_lab", attn_flash_lab), ("edge_conv_lab", edge_conv_lab)):
         reset_counts()
         t = time.perf_counter()
-        rows = lab.sweep(rounds=1)
+        # one timed launch a candidate (the edge lab in one turn)
+        rows = lab.sweep(rounds=1, **({"turns": 1} if name == "edge_conv_lab" else {}))
         wall = time.perf_counter() - t
         counts = read_counts()
+        routes = dict(ce.launches_by_route)
         log(f"{name}: {len(rows)} lines in {wall:.1f} s, launches "
-            f"{ {k: v for k, v in counts.items() if v} }")
-        out[name] = {"rows": rows, "counts": counts, "wall_s": wall}
+            f"{ {k: v for k, v in counts.items() if v} }"
+            + (f", K3 by route {routes}" if routes else ""))
+        out[name] = {"rows": rows, "counts": counts, "wall_s": wall,
+                     "conv3x3_out1_by_route": routes}
     if not out["attn_flash_lab"]["counts"]["flash_online"]:
         raise RuntimeError("attn_flash_lab launched no flash_online")
     if not out["edge_conv_lab"]["counts"]["conv3x3_out1"]:
@@ -2220,6 +2465,7 @@ def main() -> int:
 
     ptxas = ptxas_report()
     mrf_ptxas = mrf_ptxas_report()
+    edge_ptxas = edge_ptxas_report()
     attn_rows_ = attention_phase()
     mrf_rows_ = mrf_phase()
     repair = repair_phase()
@@ -2259,11 +2505,14 @@ def main() -> int:
                           {"attn_flash_lab": sum(k1b_counts.values())}),
                edge_entry("conv3x3_out1", edge["conv3x3_out1"], k3_counts,
                           {"edge_conv_lab": sum(k3_counts.values())})]
+    kernels[5]["launches_by_route"] = labs["edge_conv_lab"]["conv3x3_out1_by_route"]
     kernels[0]["launches_streaming"] = pipe["launches_streaming"]
     for k, lib in ((kernels[0], "attn_rows"), (kernels[4], "attn_online")):
         k["ptxas"] = [r for r in ptxas if r["library"] == lib]
     for k, rounding in ((kernels[1], "Circ"), (kernels[2], "Rows")):
         k["ptxas"] = [r for r in mrf_ptxas if r["rounding"] == rounding]
+    kernels[3]["ptxas"] = edge_ptxas["iir_lowpass"]
+    kernels[5]["ptxas"] = edge_ptxas["conv3x3_out1"]
     kernels[0]["repair_shapes"] = repair["attn"]
     kernels[1]["repair_shapes"] = [r for r in repair["mrf"] if r["entry"] == "mrf_fused_cm"]
     kernels[2]["repair_shapes"] = [r for r in repair["mrf"] if r["entry"] == "mrf_rows"]

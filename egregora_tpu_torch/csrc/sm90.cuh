@@ -1,8 +1,8 @@
 // sm90.cuh: PTX wrappers for Hopper (sm_90a) shared by the port's
-// hand-written kernels (attn_core.cuh, mrf_core.cuh): mbarriers, TMA
-// loads, ldmatrix, named barriers, wgmma's fence / commit / wait and
-// shared-memory descriptors, and libcuda's tensor-map encoder looked up
-// through the runtime.
+// hand-written kernels (attn_core.cuh, mrf_core.cuh, conv_edge.cu):
+// mbarriers, TMA loads, ldmatrix, named barriers, wgmma's fence / commit /
+// wait and shared-memory descriptors, and libcuda's tensor-map encoder
+// looked up through the runtime.
 #pragma once
 
 #include <cuda.h>            // CUtensorMap and its enums (types only: no -lcuda)
@@ -51,6 +51,19 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, i
       "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
       "[%0], [%1, {%2, %3, %4}], [%5];\n"
       :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(bar)
+      : "memory");
+}
+
+// one box of a 4-D tensor map (coordinates innermost first) into shared
+// memory, completing `bar`'s transaction bytes; a box reaching outside
+// the tensor is zero-filled there and still counts its full bytes
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map, int c0, int c1,
+                                            int c2, int c3, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4, %5}], [%6];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3),
+         "r"(bar)
       : "memory");
 }
 

@@ -36,3 +36,28 @@ def cuda_ms(fn, rounds: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / rounds
+
+
+def graph_ms(fn, rounds: int) -> float:
+    """Device time of ``fn()`` without the host's launch path: a CUDA graph
+    of ``rounds`` calls (captured after two on a side stream), replayed
+    once after a warm replay, timed with CUDA events, over ``rounds``."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(rounds):
+            fn()
+    graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / rounds

@@ -14,31 +14,42 @@ to 64 on [26, 512, 256, 1], bf16, channels last:
   enc-conv      cuDNN conv, one input channel, as it is
   enc-matmul    nine shifted broadcasts times w[i, j, 0, :]
 
-Each line gives the device time (CUDA events, mean of ``--rounds``
-launches after a warm-up) and max |d| against the plain version (the
-decoder's: ``conv3x3_out1_plain``; the encoder's: enc-matmul in f32).
-Runs on the card only:
+With ``--root DIR`` the kernel of the checkout at DIR (a parent unpacked
+with ``git archive``, say) runs in the same process as
+``other-dec-kernel-fN``; ``--batch`` sets B (26, the lab's; 3, one-shot's
+chunk batch).  Candidates are timed in turns (each turn times every
+candidate once); each line gives the median over ``--turns`` turns of
+the time a call (CUDA events around ``--rounds`` launches after a
+warm-up, the host's launch path included where it is slower than the
+device), with ``--graph`` also the device time of a CUDA graph of those
+calls, and max |d| against the plain version (the decoder's:
+``conv3x3_out1_plain``; the encoder's: enc-matmul in f32).  Runs on the
+card only:
 
-    python -m egregora_tpu_torch.tools.edge_conv_lab [--rounds N] [variant names...]
+    python -m egregora_tpu_torch.tools.edge_conv_lab [--rounds N] [--turns N] [--batch B]
+        [--graph] [--root DIR] [variant names...]
 """
 from __future__ import annotations
 
 import argparse
+import statistics
 import sys
 
 import torch
 import torch.nn.functional as F
 
+from .. import tools
 from ..ops import conv_edge
-from . import cuda_ms
+from . import cuda_ms, graph_ms
 
 B, FR, M = 26, 512, 256
 DEC_CHANNELS = (64, 128)
 F_TILES = (8, 16, 32, 64)
 
 
-def _decoder_variants(x, w, bias):
-    """(name, fn) of the decoder's conv: x [B, F, M, C] bf16, w [3, 3, C, 1]."""
+def _decoder_variants(x, w, bias, other=None):
+    """(name, fn) of the decoder's conv: x [B, F, M, C] bf16, w [3, 3, C, 1];
+    ``other``: another checkout's ``conv_edge`` module."""
     b, fr, m, c = x.shape
     xn = x.permute(0, 3, 1, 2)                                  # NCHW view, channels last
     w1 = w[..., 0].permute(2, 0, 1)[None].to(x.dtype)           # [1, C, 3, 3]
@@ -63,8 +74,9 @@ def _decoder_variants(x, w, bias):
     variants = [("dec-conv1", conv1), ("dec-conv128", conv128),
                 ("dec-matmul", lambda: conv_edge.conv3x3_out1_plain(x, w, bias)),
                 ("dec-3x1d", three_1d)]
-    variants += [(f"dec-kernel-f{ft}", lambda ft=ft: conv_edge.conv3x3_out1(x, w, bias, ft))
-                 for ft in F_TILES]
+    for tag, mod in [("", conv_edge)] + ([("other-", other)] if other else []):
+        variants += [(f"{tag}dec-kernel-f{ft}",
+                      lambda ft=ft, mod=mod: mod.conv3x3_out1(x, w, bias, ft)) for ft in F_TILES]
     return variants
 
 
@@ -88,49 +100,69 @@ def _encoder_variants(x1, w64, bias64):
             ("enc-matmul", enc_matmul)]
 
 
-def sweep(rounds: int = 6, only=None, seed: int = 0) -> list:
-    """One row a (variant, C): name, ms, GB/s of x read once, max |d|."""
+def load_checkout(root) -> tuple:
+    """``(conv_edge,)`` of the checkout at ``root``, beside this package's."""
+    return tools.load_checkout(root, "conv_edge")
+
+
+def sweep(rounds: int = 6, only=None, seed: int = 0, turns: int = 3, batch: int = B,
+          graph: bool = False, other=None) -> list:
+    """One row a (variant, C): name, ms (median of the turns), GB/s of x
+    read once, max |d|; ``graph``: also the device time of a CUDA graph;
+    ``other``: ``load_checkout``'s module, timed as ``other-``
+    variants."""
     if not torch.cuda.is_available():
         raise RuntimeError("edge_conv_lab runs on a CUDA card; none is available")
     gen = torch.Generator(device="cuda").manual_seed(seed)
     rows = []
 
-    def run(name, fn, plain, nbytes, c):
-        if only and name not in only:
-            return
-        err = float((fn().float() - plain).abs().max())
-        ms = cuda_ms(fn, rounds)
-        rows.append({"variant": name, "c": c, "ms": ms, "gb_per_s": nbytes / ms / 1e6,
-                     "max_abs_err": err})
-        print(f"{name:16s} C={c:<4d} {ms:8.4f} ms ({nbytes / ms / 1e6:7.1f} GB/s)"
-              f"  |d|max vs plain {err:.3e}", flush=True)
+    def run(cands, plain, nbytes, c):
+        cands = [(name, fn) for name, fn in cands if not only or name in only]
+        errs = {name: float((fn().float() - plain).abs().max()) for name, fn in cands}
+        times = {name: ([], []) for name, _ in cands}
+        for _ in range(turns):
+            for name, fn in cands:
+                times[name][0].append(cuda_ms(fn, rounds))
+                if graph:
+                    times[name][1].append(graph_ms(fn, rounds))
+        for name, _ in cands:
+            ms = statistics.median(times[name][0])
+            gms = statistics.median(times[name][1]) if graph else None
+            rows.append({"variant": name, "b": batch, "c": c, "ms": ms, "graph_ms": gms,
+                         "gb_per_s": nbytes / ms / 1e6, "max_abs_err": errs[name],
+                         "turns_ms": times[name][0]})
+            dev = f", graph {gms:8.4f} ms" if graph else ""
+            print(f"{name:22s} B={batch:<3d} C={c:<4d} {ms:8.4f} ms{dev} "
+                  f"({nbytes / ms / 1e6:7.1f} GB/s)  |d|max vs plain {errs[name]:.3e}", flush=True)
 
     for c in DEC_CHANNELS:
-        x = torch.randn(B, FR, M, c, generator=gen, device="cuda").bfloat16()
+        x = torch.randn(batch, FR, M, c, generator=gen, device="cuda").bfloat16()
         w = 0.1 * torch.randn(3, 3, c, 1, generator=gen, device="cuda")
         bias = torch.full((1,), 0.1, device="cuda")
         plain = conv_edge.conv3x3_out1_plain(x, w, bias)
-        for name, fn in _decoder_variants(x, w, bias):
-            run(name, fn, plain, B * FR * M * (2 * c + 4), c)
+        run(_decoder_variants(x, w, bias, other), plain, batch * FR * M * (2 * c + 4), c)
         del x, plain
-    x1 = torch.randn(B, FR, M, 1, generator=gen, device="cuda").bfloat16()
+    x1 = torch.randn(batch, FR, M, 1, generator=gen, device="cuda").bfloat16()
     w64 = 0.1 * torch.randn(3, 3, 1, 64, generator=gen, device="cuda")
     bias64 = torch.full((64,), 0.1, device="cuda")
     variants = _encoder_variants(x1, w64, bias64)
-    plain = variants[1][1]()
-    for name, fn in variants:
-        run(name, fn, plain, B * FR * M * (2 + 64 * 2), 1)
+    run(variants, variants[1][1](), batch * FR * M * (2 + 64 * 2), 1)
     return rows
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rounds", type=int, default=6)
+    ap.add_argument("--turns", type=int, default=3)
+    ap.add_argument("--batch", type=int, default=B)
+    ap.add_argument("--graph", action="store_true", help="also time CUDA graphs of the calls")
+    ap.add_argument("--root", help="also time the kernel of the checkout at ROOT")
     ap.add_argument("names", nargs="*", help="variant names (default: all)")
     args = ap.parse_args(argv)
     print(f"device: {torch.cuda.get_device_name(0) if torch.cuda.is_available() else None}",
           flush=True)
-    sweep(args.rounds, set(args.names))
+    sweep(args.rounds, set(args.names), turns=args.turns, batch=args.batch, graph=args.graph,
+          other=load_checkout(args.root)[0] if args.root else None)
     return 0
 
 

@@ -17,6 +17,7 @@ memory and spills of each kernel) is kept beside the library as
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -91,3 +92,12 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(build(name)))
         _LIBS[name] = lib
     return lib
+
+
+def on_device(device):
+    """The context of a CUDA ``device`` where it is not the current device
+    already (a library launches on the current one); a no-op otherwise."""
+    import torch
+    if device.index is None or device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)

@@ -254,9 +254,9 @@ def test_mrf_rejects_what_it_does_not_take(card):
 @pytest.mark.parametrize("c,n,k", [(1, 100, 0.984), (3, 32769, 0.984), (2, 4096, 0.99),
                                    (1, 4194304, 0.9999), (1, 4096 * 4096 + 5000, 0.984)])
 def test_iir_lowpass_matches_plain(card, c, n, k):
-    """K4 on [C, N] float32 in one call (the last shape takes three scan
-    levels), within ``chip_smoke.iir_agreement``'s limit (max |d| 2e-6 on
-    a 0.5-scale signal) of the blocked plain version; one call counted."""
+    """K4 on [C, N] float32 in one call (the last shape chains 2049 tiles
+    a row), within ``chip_smoke.iir_agreement``'s limit (max |d| 2e-6 on a
+    0.5-scale signal) of the blocked plain version; one call counted."""
     from egregora_tpu_torch.ops import iir_lowpass as il
     gen = torch.Generator().manual_seed(n)
     x = (0.5 * torch.randn(c, n, generator=gen)).to(card)
@@ -266,6 +266,71 @@ def test_iir_lowpass_matches_plain(card, c, n, k):
     assert il.launches_by_shape[(c, n)] == before + 1
     ok, err = chip_smoke.iir_agreement(got, il.iir_lowpass_plain(x, k))
     assert ok, err
+
+
+def _iir_cases():
+    from egregora_tpu_torch.ops import iir_lowpass as il
+    T = il.TILE
+    shapes = [(c, n) for c in (1, 2, 3) for n in (1, 100, T - 1, T, T + 1, 3 * T + 5)]
+    return shapes + [(1000, 100), (1000, T + 1), (2, 14_400_000)]
+
+
+@pytest.mark.parametrize("k", [0.9844, 0.9999])
+@pytest.mark.parametrize("c,n", _iir_cases())
+def test_iir_lowpass_lookback_shapes(card, c, n, k):
+    """The single-pass scan at n = 1, 100, TILE - 1, TILE, TILE + 1 and
+    3 TILE + 5 on one to three rows, many short rows (C = 1000, one tile
+    or two a row) and the meter's 2 x 14.4M samples, at the 48 kHz pole
+    and at 0.9999: within ``chip_smoke.iir_agreement`` of the plain
+    version; one call counted."""
+    from egregora_tpu_torch.ops import iir_lowpass as il
+    gen = torch.Generator().manual_seed(c * 7 + n)
+    x = (0.5 * torch.randn(c, n, generator=gen)).to(card)
+    before = il.launches_by_shape[(c, n)]
+    got = il.iir_lowpass(x, k)
+    torch.cuda.synchronize()
+    assert il.launches_by_shape[(c, n)] == before + 1
+    assert got.shape == x.shape and got.is_contiguous()
+    ok, err = chip_smoke.iir_agreement(got, il.iir_lowpass_plain(x, k))
+    assert ok, err
+
+
+def test_iir_lowpass_calls_in_a_row_and_on_two_streams(card):
+    """Each call zeroes its own workspace: two calls in a row give the same
+    result, calls of alternating shapes and poles stay right, and calls on
+    two streams at once (each with its workspace) agree with the plain
+    version."""
+    from egregora_tpu_torch.ops import iir_lowpass as il
+    gen = torch.Generator().manual_seed(5)
+    xs = [(0.5 * torch.randn(c, n, generator=gen)).to(card)
+          for c, n in ((2, 5 * il.TILE + 3), (3, 2 * il.TILE), (1, 100))]
+    a = il.iir_lowpass(xs[0], 0.9999)
+    b = il.iir_lowpass(xs[0], 0.9999)
+    torch.cuda.synchronize()
+    assert chip_smoke.iir_agreement(a, b)[1] <= 1e-6
+    for _ in range(2):
+        for x in xs:
+            for k in (0.9844, 0.9999):
+                ok, err = chip_smoke.iir_agreement(il.iir_lowpass(x, k), il.iir_lowpass_plain(x, k))
+                assert ok, (tuple(x.shape), k, err)
+    big = (0.5 * torch.randn(2, 3_000_000, generator=gen)).to(card)
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    torch.cuda.synchronize()
+    outs = []
+    for s, k in zip(streams, (0.9844, 0.9999)):
+        with torch.cuda.stream(s):
+            outs.append(il.iir_lowpass(big, k))
+    torch.cuda.synchronize()
+    for out, k in zip(outs, (0.9844, 0.9999)):
+        ok, err = chip_smoke.iir_agreement(out, il.iir_lowpass_plain(big, k))
+        assert ok, (k, err)
+
+
+def test_iir_lowpass_layout_matches_the_wrapper(card):
+    """The library's tile, threads and look-back window are the ones the
+    wrapper's tables and the planted faults assume."""
+    from egregora_tpu_torch.ops import iir_lowpass as il
+    assert il.layout() == (il.TILE, il.THREADS, il.WINDOW)
 
 
 def test_iir_lowpass_rejects_what_it_does_not_take(card):
@@ -362,6 +427,63 @@ def test_conv3x3_out1_matches_plain(card, b, f, m, c, dtype):
         assert got.dtype == torch.float32 and got.shape == (b, f, m, 1)
         ok, rel, err = chip_smoke.f32_agreement(got, ref)
         assert ok, (f_tile, rel, err)
+
+
+# K3 on every tile edge: (f, m) around the 8-row step and F segments, the
+# 32-column CUDA-core tile and the 64-column strips
+K3_EDGES = [(1, 1), (8, 32), (9, 65), (17, 63), (25, 129), (33, 64), (7, 31), (16, 33)]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("c", [5, 8, 16, 24, 64, 128, 200, 256])
+def test_conv3x3_out1_tile_edges(card, c, dtype):
+    """Both routes at C = 5 to 256, B = 1 and 3, F and M on every tile
+    edge, f_tile 64 and 8: within ``chip_smoke.f32_agreement`` of the plain
+    version; one launch counted a call, on the route ``plan_of`` names
+    (bf16 at C % 8 == 0 on the tensor cores)."""
+    from egregora_tpu_torch.ops import conv_edge as ce
+    gen = torch.Generator().manual_seed(c)
+    route = ce.TC if dtype == torch.bfloat16 and c % 8 == 0 else ce.CC
+    for b in (1, 3):
+        for f, m in K3_EDGES:
+            x = torch.randn(b, f, m, c, generator=gen).to(card, dtype)
+            w = (0.1 * torch.randn(3, 3, c, 1, generator=gen)).to(card)
+            bias = torch.tensor([0.25], device=card)
+            ref = ce.conv3x3_out1_plain(x, w, bias)
+            for f_tile in (64, 8):
+                before = ce.launches_by_route[route]
+                got = ce.conv3x3_out1(x, w, bias, f_tile=f_tile)
+                torch.cuda.synchronize()
+                assert ce.launches_by_route[route] == before + 1
+                ok, rel, err = chip_smoke.f32_agreement(got, ref)
+                assert ok, (b, f, m, f_tile, rel, err)
+
+
+def test_conv3x3_out1_layout_matches_the_plan(card):
+    """The library's ``conv_edge_bf16_layout`` (the block each route
+    launches) is the wrapper's ``bf16_plan`` at every C to 320 and at the
+    limits, aligned or not; the tensor-core entry refuses a C or an
+    alignment of the other route; a misaligned bf16 x runs on the CUDA
+    cores."""
+    from egregora_tpu_torch.ops import conv_edge as ce
+    for c in list(range(1, 321)) + [4088, 4096, 4104]:
+        for aligned in (True, False):
+            assert chip_smoke.conv_edge_layout(c, aligned) == tuple(ce.bf16_plan(c, aligned)), c
+    x = torch.zeros(1, 4, 4, 20, device=card, dtype=torch.bfloat16)
+    w, bias = torch.zeros(3, 3, 20, 1, device=card), torch.zeros(1, device=card)
+    out = torch.empty(1, 4, 4, 1, device=card)
+    fn = ce._kernel(torch.bfloat16, ce.TC)
+    stream = torch.cuda.current_stream().cuda_stream
+    assert fn(x.data_ptr(), w.data_ptr(), bias.data_ptr(), out.data_ptr(), 1, 4, 4, 20, 4,
+              stream) == 1                           # cudaErrorInvalidValue: C % 8 != 0
+    flat = torch.randn(1 + 3 * 9 * 70 * 64, device=card).bfloat16()
+    xm = flat[1:].view(3, 9, 70, 64)                 # contiguous, 2 bytes past alignment
+    wm = 0.1 * torch.randn(3, 3, 64, 1, device=card)
+    assert ce.plan_of(xm).route == 0
+    before = ce.launches_by_route[ce.CC]
+    ok, rel, err = chip_smoke.f32_agreement(ce.conv3x3_out1(xm, wm, bias),
+                                            ce.conv3x3_out1_plain(xm, wm, bias))
+    assert ok and ce.launches_by_route[ce.CC] == before + 1, (rel, err)
 
 
 def test_conv3x3_out1_rejects_what_it_does_not_take(card):

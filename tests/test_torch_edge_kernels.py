@@ -22,7 +22,7 @@ from egregora_tpu.ops.attn_flash import flash_online as j_flash_online
 from egregora_tpu.ops.conv_edge import conv3x3_out1 as j_conv3x3_out1
 import chip_smoke
 from egregora_tpu_torch.ops import attn_flash, conv_edge
-from egregora_tpu_torch.tools import attn_flash_lab, edge_conv_lab
+from egregora_tpu_torch.tools import attn_flash_lab, edge_conv_lab, iir_lab
 
 # float32 results: both sides sum in float32 in other orders
 F32_REL = 1e-5
@@ -184,6 +184,79 @@ def test_smoke_planted_halo_fault_is_what_it_says():
     assert float(edges.abs().max()) == float((bad - plain).abs().max())
 
 
+# (b, f, m, c, rows): C = 5, 24, 64, 200; F = 1 and ragged; M = 1, 61-65
+# and 125 across a strip edge; one segment or several
+MODEL_SHAPES = [(1, 1, 1, 5, None), (2, 1, 64, 24, None), (1, 7, 61, 64, 3), (1, 9, 62, 24, 4),
+                (1, 5, 63, 5, 2), (2, 6, 64, 64, None), (1, 11, 65, 200, 8), (1, 9, 125, 24, 4),
+                (2, 3, 1, 200, 1)]
+
+
+@pytest.mark.parametrize("b,f,m,c,rows", MODEL_SHAPES)
+def test_tap_partials_model_matches_plain_and_jax(b, f, m, c, rows):
+    """The tensor-core route's schedule on the CPU (tap partials D = x @
+    W16 over 66-pixel, 64-channel zero-filled boxes, the 3 x 3 stencil of
+    D folded into running sums, F segments of ``rows``) on bf16 x: within
+    relative 1e-5 of the plain version and of the JAX kernel in interpret
+    mode (at f_tile = F, which it requires to divide F)."""
+    x, w, bias = _conv_inputs(b, f, m, c, seed=f * m + c)
+    xt = torch.from_numpy(x).bfloat16()
+    got = conv_edge.tap_partials_model(xt, torch.from_numpy(w), torch.from_numpy(bias), rows)
+    plain = conv_edge.conv3x3_out1_plain(xt, torch.from_numpy(w), torch.from_numpy(bias))
+    ref = np.asarray(j_conv3x3_out1(jnp.asarray(x, jnp.bfloat16), jnp.asarray(w),
+                                    jnp.asarray(bias), f_tile=f, interpret=True))
+    assert got.shape == plain.shape == ref.shape == (b, f, m, 1)
+    scale = float(np.abs(ref).max())
+    assert float((got - plain).abs().max()) <= F32_REL * scale
+    assert float(np.abs(got.numpy() - ref).max()) <= F32_REL * scale
+
+
+def test_bf16_plan_names_the_route():
+    """The tensor cores take bf16 where a TMA map addresses x (C % 8 == 0,
+    16-byte aligned) and the weights fit (C <= 4096); every other C and
+    float32 take the CUDA cores.  The segment rows fill the grid at B = 3
+    and stay at ``SEGMENT_ROWS`` at the edge lab's B = 26 (132 SMs, an
+    H100); f_tile caps them."""
+    for c in (8, 16, 24, 64, 128, 200, 256, 4096):
+        p = conv_edge.bf16_plan(c)
+        assert p.route == 1 and p.cols == conv_edge.STRIP and p.threads == 160
+        assert p.smem_bytes == 1024 + 4 * 9216 + -(-c // 64) * 2048 + 4896 + 64
+        assert conv_edge.bf16_plan(c, aligned=False).route == 0
+    for c in (1, 5, 20, 4104):
+        assert conv_edge.bf16_plan(c) == conv_edge.bf16_plan(1)
+        assert conv_edge.bf16_plan(c).route == 0
+    assert conv_edge.plan_of(torch.zeros(1, 2, 2, 24)) == conv_edge.F32_PLAN
+    tc = conv_edge.bf16_plan(64)
+    rows = conv_edge.segment_rows(3, 512, 256, 64, tc, 132)
+    assert rows % 8 == 0 and -(-512 // rows) * 4 * 3 >= conv_edge.BLOCKS_PER_SM * 132
+    assert conv_edge.segment_rows(26, 512, 256, 64, tc, 132) == conv_edge.SEGMENT_ROWS
+    assert conv_edge.segment_rows(3, 512, 256, 13, tc, 132) == 13
+    assert conv_edge.segment_rows(1, 1, 1, 64, tc, 132) == 1
+    assert conv_edge.segment_rows(3, 512, 256, 13, conv_edge.F32_PLAN, 132) == 16
+
+
+@pytest.mark.parametrize("m", [64, 70, 130])
+def test_smoke_planted_strip_fault_is_what_it_says(m):
+    """``chip_smoke.drop_strip_left`` is the plain conv whose outputs at
+    columns 64j (j >= 1) miss their taps of column 64j - 1; the card run's
+    limits reject it wherever M spans more than one strip, the columns
+    ``k3_edges`` reads hold its largest error, and at one strip it is the
+    plain conv."""
+    x, w, bias = (torch.from_numpy(a) for a in _conv_inputs(2, 12, m, 16, seed=m))
+    xb = x.bfloat16()
+    bad = chip_smoke.drop_strip_left(xb, w, bias)
+    plain = conv_edge.conv3x3_out1_plain(xb, w, bias)
+    for col in range(conv_edge.STRIP, m, conv_edge.STRIP):
+        xr = xb.clone()
+        xr[:, :, col - 1] = 0
+        want = conv_edge.conv3x3_out1_plain(xr, w, bias)[:, :, col]
+        torch.testing.assert_close(bad[:, :, col], want, rtol=0, atol=1e-5)
+    others = [j for j in range(m) if j % conv_edge.STRIP or j == 0]
+    assert torch.equal(bad[:, :, others], plain[:, :, others])
+    assert chip_smoke.f32_agreement(bad, plain)[0] == (m <= conv_edge.STRIP)
+    edges = chip_smoke.k3_edges(bad) - chip_smoke.k3_edges(plain)
+    assert float(edges.abs().max()) == float((bad - plain).abs().max())
+
+
 def test_edge_lab_variants_agree_on_the_cpu():
     """The edge lab's decoder and encoder variants compute the same conv
     (bf16 outputs of the cuDNN-style calls round once)."""
@@ -202,7 +275,7 @@ def test_edge_lab_variants_agree_on_the_cpu():
         assert float((fn().float() - ref).abs().max()) <= bf16_limit(ref.numpy()), name
 
 
-@pytest.mark.parametrize("lab", [attn_flash_lab, edge_conv_lab])
+@pytest.mark.parametrize("lab", [attn_flash_lab, edge_conv_lab, iir_lab])
 def test_labs_refuse_to_run_without_a_card(lab):
     """The labs time the kernels on the card and nowhere else."""
     if torch.cuda.is_available():

@@ -8,6 +8,7 @@ tensor: the blocked recurrence) against the JAX Pallas kernel
 a float64 reference.  Inputs are numpy-seeded; tolerances are stated
 where they are used.
 """
+import collections
 import functools
 import math
 
@@ -18,6 +19,7 @@ import torch
 from jax.experimental import pallas as pl
 from scipy.signal import lfilter
 
+import chip_smoke
 import egregora_tpu.ops.pallas_iir as P
 from egregora_tpu.ops import iir as j_iir
 from egregora_tpu_torch.ops import iir as t_iir
@@ -78,14 +80,77 @@ def test_blocked_recurrence_near_unit_pole():
 
 
 def test_pole_tables_are_float64_powers():
-    """Level l holds (k^(4096^l))^j from float64: a table of repeated
-    float32 products would drift ~1e-4 relative by j = 4096 at k near 1."""
+    """k^j for j = 0..TILE, then (k^TILE)^j for the look-back window, from
+    float64: a table of repeated float32 products would drift ~1e-4
+    relative by j = 4096 at k near 1."""
     k = 0.9999
-    t = t_k4.pole_tables(k, 2)
+    t = t_k4.pole_tables(k)
     j = np.arange(t_k4.TILE + 1)
-    np.testing.assert_allclose(t[0], k ** j.astype(np.float64), rtol=2e-7)
-    np.testing.assert_allclose(t[1], np.power(k, 4096.0 * j), rtol=2e-7, atol=1e-38)
-    assert t.dtype == np.float32 and t.shape == (2, 4097)
+    w = np.arange(t_k4.WINDOW + 1)
+    np.testing.assert_allclose(t[:t_k4.TILE + 1], k ** j.astype(np.float64), rtol=2e-7)
+    np.testing.assert_allclose(t[t_k4.TILE + 1:], np.power(k, float(t_k4.TILE) * w),
+                               rtol=2e-7, atol=1e-38)
+    assert t.dtype == np.float32 and t.shape == (t_k4.TILE + 1 + t_k4.WINDOW + 1,)
+
+
+LOOKBACK_N = [1, 100, t_k4.TILE - 1, t_k4.TILE, 3 * t_k4.TILE + 5, 2 * P.BLOCK + 777]
+
+
+@pytest.mark.parametrize("k", [K24, 0.9999])
+@pytest.mark.parametrize("n", LOOKBACK_N)
+def test_lookback_model_matches_plain_and_pallas(interpret_mode, n, k):
+    """The kernel's single-pass schedule on the CPU (local tile scans,
+    published aggregates, a look-back over a seeded mix of predecessor
+    states) on two channels: within 2e-6 (``chip_smoke.IIR_ABS``) of the
+    plain version and of the JAX kernel in interpret mode."""
+    x = _x((2, n), n + 1, 0.5)
+    got = t_k4.lookback_model(torch.from_numpy(x), k, order_seed=n).numpy()
+    plain = t_k4.iir_lowpass_plain(torch.from_numpy(x), k).numpy()
+    ref = np.asarray(P.iir_lowpass_pallas(jnp.asarray(x), k))
+    assert got.shape == x.shape
+    assert np.abs(got - plain).max() <= chip_smoke.IIR_ABS
+    assert np.abs(got - ref).max() <= chip_smoke.IIR_ABS
+
+
+def test_lookback_model_sees_every_state_and_any_order_agrees():
+    """Over seeded orders the look-backs meet predecessors not yet
+    published, with an aggregate only and with an inclusive prefix; every
+    order gives the same scan (float32 rounding apart) at both poles."""
+    x = torch.from_numpy(_x((3, 12 * t_k4.TILE + 9), 4, 0.5))
+    for k in (K24, 0.9999):
+        plain = t_k4.iir_lowpass_plain(x, k)
+        seen = collections.Counter()
+        for seed in range(3):
+            got = t_k4.lookback_model(x, k, order_seed=seed, seen=seen)
+            assert float((got - plain).abs().max()) <= chip_smoke.IIR_ABS
+        assert set(seen) == set(t_k4.STATUS_NAMES), seen
+
+
+def _tiles(x, lo, hi, k):
+    """The plain scan of x[:, lo:hi] from a zero state."""
+    return t_k4.iir_lowpass_plain(x[:, lo:hi].contiguous(), k)
+
+
+@pytest.mark.parametrize("k,visible", [(K24, False), (0.9999, True)])
+def test_smoke_planted_lookback_fault_is_what_it_says(k, visible):
+    """``chip_smoke.one_step_lookback`` is each tile scanned from the state
+    its predecessor reaches from zero (the scan of the two tiles from a
+    zero state, restricted to the second); the card run's limit
+    (``chip_smoke.iir_agreement``) passes it at the 48 kHz pole, where
+    k^TILE ~ 1e-56 hides it, and rejects it at pole 0.9999 (k^TILE ~
+    0.44), as ``chip_smoke.one_step_visible`` says; the dropped carry is
+    rejected at both."""
+    T = t_k4.TILE
+    x = torch.from_numpy(_x((2, 4 * T + 77), 7, 0.5))
+    plain = t_k4.iir_lowpass_plain(x, k)
+    bad = chip_smoke.one_step_lookback(x, k)
+    torch.testing.assert_close(bad[:, :T], plain[:, :T], rtol=0, atol=1e-7)
+    for t in range(1, 5):
+        want = _tiles(x, (t - 1) * T, (t + 1) * T, k)[:, T:]
+        torch.testing.assert_close(bad[:, t * T:(t + 1) * T], want, rtol=0, atol=2e-7)
+    assert chip_smoke.one_step_visible(k) == visible
+    assert chip_smoke.iir_agreement(bad, plain)[0] == (not visible)
+    assert not chip_smoke.iir_agreement(chip_smoke.dropped_carry(x, k), plain)[0]
 
 
 def _k_weight_f64(sr, x):

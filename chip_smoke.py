@@ -88,9 +88,35 @@ Phases, one line each on standard output:
    K4's calls counted by shape and the warm wall time of each node;
 12. the two lab tools once (``tools/attn_flash_lab.py``,
    ``tools/edge_conv_lab.py``), where K1b and K3 launch;
-13. a JSON line ``{"kernels": [...]}`` of all six kernels, whose times
+13. RNNoise (``rnnoise_phase``): the node's shipped weights asserted
+   loaded (the random-init branch fails the run); the engine on 12 s of
+   seeded 48 kHz speech-like stereo with silent gaps on the card against
+   the same code on the CPU (wave relative L2 1e-3 and max |d| 2e-3, VAD
+   5e-3, pitch periods exact on every frame non-silent on both, silence
+   flags), beside two planted faults the limits must reject (the silence
+   freeze dropped; z and r swapped in the GRU); the node in both stereo
+   modes and at 16 kHz against the CPU; the sequential frame loop's time
+   and operations a step; ``segments=16`` on 60 s of stereo as RTF;
+14. Fat Llama (``fatllama_phase``): the GPU node on 30 s of 16 kHz mono
+   at its defaults (the fold loop, 300 iterations) as iterations a
+   second; 20 iterations on the card against the CPU (max |d| 1e-4) on
+   the fold loop and on a length padded to 2^22, beside observations
+   clamped one sample late; the CPU node once, asserted on the CPU;
+15. WPE (``wpe_phase``): 20 s of seeded reverberant 48 kHz stereo,
+   ``wpe_dereverb`` directly and the node at its defaults on the card;
+   the node equal to the direct call, changed from its input, with less
+   late-reverb energy, and within 1e-3 of the CPU;
+16. the full chain (``chain_phase``): 120 s of seeded 16 kHz mono through
+   the RNNoise node (``EGREGORA_RNNOISE_SEGMENTS=16``), the upscaler
+   (istft trio) to 48 kHz, the Fat Llama GPU node (factor 2, 50
+   iterations) to 96 kHz, the loudness meter and LSD / SI-SDR against the
+   input at 96 kHz: finite, of the right length and rate; warm wall time
+   and RTF of the chain and of each stage; ``attn_rows`` and K4 counted
+   by shape (the attention shapes not met before are measured as in
+   phase 2);
+17. a JSON line ``{"kernels": [...]}`` of all six kernels, whose times
    are the per-shape times of phases 2, 4 and 5 times the launches that
-   phases 7, 9, 10, 11 and 12 counted, and, last, ``{"ok": true, ...}``.
+   phases 7, 9, 10, 11, 12 and 16 counted, and, last, ``{"ok": true, ...}``.
 
 Any failure exits non-zero and prints no ``"ok"`` line.  With no CUDA
 device it exits non-zero at once.
@@ -568,53 +594,60 @@ def attention_phase() -> list:
     one-shot's chunk batch (BATCH items) and at ragged N, beside the
     planted fault ``drop_last_tile``, which the limits must reject."""
     import torch
+
+    gen = torch.Generator().manual_seed(0)
+    return [attn_shape_row(BATCH, heads, n, d, gen)
+            for heads, n, d in list(PATH_CALLS) + [SERVED_ATTN, CONVERTED_MID] + RAGGED]
+
+
+def attn_shape_row(batch: int, heads: int, n: int, d: int, gen) -> dict:
+    """attn_rows at [batch * heads, n, d] bf16 against its plain version
+    and the planted fault (which the limits must reject), with the
+    kernel's, the plain version's and SDPA's times and the bound."""
+    import torch
     import torch.nn.functional as F
 
     from egregora_tpu_torch.ops import attn_rows as ar
     from egregora_tpu_torch.ops.attention import chunked_attention
 
-    gen = torch.Generator().manual_seed(0)
-    rows = []
-    for heads, n, d in list(PATH_CALLS) + [SERVED_ATTN, CONVERTED_MID] + RAGGED:
-        bh = BATCH * heads
-        q, k, v = (torch.randn(bh, n, d, generator=gen).to("cuda", torch.bfloat16)
-                   for _ in range(3))
-        got = ar.attn_rows(q, k, v)
-        torch.cuda.synchronize()
-        plain = chunked_attention(q, k, v)
-        ok, rel, err, limit = bf16_agreement(got, plain)
-        bad_ok, bad_rel, bad_err, _ = bf16_agreement(drop_last_tile(q, k, v), plain)
-        flops = 4.0 * bh * n * n * d
-        nbytes = 4.0 * bh * n * d * 2
-        bound_ms = max(flops / H100_BF16_FLOPS, nbytes / H100_BYTES_PER_S) * 1e3
-        bound_by = "operations" if flops / H100_BF16_FLOPS >= nbytes / H100_BYTES_PER_S else "bytes"
-        reps = max(3, min(50, int(2e11 / flops)))
-        ms = cuda_ms(lambda: ar.attn_rows(q, k, v), reps)
-        plain_ms = cuda_ms(lambda: chunked_attention(q, k, v), max(2, reps // 4), 1)
-        q4, k4, v4 = (t.view(BATCH, heads, n, d) for t in (q, k, v))
-        lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4), reps)
-        row = {"bh": bh, "n": n, "d": d, "tile": list(ar.kernel_tile(d)),
-               "max_abs_err": err, "rel_l2": rel,
-               "max_abs_limit": limit, "planted_max_abs_err": bad_err,
-               "planted_rel_l2": bad_rel, "planted_keys_dropped": fault_tile(d), "ms": ms,
-               "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": bound_ms,
-               "bound_by": bound_by, "tflops": flops / ms / 1e9}
-        before = against_before("attn_rows", row, flops, H100_BF16_FLOPS)
-        rows.append(row)
-        log(f"attn_rows [{bh},{n},{d}] tile {row['tile']}: vs plain max|d| {err:.3e} (limit "
-            f"{limit:.3e}), rel L2 {rel:.3e} (limit {ATTN_REL_L2:g}) {'ok' if ok else 'FAIL'}; "
-            f"planted fault (last {fault_tile(d)}-key tile dropped) max|d| {bad_err:.3e}, "
-            f"rel L2 {bad_rel:.3e} {'rejected' if not bad_ok else 'NOT REJECTED'}; "
-            f"kernel {ms:.4f} ms ({row['tflops']:.1f} TFLOP/s, {before}), plain "
-            f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
-        if not ok:
-            raise RuntimeError(f"attn_rows disagrees with its plain version at "
-                               f"[{bh},{n},{d}]: max |d| {err}, rel L2 {rel}")
-        if bad_ok:
-            raise RuntimeError(f"the attention limits do not reject a dropped last "
-                               f"key tile at [{bh},{n},{d}]")
-        del q, k, v, got, plain
-    return rows
+    bh = batch * heads
+    q, k, v = (torch.randn(bh, n, d, generator=gen).to("cuda", torch.bfloat16)
+               for _ in range(3))
+    got = ar.attn_rows(q, k, v)
+    torch.cuda.synchronize()
+    plain = chunked_attention(q, k, v)
+    ok, rel, err, limit = bf16_agreement(got, plain)
+    bad_ok, bad_rel, bad_err, _ = bf16_agreement(drop_last_tile(q, k, v), plain)
+    flops = 4.0 * bh * n * n * d
+    nbytes = 4.0 * bh * n * d * 2
+    bound_ms = max(flops / H100_BF16_FLOPS, nbytes / H100_BYTES_PER_S) * 1e3
+    bound_by = "operations" if flops / H100_BF16_FLOPS >= nbytes / H100_BYTES_PER_S else "bytes"
+    reps = max(3, min(50, int(2e11 / flops)))
+    ms = cuda_ms(lambda: ar.attn_rows(q, k, v), reps)
+    plain_ms = cuda_ms(lambda: chunked_attention(q, k, v), max(2, reps // 4), 1)
+    q4, k4, v4 = (t.view(batch, heads, n, d) for t in (q, k, v))
+    lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4), reps)
+    row = {"bh": bh, "n": n, "d": d, "tile": list(ar.kernel_tile(d)),
+           "max_abs_err": err, "rel_l2": rel,
+           "max_abs_limit": limit, "planted_max_abs_err": bad_err,
+           "planted_rel_l2": bad_rel, "planted_keys_dropped": fault_tile(d), "ms": ms,
+           "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": bound_ms,
+           "bound_by": bound_by, "tflops": flops / ms / 1e9}
+    before = against_before("attn_rows", row, flops, H100_BF16_FLOPS)
+    log(f"attn_rows [{bh},{n},{d}] tile {row['tile']}: vs plain max|d| {err:.3e} (limit "
+        f"{limit:.3e}), rel L2 {rel:.3e} (limit {ATTN_REL_L2:g}) {'ok' if ok else 'FAIL'}; "
+        f"planted fault (last {fault_tile(d)}-key tile dropped) max|d| {bad_err:.3e}, "
+        f"rel L2 {bad_rel:.3e} {'rejected' if not bad_ok else 'NOT REJECTED'}; "
+        f"kernel {ms:.4f} ms ({row['tflops']:.1f} TFLOP/s, {before}), plain "
+        f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+    if not ok:
+        raise RuntimeError(f"attn_rows disagrees with its plain version at "
+                           f"[{bh},{n},{d}]: max |d| {err}, rel L2 {rel}")
+    if bad_ok:
+        raise RuntimeError(f"the attention limits do not reject a dropped last "
+                           f"key tile at [{bh},{n},{d}]")
+    del q, k, v, got, plain
+    return row
 
 
 def attn_entry(rows: list, counts: dict, by_path: dict) -> dict:
@@ -1552,7 +1585,9 @@ def narrow_node_run() -> dict:
 # K4: the K-weighting pole at 48 kHz and the shapes it runs at -- (C, N),
 # pole, where
 K48 = math.exp(-2.0 * math.pi * 60.0 / 24000.0)
+K96 = math.exp(-2.0 * math.pi * 60.0 / 48000.0)
 K4_SHAPES = [((2, 14_400_000), K48, "300 s of 48 kHz stereo (the meter)"),
+             ((1, 11_520_000), K96, "120 s of 96 kHz mono (the full chain's meter)"),
              ((2, 2_880_000), K48, "60 s of 48 kHz stereo (gain match, null test)"),
              ((1, 100), K48, "shorter than a tile"),
              ((3, 32_769), K48, "a ragged tile edge"),
@@ -2436,6 +2471,528 @@ def edge_entry(name: str, rows: list, counts: dict, by_path: dict) -> dict:
     }
 
 
+# ---- the enhance chain: RNNoise, Fat Llama, WPE and the full chain ----
+
+# card against the same port on the CPU: the RNNoise wave (relative L2
+# and max |d|), its VAD (max |d|), and the pitch periods (exact) on every
+# frame non-silent on both; silence flags equal on every frame whose band
+# energy is not within 1e-3 relative of the threshold
+RN_SECONDS, RN_LONG_SECONDS, RN_SEGMENTS = 12.0, 60.0, 16
+RN_WAVE_REL, RN_WAVE_ABS, RN_VAD = 1e-3, 2e-3, 5e-3
+# Fat Llama card against CPU at 20 iterations, max |d| (outputs of order 1)
+FL_SECONDS, FL_ITERS, FL_CHECK_ITERS, FL_ABS = 30.0, 300, 20, 1e-4
+# WPE: the node against the direct call (the same arithmetic on the card),
+# and the card against the CPU, max |d| (|x| <= 0.5)
+WPE_SECONDS, WPE_NODE_ABS, WPE_CPU_ABS = 20.0, 1e-6, 1e-3
+CHAIN_SECONDS, CHAIN_ITERS = 120.0, 50
+
+
+def speech_signal(seconds: float, sr: int, channels: int, seed: int,
+                  gaps=((3.0, 3.6), (7.5, 8.0))):
+    """Seeded speech-like stereo: gliding harmonic tones with a syllable
+    envelope plus noise, a 50 ms lead-in and gaps at 1e-6 (silent to
+    RNNoise, so its freeze path runs), faded over 50 ms; ``[C, S]``."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    n = int(seconds * sr)
+    t = np.arange(n) / sr
+    env = np.ones(n)
+    for a, b in list(gaps) + [(-1.0, 0.05)]:
+        d = np.clip(np.minimum(np.abs(t - a), np.abs(t - b)) / 0.05, 0, 1)
+        env = np.where((t >= a) & (t < b), 0, np.minimum(env, 0.5 - 0.5 * np.cos(np.pi * d)))
+    out = []
+    for c in range(channels):
+        ph = 2 * np.pi * np.cumsum(130 + 25 * c + 40 * np.sin(2 * np.pi * 0.7 * t + c)) / sr
+        x = sum((0.25 / k) * np.sin(k * ph) for k in range(1, 8))
+        x = x * (0.6 + 0.4 * np.sin(2 * np.pi * 2.5 * t)) + 0.03 * rng.standard_normal(n)
+        out.append(x * env + 1e-6 * rng.standard_normal(n))
+    return np.stack(out).astype(np.float32)
+
+
+def reverb_signal(seconds: float, sr: int, seed: int, rt60: float = 0.5):
+    """Seeded stereo through a synthetic exponential-decay room response
+    (-60 dB at ``rt60``), and the mask of its late reverb: samples more
+    than 50 ms after the dry signal stopped, while it is off."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    n = int(seconds * sr)
+    t = np.arange(n) / sr
+    gate = (np.sin(2 * np.pi * 0.8 * t) > 0.2).astype(np.float64)
+    dry = gate * (0.3 * np.sin(2 * np.pi * 250 * t) + 0.1 * rng.standard_normal(n))
+    k = int(rt60 * sr)
+    wet = []
+    for _ in range(2):
+        h = rng.standard_normal(k) * np.exp(-6.9 * np.arange(k) / k)
+        h[0] = 4.0
+        wet.append(np.fft.irfft(np.fft.rfft(dry, 2 * n) * np.fft.rfft(h, 2 * n), 2 * n)[:n])
+    x = np.stack(wet)
+    x = (0.5 * x / np.abs(x).max()).astype(np.float32)
+    since_off = np.zeros(n)
+    run = 0
+    for i in range(n):             # samples since the dry signal stopped
+        run = 0 if gate[i] else run + 1
+        since_off[i] = run
+    return x, (gate == 0) & (since_off > 0.05 * sr)
+
+
+def on_devices(module, name: str, seen: list):
+    """Wrap ``module.name`` so that each call records the device of its
+    first tensor argument in ``seen``; returns the undo."""
+    import torch
+    real = getattr(module, name)
+
+    def wrapper(*args, **kwargs):
+        seen.append(next(a.device.type for a in args if isinstance(a, torch.Tensor)))
+        return real(*args, **kwargs)
+
+    setattr(module, name, wrapper)
+    return lambda: setattr(module, name, real)
+
+
+def ops_dispatched(fn) -> int:
+    """PyTorch operations ``fn()`` dispatches, views left out: on the card
+    each is one or a few kernel launches."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if not func.is_view:
+                Count.n += 1
+            return func(*args, **(kwargs or {}))
+
+    with Count():
+        fn()
+    return Count.n
+
+
+def synced_wall(fn):
+    """(result, host seconds) of ``fn()`` between two synchronisations."""
+    import torch
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t
+
+
+def rnnoise_compare(card, cpu) -> dict:
+    """RNNoise outputs (wave, VAD, periods, silence, band energy) of the
+    card against the CPU's, within the RN_* limits."""
+    import numpy as np
+    wave_c, vad_c, per_c, sil_c, ex_c = card
+    wave_h, vad_h, per_h, sil_h, ex_h = cpu
+    near = np.abs(ex_h - 0.04) <= 1e-3 * 0.04
+    voiced = ~sil_c & ~sil_h
+    r = {"wave_rel_l2": float(np.linalg.norm(wave_c - wave_h) / np.linalg.norm(wave_h)),
+         "wave_max_abs": float(np.abs(wave_c - wave_h).max()),
+         "vad_max_abs": float(np.abs(vad_c - vad_h).max()),
+         "period_flips": np.argwhere((per_c != per_h) & voiced).tolist(),
+         "silence_flips": np.argwhere((sil_c != sil_h) & ~near).tolist(),
+         "silent_frames": int(sil_h.sum()), "frames": int(sil_h.size)}
+    r["ok"] = (r["wave_rel_l2"] <= RN_WAVE_REL and r["wave_max_abs"] <= RN_WAVE_ABS
+               and r["vad_max_abs"] <= RN_VAD and not r["period_flips"]
+               and not r["silence_flips"])
+    return r
+
+
+def rnnoise_run(params, x, device: str):
+    """The engine and its pitch track on ``device``: (wave, VAD, periods,
+    silence, band energy) as host arrays, for ``x [C, T]``."""
+    import torch
+
+    from egregora_tpu_torch.models.rnnoise import model as rn
+    xd = torch.from_numpy(x).to(device)
+    wave, vad, _, ex = rn.denoise_channel_full(params, xd)
+    _, _, pb = rn._front_end(xd)
+    sil = ex.sum(-1) < rn.SILENCE_E
+    per, _ = rn._pitch_loop(rn._pitch_candidates(pb), sil)
+    return tuple(a.cpu().numpy() for a in (wave, vad, per, sil, ex.sum(-1)))
+
+
+def rnnoise_phase() -> dict:
+    """The RNNoise node and engine on the card: the shipped weights
+    asserted loaded (reaching the random-init branch fails); the engine on
+    12 s of seeded 48 kHz speech-like stereo with silent gaps against the
+    same port on the CPU (wave, VAD, periods, silence), beside two planted
+    faults (the silence freeze dropped; z and r swapped in the GRU) that
+    the limits must reject; the node in both stereo modes and at a 16 kHz
+    input against the CPU; the sequential loop per frame step with the
+    operations it dispatches a step, and ``segments=16`` on 60 s of stereo
+    as RTF with the analysis and the two frame loops timed apart."""
+    import numpy as np
+    import torch
+
+    from egregora_tpu_torch.models.rnnoise import model as rn
+    from egregora_tpu_torch.models.rnnoise import train as rt
+    from egregora_tpu_torch.nodes import enhance_extras as ee
+    from egregora_tpu_torch.nodes.base import DeviceNode
+    from egregora_tpu_torch.utils.weights import load_params
+
+    node_cls = ee.Egregora_RNNoise_Denoise
+    node_cls._PARAMS = None
+    real_init = rn.init_params
+
+    def refuse(*args, **kwargs):
+        raise RuntimeError("the RNNoise node reached its random-init branch")
+
+    rn.init_params = refuse
+    try:
+        params = node_cls._params()
+    finally:
+        rn.init_params = real_init
+    shipped = load_params(rt.pretrained_path())
+    if not all(np.array_equal(params[m][k], shipped[m][k]) for m in shipped for k in shipped[m]):
+        raise RuntimeError("the RNNoise node does not serve the shipped weights")
+    log(f"rnnoise: the node serves the shipped weights ({rt.pretrained_path().name}, "
+        f"{rt.pretrained_path().stat().st_size} bytes)")
+
+    failures, results = [], {}
+    x = speech_signal(RN_SECONDS, 48000, 2, seed=21)
+    cpu = rnnoise_run(params, x, "cpu")
+    card = rnnoise_run(params, x, "cuda")
+    r = rnnoise_compare(card, cpu)
+    results["engine"] = r
+    log(f"rnnoise engine, 12 s 48 kHz stereo, card vs CPU: wave rel L2 {r['wave_rel_l2']:.3e} "
+        f"(limit {RN_WAVE_REL:g}), max|d| {r['wave_max_abs']:.3e} (limit {RN_WAVE_ABS:g}), VAD "
+        f"max|d| {r['vad_max_abs']:.3e} (limit {RN_VAD:g}), period flips {r['period_flips']}, "
+        f"silence flips {r['silence_flips']} ({r['silent_frames']} of {r['frames']} frames "
+        f"silent) {'ok' if r['ok'] else 'FAIL'}")
+    if not r["ok"]:
+        failures.append(f"rnnoise engine card vs CPU: {r}")
+    if not 0 < r["silent_frames"] < r["frames"]:
+        failures.append(f"rnnoise: the test signal has {r['silent_frames']} silent frames")
+
+    def swapped(h, xw, recurrent):
+        u = h.shape[-1]
+        perm = torch.cat([torch.arange(u, 2 * u), torch.arange(u),
+                          torch.arange(2 * u, 3 * u)]).to(h.device)
+        return real_update(h, xw[..., perm], recurrent[..., perm])
+
+    real_update, real_hold = rn._gru_update, rn._hold
+    for fault, name, planted in (("silence freeze dropped", "_hold", lambda s, old, new: new),
+                                 ("z and r swapped in the GRU", "_gru_update", swapped)):
+        setattr(rn, name, planted)
+        try:
+            bad = rnnoise_compare(rnnoise_run(params, x, "cuda"), cpu)
+        finally:
+            rn._gru_update, rn._hold = real_update, real_hold
+        results[f"planted: {fault}"] = bad
+        log(f"rnnoise planted fault ({fault}): wave rel L2 {bad['wave_rel_l2']:.3e}, VAD "
+            f"max|d| {bad['vad_max_abs']:.3e} {'NOT REJECTED' if bad['ok'] else 'rejected'}")
+        if bad["ok"]:
+            failures.append(f"the RNNoise limits do not reject the planted fault: {fault}")
+
+    seen = []
+    undo = on_devices(rn, "denoise", seen)
+    try:
+        for label, sr, mode in (("48 kHz stereo, per_channel", 48000, "per_channel"),
+                                ("48 kHz stereo, downmix_mono", 48000, "downmix_mono"),
+                                ("16 kHz stereo, per_channel", 16000, "per_channel")):
+            xs = x if sr == 48000 else speech_signal(RN_SECONDS, sr, 2, seed=22)
+            audio = {"waveform": torch.from_numpy(xs[None]), "sample_rate": sr}
+            outs = {}
+            for dev in ("cuda", "cpu", "cuda"):
+                DeviceNode.DEVICE = dev
+                (out, wall) = synced_wall(lambda: node_cls().execute(audio, stereo_mode=mode))
+                outs[dev] = (out[0]["waveform"].numpy(), wall)
+            DeviceNode.DEVICE = "cuda"
+            (g, wall), (h, cpu_wall) = outs["cuda"], outs["cpu"]
+            rel = float(np.linalg.norm(g - h) / np.linalg.norm(h))
+            shape = (1, 2 if mode == "per_channel" else 1, xs.shape[1])
+            ok = g.shape == shape and bool(np.isfinite(g).all()) and rel <= RN_WAVE_REL
+            results[f"node {label}"] = {"warm_wall_s": wall, "cpu_wall_s": cpu_wall,
+                                        "rel_l2": rel, "rtf": RN_SECONDS / wall}
+            log(f"rnnoise node {label}: warm {wall:.3f} s on the card (RTF "
+                f"{RN_SECONDS / wall:.1f}x; CPU {cpu_wall:.2f} s), out {g.shape}, card vs CPU "
+                f"rel L2 {rel:.3e} (limit {RN_WAVE_REL:g}) {'ok' if ok else 'FAIL'}")
+            if not ok:
+                failures.append(f"rnnoise node {label}: {g.shape}, rel L2 {rel}")
+    finally:
+        undo()
+        DeviceNode.DEVICE = "cuda"
+    if seen.count("cuda") != 6 or seen.count("cpu") != 3:
+        failures.append(f"rnnoise node: the engine ran on {seen}")
+
+    # timing: the sequential loop, and the segmented one on bench.py's shape
+    xd = torch.from_numpy(x).cuda()
+    frames = xd.shape[1] // rn.FRAME
+    rn.denoise(params, xd, segments=1)
+    _, seq_wall = synced_wall(lambda: rn.denoise(params, xd, segments=1))
+    half = xd[:, : xd.shape[1] // 2]
+    per_step = (ops_dispatched(lambda: rn.denoise(params, xd, segments=1))
+                - ops_dispatched(lambda: rn.denoise(params, half, segments=1))) / (frames - frames // 2)
+    results["sequential"] = {"wall_s": seq_wall, "frames": frames,
+                             "ms_per_frame_step": 1e3 * seq_wall / frames,
+                             "ops_per_frame_step": per_step, "rtf": RN_SECONDS / seq_wall}
+    x60 = torch.from_numpy(speech_signal(RN_LONG_SECONDS, 48000, 2, seed=23)).cuda()
+    rn.denoise(params, x60, segments=RN_SEGMENTS)
+    loops = {"_pitch_loop": 0.0, "_gru_loop": 0.0}
+    reals = {name: getattr(rn, name) for name in loops}
+
+    def timed(name):
+        def f(*args, **kwargs):
+            out, wall = synced_wall(lambda: reals[name](*args, **kwargs))
+            loops[name] += wall
+            return out
+        return f
+
+    for name in loops:
+        setattr(rn, name, timed(name))
+    try:
+        _, long_wall = synced_wall(lambda: rn.denoise(params, x60, segments=RN_SEGMENTS))
+    finally:
+        for name, fn in reals.items():
+            setattr(rn, name, fn)
+    _, long_plain = synced_wall(lambda: rn.denoise(params, x60, segments=RN_SEGMENTS))
+    steps = -(-(x60.shape[1] // rn.FRAME) // RN_SEGMENTS) + 100
+    results["segments_16"] = {"wall_s": long_plain, "rtf": RN_LONG_SECONDS / long_plain,
+                              "pitch_loop_s": loops["_pitch_loop"],
+                              "gru_loop_s": loops["_gru_loop"],
+                              "rest_s": long_wall - sum(loops.values()), "steps": steps}
+    log(f"rnnoise timing: segments=1 on 12 s stereo {seq_wall:.3f} s ({frames} frame steps, "
+        f"{1e3 * seq_wall / frames:.3f} ms a step, {per_step:.1f} operations dispatched a step; "
+        f"RTF {RN_SECONDS / seq_wall:.1f}x); segments={RN_SEGMENTS} on 60 s stereo "
+        f"{long_plain:.3f} s (RTF {RN_LONG_SECONDS / long_plain:.1f}x; {steps} steps a loop; "
+        f"timed apart: pitch loop {loops['_pitch_loop']:.3f} s, GRU loop "
+        f"{loops['_gru_loop']:.3f} s, analysis and synthesis "
+        f"{long_wall - sum(loops.values()):.3f} s)")
+    if failures:
+        raise RuntimeError("; ".join(failures))
+    return results
+
+
+def fatllama_phase() -> dict:
+    """The Fat Llama GPU node on 30 s of 16 kHz mono at its defaults
+    (factor 6, n_up 2 880 000 = 1600 x 1800, the fold loop, 300
+    iterations), timed as iterations a second; the engine at 20 iterations
+    on the card against the CPU, on the fold loop and on a length padded
+    to a power of two (one cuFFT pair an iteration), beside the planted
+    fault of observations clamped one sample late; the CPU node once, its
+    engine asserted on the CPU."""
+    import numpy as np
+    import torch
+
+    import tempfile
+    import wave
+    from pathlib import Path
+
+    from egregora_tpu_torch.nodes import spectral_enhance as se
+    from egregora_tpu_torch.ops import spectral as sp
+    from egregora_tpu_torch.utils import native
+
+    sr = 16000
+    n = int(FL_SECONDS * sr)
+    x = (0.3 * np.sin(2 * np.pi * 220 * np.arange(n) / sr)).astype(np.float32)[None]
+    factor = sp.upscale_factor(sr, 1, 1411)
+    if factor != 6 or not sp.fold_loop(n * factor, factor, True):
+        raise RuntimeError(f"Fat Llama: factor {factor}, fold loop "
+                           f"{sp.fold_loop(n * factor, factor, True)} at 30 s of 16 kHz mono")
+    audio = {"waveform": torch.from_numpy(x[None]), "sample_rate": sr}
+    args = dict(target_format="wav", max_iterations=FL_ITERS, threshold_value=0.6,
+                target_bitrate_kbps=1411)
+    seen, failures, results = [], [], {}
+    undo = on_devices(se, "spectral_enhance", seen)
+    try:
+        se.EgregoraFatLlamaGPU().run(**args, AUDIO=audio)
+        (out,), wall = synced_wall(lambda: se.EgregoraFatLlamaGPU().run(**args, AUDIO=audio))
+        y = out["waveform"].numpy()
+        with tempfile.TemporaryDirectory() as d:     # the CPU node reads a WAV file
+            path = Path(d) / "fatllama.wav"
+            with wave.open(str(path), "wb") as w:
+                w.setnchannels(1)
+                w.setsampwidth(2)
+                w.setframerate(sr)
+                w.writeframes((x[0, :2 * sr] * 32767).astype("<i2").tobytes())
+            (cpu_out,), cpu_wall = synced_wall(lambda: se.EgregoraFatLlamaCPU().run(
+                target_format="wav", max_iterations=FL_CHECK_ITERS, threshold_value=0.6,
+                target_bitrate_kbps=1411, audio_path=str(path)))
+    finally:
+        undo()
+    codec = native.load()
+    log(f"fatllama: the CPU node read its WAV through "
+        f"{'the native codec, built at ' + str(native.library_path()) if codec else 'the stdlib wave fallback (no native codec: ' + str(native.library_path()) + ' not built)'}")
+    xd = torch.from_numpy(x).cuda()
+    sp.spectral_enhance(xd, factor, FL_ITERS, 0.6, use_matmul_fft=True)
+    _, engine_wall = synced_wall(lambda: sp.spectral_enhance(xd, factor, FL_ITERS, 0.6,
+                                                             use_matmul_fft=True))
+    per_iter = (ops_dispatched(lambda: sp.ist_upscale(xd, factor, 20, 0.6, True))
+                - ops_dispatched(lambda: sp.ist_upscale(xd, factor, 10, 0.6, True))) / 10
+    ok = (y.shape == (1, 1, n * factor) and out["sample_rate"] == sr * factor
+          and bool(np.isfinite(y).all()) and seen == ["cuda", "cuda", "cpu"]
+          and cpu_out["waveform"].shape == (1, 1, 2 * sr * factor))
+    results["node"] = {"warm_wall_s": wall, "iters_per_s": FL_ITERS / wall,
+                       "engine_wall_s": engine_wall, "engine_iters_per_s": FL_ITERS / engine_wall,
+                       "ops_per_iteration": per_iter, "cpu_node_wall_s": cpu_wall}
+    log(f"fatllama GPU node, 30 s 16 kHz mono to 96 kHz (n_up {n * factor}, fold loop, "
+        f"{FL_ITERS} iterations): warm {wall:.3f} s, {FL_ITERS / wall:.0f} iterations/s; the "
+        f"engine alone {engine_wall:.4f} s, {FL_ITERS / engine_wall:.0f} iterations/s, "
+        f"{per_iter:.1f} operations dispatched an iteration; out {y.shape} @ "
+        f"{out['sample_rate']} Hz; CPU node (2 s, {FL_CHECK_ITERS} iterations) {cpu_wall:.2f} s; "
+        f"engine devices {seen} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append(f"Fat Llama node: {y.shape}, engines on {seen}")
+
+    def late(z, y_obs, f):
+        z[:, 1: y_obs.shape[1] * f: f] = y_obs
+        return z
+
+    xp = np.concatenate([x, x[:, :1]], 1)        # 480001 samples: 4194304-point transforms
+    for label, xx in (("fold loop", x), ("padded to 2^22, a cuFFT pair an iteration", xp)):
+        n_up = xx.shape[1] * factor
+        kw = dict(use_matmul_fft=True)
+        host = sp.spectral_enhance(torch.from_numpy(xx), factor, FL_CHECK_ITERS, 0.6, **kw)
+        card = sp.spectral_enhance(torch.from_numpy(xx).cuda(), factor, FL_CHECK_ITERS, 0.6, **kw)
+        err = float((card.cpu() - host).abs().max())
+        real = sp._clamp_observed
+        sp._clamp_observed = late
+        try:
+            bad = sp.spectral_enhance(torch.from_numpy(xx).cuda(), factor, FL_CHECK_ITERS, 0.6, **kw)
+        finally:
+            sp._clamp_observed = real
+        bad_err = float((bad.cpu() - host).abs().max())
+        fold = sp.fold_loop(n_up, factor, True)
+        results[label] = {"n_up": n_up, "transform": sp.transform_length(n_up), "fold": fold,
+                          "max_abs_err": err, "planted_max_abs_err": bad_err}
+        ok = err <= FL_ABS and bad_err > FL_ABS and fold == (label == "fold loop")
+        log(f"fatllama engine {label} (n_up {n_up}, transform {sp.transform_length(n_up)}), "
+            f"{FL_CHECK_ITERS} iterations, card vs CPU max|d| {err:.3e} (limit {FL_ABS:g}); "
+            f"planted fault (observations clamped one sample late) {bad_err:.3e} "
+            f"{'rejected' if bad_err > FL_ABS else 'NOT REJECTED'} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"Fat Llama {label}: {results[label]}")
+    if failures:
+        raise RuntimeError("; ".join(failures))
+    return results
+
+
+def wpe_phase() -> dict:
+    """WPE on 20 s of seeded 48 kHz stereo through a synthetic
+    exponential-decay room: ``wpe_dereverb`` called directly, then the
+    node at its defaults (taps 10, delay 3, 3 iterations, n_fft 1024, hop
+    256) on the card, which must equal the direct call (so its passthrough
+    on an exception cannot hide a failure), differ from its input and
+    lower the late-reverb energy; the card against the CPU."""
+    import numpy as np
+    import torch
+
+    from egregora_tpu_torch.models import wpe as W
+    from egregora_tpu_torch.nodes import enhance_extras as ee
+    from egregora_tpu_torch.nodes.base import DeviceNode
+
+    x, late = reverb_signal(WPE_SECONDS, 48000, seed=31)
+    xd = torch.from_numpy(x).cuda()
+    W.wpe_dereverb(xd)
+    direct, direct_wall = synced_wall(lambda: W.wpe_dereverb(xd))
+    audio = {"waveform": torch.from_numpy(x[None]), "sample_rate": 48000}
+    seen = []
+    DeviceNode.DEVICE = "cuda"
+    undo = on_devices(W, "wpe_dereverb", seen)
+    try:
+        (out,), node_wall = synced_wall(lambda: ee.Egregora_WPE_Dereverb().execute(audio))
+    finally:
+        undo()
+    got = out["waveform"].numpy()[0]
+    direct = direct.cpu().numpy()
+    (host,), cpu_wall = synced_wall(lambda: (W.wpe_dereverb(torch.from_numpy(x)).numpy(),))
+    node_err = float(np.abs(got - direct).max())
+    cpu_err = float(np.abs(direct - host).max())
+    change = float(np.abs(got - x).max())
+    e_in, e_out = float(np.square(x[:, late]).sum()), float(np.square(got[:, late]).sum())
+    ok = (seen == ["cuda"] and node_err <= WPE_NODE_ABS and cpu_err <= WPE_CPU_ABS
+          and change > 1e-2 and e_out < e_in and bool(np.isfinite(got).all()))
+    log(f"wpe, 20 s 48 kHz stereo (defaults): direct {direct_wall:.3f} s warm, node "
+        f"{node_wall:.3f} s on the card (CPU {cpu_wall:.2f} s); node vs direct max|d| "
+        f"{node_err:.3e} (limit {WPE_NODE_ABS:g}), card vs CPU {cpu_err:.3e} (limit "
+        f"{WPE_CPU_ABS:g}); max change {change:.3f}; late-reverb energy {e_in:.4g} -> "
+        f"{e_out:.4g} ({10 * math.log10(e_out / e_in):+.2f} dB); engine on {seen} "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise RuntimeError(f"wpe: node {node_err}, CPU {cpu_err}, change {change}, late "
+                           f"{e_in} -> {e_out}, devices {seen}")
+    return {"direct_wall_s": direct_wall, "node_wall_s": node_wall, "cpu_wall_s": cpu_wall,
+            "node_max_abs_err": node_err, "cpu_max_abs_err": cpu_err,
+            "late_reverb_db": 10 * math.log10(e_out / e_in)}
+
+
+def chain_phase() -> dict:
+    """The full chain as a user wires the nodes, on 120 s of seeded 16 kHz
+    mono (``bench.py``'s input): the RNNoise node
+    (``EGREGORA_RNNOISE_SEGMENTS=16``), the upscaler (the default istft
+    trio) to 48 kHz, the Fat Llama GPU node (1411 kbps at 48 kHz mono:
+    factor 2, n_up 11 520 000 = 3200 x 3600, 50 iterations) to 96 kHz,
+    then the loudness meter and LSD / SI-SDR against the input resampled
+    to 96 kHz; cold, then warm with every stage timed and the kernels'
+    launches counted by shape."""
+    import numpy as np
+    import torch
+
+    from egregora_tpu_torch.eval.metrics import lsd_sisdr_report
+    from egregora_tpu_torch.nodes import enhance_extras as ee
+    from egregora_tpu_torch.nodes import eval_pack as ep
+    from egregora_tpu_torch.nodes import spectral_enhance as se
+    from egregora_tpu_torch.nodes import super_resolution
+    from egregora_tpu_torch.nodes.base import DeviceNode
+    from egregora_tpu_torch.ops.resample import resample
+
+    rng = np.random.default_rng(6)
+    x16 = (rng.standard_normal((1, int(16000 * CHAIN_SECONDS))) * 0.1).astype(np.float32)
+    audio = {"waveform": torch.from_numpy(x16[None]), "sample_rate": 16000}
+    set_env(EGREGORA_RNNOISE_SEGMENTS=str(RN_SEGMENTS), EGREGORA_FLASHSR_VARIANT=None,
+            EGREGORA_FUSED_VOCODER=None, EGREGORA_MRF_PATH=None)
+    up_cls = super_resolution.NODE_CLASS_MAPPINGS["EgregoraAudioUpscaler"]
+    up_cls._PIPE = None
+    DeviceNode.DEVICE = "cuda"
+    n96 = int(96000 * CHAIN_SECONDS)
+
+    def chain():
+        stages = {}
+        (den,), stages["rnnoise"] = synced_wall(lambda: ee.Egregora_RNNoise_Denoise().execute(
+            audio, strength=0.8))
+        (up,), stages["flashsr"] = synced_wall(lambda: up_cls().run(den, False, "48000"))
+        (out,), stages["fat llama"] = synced_wall(lambda: se.EgregoraFatLlamaGPU().run(
+            "wav", CHAIN_ITERS, 0.6, 1411, True, True, AUDIO=up))
+        (loud,), stages["loudness"] = synced_wall(lambda: ep.Loudness_Meter_1770().execute(out))
+
+        def metrics():
+            ref = resample(torch.from_numpy(x16).cuda(), 16000, 96000)
+            y = out["waveform"][0].cuda()
+            n = min(ref.shape[1], y.shape[1])
+            return {k: float(v) for k, v in lsd_sisdr_report(ref[0, :n], y[0, :n]).items()}
+
+        rep, stages["lsd / si-sdr"] = synced_wall(metrics)
+        return den, up, out, loud, rep, stages
+
+    try:
+        _, cold = synced_wall(chain)
+        reset_counts()
+        (den, up, out, loud, rep, stages), wall = synced_wall(chain)
+        counts = read_counts()
+    finally:
+        set_env(EGREGORA_RNNOISE_SEGMENTS=None)
+    y = out["waveform"].numpy()
+    finite = bool(np.isfinite(y).all()) and all(math.isfinite(v) for v in
+                                                list(loud.values()) + list(rep.values()))
+    others = {k: v for k, v in counts.items() if k not in ("attn_rows", "iir_lowpass") and v}
+    k4_expect = {(1, n96): 4}
+    ok = (y.shape == (1, 1, n96) and out["sample_rate"] == 96000 and finite
+          and up["sample_rate"] == 48000 and den["sample_rate"] == 16000
+          and counts["iir_lowpass"] == k4_expect and counts["attn_rows"] and not others)
+    log(f"full chain, 120 s 16 kHz mono -> RNNoise -> FlashSR 48 kHz -> Fat Llama 96 kHz -> "
+        f"loudness, LSD/SI-SDR: cold {cold:.3f} s, warm {wall:.3f} s (RTF "
+        f"{CHAIN_SECONDS / wall:.1f}x); stages " + ", ".join(
+            f"{k} {v:.3f} s (RTF {CHAIN_SECONDS / v:.0f}x)" for k, v in stages.items())
+        + f"; out {y.shape} @ {out['sample_rate']} Hz, finite {finite}; loudness "
+        f"{ {k: round(v, 3) for k, v in loud.items()} }; metrics {rep}; launches {counts} "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise RuntimeError(f"full chain: out {y.shape} @ {out['sample_rate']}, finite {finite}, "
+                           f"launches {counts} (K4 expected {k4_expect})")
+    return {"cold_s": cold, "warm_s": wall, "rtf": CHAIN_SECONDS / wall, "stages": stages,
+            "loudness": loud, "metrics": rep, "counts": counts}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2478,6 +3035,8 @@ def main() -> int:
     converted = converted_phase()
     evals = eval_phase()
     labs = lab_phase()
+    enhance = {"rnnoise": rnnoise_phase(), "fat llama": fatllama_phase(), "wpe": wpe_phase()}
+    chain = chain_phase()
 
     attn_counts = collections.Counter(pipe["counts"])
     attn_paths = {"full config (seeded weights)": pipe["launches"]}
@@ -2491,6 +3050,17 @@ def main() -> int:
     rows = collections.Counter(nodes["HiFi-GAN trio, rows MRF"]["counts"]["mrf_rows"])
     conv_rows = converted["paths"]["rows MRF"]["counts"]["mrf_rows"]
     rows.update(conv_rows)
+    chain_attn = chain["counts"]["attn_rows"]
+    attn_counts.update(chain_attn)
+    attn_paths["full chain"] = sum(chain_attn.values())
+    gen = torch.Generator().manual_seed(1)
+    heads = SERVED_ATTN[0]          # the istft trio's one attention block
+    measured = {(r["bh"], r["n"], r["d"]) for r in attn_rows_}
+    attn_rows_ += [attn_shape_row(bh // heads, heads, n, d, gen)
+                   for bh, n, d in chain_attn if (bh, n, d) not in measured]
+    k4_counts = collections.Counter(evals["k4_counts"])
+    k4_counts.update(chain["counts"]["iir_lowpass"])
+    k4_paths = {**evals["k4_by_path"], "full chain": sum(chain["counts"]["iir_lowpass"].values())}
     k1b_counts = labs["attn_flash_lab"]["counts"]["flash_online"]
     k3_counts = labs["edge_conv_lab"]["counts"]["conv3x3_out1"]
     kernels = [attn_entry(attn_rows_, dict(attn_counts), attn_paths),
@@ -2500,7 +3070,7 @@ def main() -> int:
                mrf_entry("mrf_rows", mrf_rows_, dict(rows),
                          {"HiFi-GAN trio, rows MRF": sum(rows.values()) - sum(conv_rows.values()),
                           "converted trio, rows MRF": sum(conv_rows.values())}),
-               iir_entry(k4_rows, evals["k4_counts"], evals["k4_by_path"]),
+               iir_entry(k4_rows, dict(k4_counts), k4_paths),
                edge_entry("flash_online", edge["flash_online"], k1b_counts,
                           {"attn_flash_lab": sum(k1b_counts.values())}),
                edge_entry("conv3x3_out1", edge["conv3x3_out1"], k3_counts,
@@ -2527,6 +3097,10 @@ def main() -> int:
     log(f"eval nodes, warm on {card}: " + "; ".join(
         f"{label} {r['warm_wall_s']:.4f} s" for label, r in evals["nodes"].items()
         if "warm_wall_s" in r))
+    log(f"enhance chain on {card}: " + json.dumps(
+        {"rnnoise": {k: v for k, v in enhance["rnnoise"].items() if not k.startswith("planted")},
+         "fat llama": enhance["fat llama"]["node"], "wpe": enhance["wpe"],
+         "full chain": {k: v for k, v in chain.items() if k != "counts"}}))
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
     log(card)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -6,7 +6,9 @@ for the CPU; each hand-written kernel (``csrc/``) has a plain PyTorch
 version that runs for CPU tensors.  Ported so far: the FlashSR node with
 the shipped weights and its pipeline (``models.flashsr.pipeline``), the
 eval pack and the null-test suite (``eval/``, ``nodes.eval_pack``,
-``nodes.null_suite``).
+``nodes.null_suite``), the Fat Llama spectral-enhance nodes
+(``ops.spectral``, ``nodes.spectral_enhance``), and the RNNoise and WPE
+nodes (``models.rnnoise``, ``models.wpe``, ``nodes.enhance_extras``).
 
 The node registry: ``NODE_CLASS_MAPPINGS`` / ``NODE_DISPLAY_NAME_MAPPINGS``
 merge every ported node module's maps; a module that fails to import
@@ -19,7 +21,8 @@ import importlib
 NODE_CLASS_MAPPINGS: dict = {}
 NODE_DISPLAY_NAME_MAPPINGS: dict = {}
 
-NODE_MODULES = ("super_resolution", "eval_pack", "null_suite")
+NODE_MODULES = ("super_resolution", "eval_pack", "null_suite", "spectral_enhance",
+                "enhance_extras")
 
 
 def _merge(module_name: str) -> None:

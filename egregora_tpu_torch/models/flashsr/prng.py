@@ -89,8 +89,24 @@ def erfinv_f32(x: np.ndarray) -> np.ndarray:
     return np.where(np.abs(x) == 1.0, x * np.float32(np.inf), out).astype(np.float32)
 
 
+def split(key: np.ndarray, num: int = 2) -> np.ndarray:
+    """``jax.random.split(key, num)``: key ``i`` is the cipher of the
+    counter ``i`` as a (hi, lo) pair, both words kept -> ``[num, 2]``."""
+    idx = np.arange(int(num), dtype=np.uint64)
+    hi = (idx >> np.uint64(32)).astype(np.uint32)
+    lo = (idx & np.uint64(0xFFFFFFFF)).astype(np.uint32)
+    with np.errstate(over="ignore"):
+        b0, b1 = threefry2x32(key, hi, lo)
+    return np.stack([b0, b1], axis=-1)
+
+
+def normal_from_key(key: np.ndarray, shape) -> np.ndarray:
+    """``jax.random.normal(key, shape, float32)`` for a raw key ``[2]``."""
+    lo = np.nextafter(np.float32(-1.0), np.float32(0.0))
+    u = uniform(key, tuple(shape), lo, 1.0)
+    return (np.float32(np.sqrt(2)) * erfinv_f32(u)).astype(np.float32)
+
+
 def normal(seed: int, shape) -> np.ndarray:
     """``jax.random.normal(jax.random.PRNGKey(seed), shape, float32)``."""
-    lo = np.nextafter(np.float32(-1.0), np.float32(0.0))
-    u = uniform(prng_key(seed), tuple(shape), lo, 1.0)
-    return (np.float32(np.sqrt(2)) * erfinv_f32(u)).astype(np.float32)
+    return normal_from_key(prng_key(seed), shape)

@@ -1,0 +1,197 @@
+"""Enhance Extras nodes: the ``Egregora_RNNoise_Denoise`` and
+``Egregora_WPE_Dereverb`` keys.
+
+Counterpart of ``egregora_tpu/nodes/enhance_extras.py`` (the DeepFilterNet
+and DAC nodes are not ported yet), with the same keys, widgets, defaults,
+display names and meta.  Both run on ``DEVICE``, the card unless a caller
+sets ``"cpu"`` (``nodes.base.DeviceNode``).  A ``[B, C, T]`` batch is
+folded into channels; the cross-channel steps (the mono downmix, WPE's
+mic array) run per batch item.
+
+* RNNoise: resample to 48 kHz, optional per-item mono downmix, the
+  denoiser (``models.rnnoise.model.denoise``; ``EGREGORA_RNNOISE_SEGMENTS=N``
+  runs its frame recurrence as N warmed-up segments), the VAD pooled over
+  ``frame_ms`` / 10 engine frames, the adaptive wet/dry mix
+  (``ops.mix``), resample back, post gain and limiter.  With no shipped
+  weights it warns and serves random-init parameters, as the JAX node does.
+* WPE: ``models.wpe.wpe_dereverb`` per batch item; on an exception it
+  warns and passes the input through, as the JAX node does.
+"""
+from __future__ import annotations
+
+import os
+from typing import Tuple
+
+import numpy as np
+import torch
+
+from ..core.audio import from_any
+from ..ops.mix import adaptive_mix, post_gain_limit
+from ..ops.resample import resample
+from .base import DeviceNode, comfy_audio, host
+
+CATEGORY = "Egregora/Enhance"
+
+
+def _coerce_bct(x, device="cpu") -> Tuple[torch.Tensor, int, dict]:
+    """AUDIO -> ([C, T] float32 on ``device``, sr, meta), a batch folded
+    into channels (``meta["batch"]``)."""
+    buf = from_any(x)
+    cn = torch.from_numpy(np.ascontiguousarray(buf.numpy(), np.float32)).to(device)
+    return cn, buf.sample_rate, dict(buf.meta)
+
+
+def _batch_shape(folded_channels: int, meta: dict) -> Tuple[int, int]:
+    """``(B, C)`` for a folded ``[B*C, T]`` array."""
+    b = int(meta.get("batch", 1) or 1)
+    if b > 1 and folded_channels % b == 0:
+        return b, folded_channels // b
+    return 1, folded_channels
+
+
+def _downmix_mono(x_bct: torch.Tensor, meta: dict) -> torch.Tensor:
+    """Per-item mono downmix of a folded ``[B*C, T]`` array -> ``[B, T]``."""
+    b, c = _batch_shape(x_bct.shape[0], meta)
+    if b == 1:
+        return x_bct.mean(0, keepdim=True)
+    return x_bct.reshape(b, c, -1).mean(1)
+
+
+class Egregora_RNNoise_Denoise(DeviceNode):
+    """48 kHz RNNoise-class denoiser with VAD-adaptive wet/dry mix."""
+
+    _PARAMS = None  # class-level weight cache
+
+    @classmethod
+    def INPUT_TYPES(cls):
+        return {
+            "required": {
+                "audio": ("AUDIO",),
+                "frame_ms": ("INT", {"default": 20, "min": 5, "max": 60, "step": 5}),
+                "stereo_mode": (["per_channel", "downmix_mono"], {"default": "per_channel"}),
+                "strength": ("FLOAT", {"default": 1.0, "min": 0.0, "max": 1.0, "step": 0.01}),
+                "mix_curve": (["equal_power", "linear"], {"default": "equal_power"}),
+                "adaptive_mode": (["off", "more_on_noise", "more_on_speech", "gate_on_noise"],
+                                  {"default": "more_on_noise"}),
+                "adaptive_amount": ("FLOAT", {"default": 0.5, "min": 0.0, "max": 1.0, "step": 0.01}),
+                "vad_threshold": ("FLOAT", {"default": 0.90, "min": 0.0, "max": 1.0, "step": 0.01}),
+                "vad_smooth_ms": ("INT", {"default": 50, "min": 0, "max": 500, "step": 5}),
+                "post_gain_db": ("FLOAT", {"default": 0.0, "min": -24.0, "max": 24.0, "step": 0.1}),
+                "limit_ceiling": ("BOOLEAN", {"default": True}),
+                "ceiling": ("FLOAT", {"default": 0.999, "min": 0.1, "max": 1.0, "step": 0.001}),
+            }
+        }
+
+    RETURN_TYPES = ("AUDIO",)
+    FUNCTION = "execute"
+    CATEGORY = CATEGORY
+
+    @classmethod
+    def _params(cls):
+        if cls._PARAMS is None:
+            from ..models.rnnoise.train import load_pretrained
+            cls._PARAMS = load_pretrained()
+            if cls._PARAMS is None:
+                from ..models.rnnoise.model import init_params
+                print("[egregora] WARNING: no shipped RNNoise weights "
+                      "found — serving RANDOM-INIT denoiser params; "
+                      "output will not be denoised", flush=True)
+                cls._PARAMS = init_params(0)
+        return cls._PARAMS
+
+    def execute(self, audio, frame_ms=20, stereo_mode="per_channel", strength=1.0,
+                mix_curve="equal_power", adaptive_mode="more_on_noise",
+                adaptive_amount=0.5, vad_threshold=0.90, vad_smooth_ms=50,
+                post_gain_db=0.0, limit_ceiling=True, ceiling=0.999):
+        from ..models.rnnoise.model import FRAME, denoise
+
+        cn, sr, meta = _coerce_bct(audio, self.DEVICE)
+        x48 = resample(cn, sr, 48000) if sr != 48000 else cn
+        if stereo_mode == "downmix_mono":
+            x48 = _downmix_mono(x48, meta)
+
+        t = x48.shape[1]
+        xp = torch.nn.functional.pad(x48, (0, (-t) % FRAME))
+        segs = max(1, int(os.environ.get("EGREGORA_RNNOISE_SEGMENTS", "1")))
+        wet, vads = denoise(self._params(), xp, segments=segs)
+        wet = wet[:, :t]
+
+        # the VAD decision on a frame_ms grid: mean-pool over frame_ms / 10
+        # engine frames (the last group padded with its edge value)
+        group = max(1, int(frame_ms) // 10)
+        if group > 1:
+            f = vads.shape[1]
+            vp = torch.cat([vads, vads[:, -1:].expand(-1, (-f) % group)], 1)
+            vp = vp.reshape(vads.shape[0], -1, group).mean(-1)
+            vads = torch.repeat_interleave(vp, group, dim=1)[:, :f]
+
+        y48 = torch.stack([
+            adaptive_mix(x48[c], wet[c], vads[c], strength=float(strength),
+                         mix_curve=str(mix_curve), adaptive_mode=str(adaptive_mode),
+                         adaptive_amount=float(adaptive_amount),
+                         vad_threshold=float(vad_threshold),
+                         vad_smooth_ms=float(vad_smooth_ms), frame_hop=FRAME)
+            for c in range(x48.shape[0])])
+        y = resample(y48, 48000, sr) if sr != 48000 else y48
+        y = post_gain_limit(y, float(post_gain_db), bool(limit_ceiling), float(ceiling))
+
+        meta2 = dict(meta)
+        meta2["rnnoise"] = {
+            "frame_ms": frame_ms, "stereo_mode": stereo_mode, "strength": strength,
+            "mix_curve": mix_curve, "adaptive_mode": adaptive_mode,
+            "adaptive_amount": adaptive_amount, "vad_threshold": vad_threshold,
+            "vad_smooth_ms": vad_smooth_ms, "post_gain_db": post_gain_db,
+            "limit_ceiling": bool(limit_ceiling), "ceiling": ceiling,
+        }
+        return (comfy_audio(sr, host(y), meta2),)
+
+
+class Egregora_WPE_Dereverb(DeviceNode):
+    @classmethod
+    def INPUT_TYPES(cls):
+        return {
+            "required": {
+                "audio": ("AUDIO",),
+                "taps": ("INT", {"default": 10, "min": 3, "max": 32}),
+                "delay": ("INT", {"default": 3, "min": 1, "max": 16}),
+                "iterations": ("INT", {"default": 3, "min": 1, "max": 10}),
+                "n_fft": ("INT", {"default": 1024, "min": 256, "max": 4096, "step": 256}),
+                "hop": ("INT", {"default": 256, "min": 64, "max": 1024, "step": 64}),
+                "use_float32": ("BOOLEAN", {"default": True}),
+            }
+        }
+
+    RETURN_TYPES = ("AUDIO",)
+    FUNCTION = "execute"
+    CATEGORY = CATEGORY
+
+    def execute(self, audio, taps=10, delay=3, iterations=3, n_fft=1024, hop=256,
+                use_float32=True):
+        from ..models.wpe import wpe_dereverb
+
+        cn, sr, meta = _coerce_bct(audio, self.DEVICE)
+        try:
+            # each batch item is its own mic array of C channels
+            b, c = _batch_shape(cn.shape[0], meta)
+            items = cn.reshape(b, c, -1)
+            z = torch.cat([wpe_dereverb(items[i], taps=int(taps), delay=int(delay),
+                                        iterations=int(iterations), n_fft=int(n_fft),
+                                        hop=int(hop))
+                           for i in range(b)], 0)
+        except Exception as e:  # graceful passthrough, as the reference node
+            print(f"Warning: WPE processing failed: {e}")
+            z = cn
+        meta2 = dict(meta)
+        meta2["wpe"] = {"taps": taps, "delay": delay, "iterations": iterations,
+                        "n_fft": n_fft, "hop": hop}
+        return (comfy_audio(sr, host(z), meta2),)
+
+
+NODE_CLASS_MAPPINGS = {
+    "Egregora_RNNoise_Denoise": Egregora_RNNoise_Denoise,
+    "Egregora_WPE_Dereverb": Egregora_WPE_Dereverb,
+}
+NODE_DISPLAY_NAME_MAPPINGS = {
+    "Egregora_RNNoise_Denoise": "Egregora RNNoise Denoise",
+    "Egregora_WPE_Dereverb": "Egregora WPE Dereverb",
+}

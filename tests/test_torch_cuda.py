@@ -495,3 +495,74 @@ def test_conv3x3_out1_rejects_what_it_does_not_take(card):
         ce.conv3x3_out1(torch.zeros(1, 4, 8, 4, device=card).transpose(2, 3), w, bias)
     with pytest.raises(ValueError):
         ce.conv3x3_out1(torch.zeros(1, 4, 4, 8, device=card), w.cpu(), bias)
+
+
+# ---- the enhance chain's modules (plain PyTorch on the card) against the CPU
+
+
+@pytest.mark.parametrize("s,use_mm", [(4000, True), (4099, True), (4000, False)])
+def test_spectral_enhance_card_matches_cpu(card, s, use_mm):
+    """Fold loop, a padded length, the per-iteration loop: 20 iterations
+    on the card within ``chip_smoke.FL_ABS`` of the CPU."""
+    import numpy as np
+
+    from egregora_tpu_torch.ops import spectral as sp
+    x = torch.from_numpy(chip_smoke.speech_signal(s / 16000, 16000, 2, seed=s)[:, :s].copy())
+    host = sp.spectral_enhance(x, 2, 20, 0.6, use_matmul_fft=use_mm)
+    got = sp.spectral_enhance(x.to(card), 2, 20, 0.6, use_matmul_fft=use_mm)
+    assert got.device.type == "cuda" and got.shape == (2, 2 * s)
+    assert float((got.cpu() - host).abs().max()) <= chip_smoke.FL_ABS
+    assert np.isfinite(got.cpu().numpy()).all()
+
+
+def test_rnnoise_card_matches_cpu(card):
+    """The engine on 4 s of speech-like stereo with a silent gap: wave,
+    VAD, periods and silence within ``chip_smoke.rnnoise_compare``'s
+    limits of the CPU, at segments 1 and 4."""
+    from egregora_tpu_torch.models.rnnoise import model as rn
+    from egregora_tpu_torch.models.rnnoise import train as rt
+    params = rt.load_pretrained()
+    x = chip_smoke.speech_signal(4.0, 48000, 2, seed=7, gaps=((1.5, 2.0),))
+    r = chip_smoke.rnnoise_compare(chip_smoke.rnnoise_run(params, x, "cuda"),
+                                   chip_smoke.rnnoise_run(params, x, "cpu"))
+    assert r["ok"], r
+    xd = torch.from_numpy(x)
+    host = rn.denoise(params, xd, segments=4)[0]
+    got = rn.denoise(params, xd.to(card), segments=4)[0]
+    assert float(torch.linalg.norm(got.cpu() - host) / torch.linalg.norm(host)) \
+        <= chip_smoke.RN_WAVE_REL
+
+
+def test_wpe_card_matches_cpu(card):
+    from egregora_tpu_torch.models import wpe as W
+    x, _ = chip_smoke.reverb_signal(2.0, 16000, seed=3)
+    host = W.wpe_dereverb(torch.from_numpy(x), n_fft=512, hop=128)
+    got = W.wpe_dereverb(torch.from_numpy(x).to(card), n_fft=512, hop=128)
+    assert float((got.cpu() - host).abs().max()) <= chip_smoke.WPE_CPU_ABS
+
+
+def test_enhance_nodes_run_on_the_card(card):
+    """The Fat Llama GPU, RNNoise and WPE nodes run their engines on the
+    card by default; the Fat Llama CPU node on the CPU."""
+    from egregora_tpu_torch.models import wpe as W
+    from egregora_tpu_torch.models.rnnoise import model as rn
+    from egregora_tpu_torch.nodes import enhance_extras as ee
+    from egregora_tpu_torch.nodes import spectral_enhance as se
+    x = chip_smoke.speech_signal(1.0, 16000, 1, seed=2, gaps=())
+    audio = {"waveform": torch.from_numpy(x[None]), "sample_rate": 16000}
+    seen = []
+    undo = [chip_smoke.on_devices(m, name, seen) for m, name in
+            ((se, "spectral_enhance"), (rn, "denoise"), (W, "wpe_dereverb"))]
+    try:
+        for node, args in ((se.EgregoraFatLlamaGPU(), ("wav", 10, 0.6, 1411)),
+                           (se.EgregoraFatLlamaCPU(), ("wav", 10, 0.6, 1411))):
+            (out,) = node.run(*args, AUDIO=audio)
+            assert out["sample_rate"] == 96000
+        (out,) = ee.Egregora_RNNoise_Denoise().execute(audio)
+        assert out["waveform"].shape == (1, 1, 16000)
+        (out,) = ee.Egregora_WPE_Dereverb().execute(audio, n_fft=512, hop=128)
+        assert out["waveform"].shape == (1, 1, 16000)
+    finally:
+        for u in undo:
+            u()
+    assert seen == ["cuda", "cpu", "cuda", "cuda"]

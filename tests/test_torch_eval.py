@@ -290,13 +290,18 @@ def test_node_contract_matches_jax(key):
 
 
 def test_registry_holds_every_ported_node():
-    """The merged registry: the 12 keys of the three ported modules,
+    """The merged registry: the 16 keys of the five ported modules,
     exactly the JAX package's keys and display names for them."""
-    keys = set(j_sr.NODE_CLASS_MAPPINGS) | EVAL_KEYS | NULL_KEYS
-    assert len(keys) == 12 and set(t_pkg.NODE_CLASS_MAPPINGS) == keys
+    from egregora_tpu.nodes import enhance_extras as j_ee
+    from egregora_tpu.nodes import spectral_enhance as j_se
+    extras = {k: v for k, v in j_ee.NODE_DISPLAY_NAME_MAPPINGS.items()
+              if k in ("Egregora_RNNoise_Denoise", "Egregora_WPE_Dereverb")}
+    keys = (set(j_sr.NODE_CLASS_MAPPINGS) | EVAL_KEYS | NULL_KEYS
+            | set(j_se.NODE_CLASS_MAPPINGS) | set(extras))
+    assert len(keys) == 16 and set(t_pkg.NODE_CLASS_MAPPINGS) == keys
     assert t_pkg.NODE_DISPLAY_NAME_MAPPINGS == {
         **j_sr.NODE_DISPLAY_NAME_MAPPINGS, **j_ep.NODE_DISPLAY_NAME_MAPPINGS,
-        **j_ns.NODE_DISPLAY_NAME_MAPPINGS}
+        **j_ns.NODE_DISPLAY_NAME_MAPPINGS, **j_se.NODE_DISPLAY_NAME_MAPPINGS, **extras}
     from egregora_tpu_torch.nodes import NODE_CLASS_MAPPINGS
     assert NODE_CLASS_MAPPINGS is t_pkg.NODE_CLASS_MAPPINGS
 
@@ -316,7 +321,9 @@ def test_registry_degrades_per_module(monkeypatch, capsys):
     monkeypatch.setattr(t_pkg, "NODE_DISPLAY_NAME_MAPPINGS", {})
     for name in t_pkg.NODE_MODULES:
         t_pkg._merge(name)
-    keys = set(j_sr.NODE_CLASS_MAPPINGS) | NULL_KEYS
+    keys = (set(j_sr.NODE_CLASS_MAPPINGS) | NULL_KEYS
+            | {"EgregoraFatLlamaGPU", "EgregoraFatLlamaCPU", "Egregora_RNNoise_Denoise",
+               "Egregora_WPE_Dereverb"})
     assert set(t_pkg.NODE_CLASS_MAPPINGS) == keys == set(t_pkg.NODE_DISPLAY_NAME_MAPPINGS)
     assert "'eval_pack' unavailable: planted failure" in capsys.readouterr().out
 

@@ -68,7 +68,7 @@ def test_port_imports_without_jax():
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stderr
     names = set(r.stdout.split("imported", 1)[1].split())
-    assert len(names) >= 44          # every module of the package was imported
+    assert len(names) >= 54          # every module of the package was imported
     assert {"egregora_tpu_torch.ops.mrf_fused", "egregora_tpu_torch.ops.mrf_rows",
             "egregora_tpu_torch.models.flashsr.unet", "egregora_tpu_torch.models.flashsr.distill",
             "egregora_tpu_torch.nodes.base", "egregora_tpu_torch.nodes.super_resolution",
@@ -80,7 +80,13 @@ def test_port_imports_without_jax():
             "egregora_tpu_torch.ops.attn_flash", "egregora_tpu_torch.ops.conv_edge",
             "egregora_tpu_torch.models.flashsr.geometry", "egregora_tpu_torch.utils.weights",
             "egregora_tpu_torch.tools.attn_flash_lab",
-            "egregora_tpu_torch.tools.edge_conv_lab"} <= names
+            "egregora_tpu_torch.tools.edge_conv_lab",
+            "egregora_tpu_torch.ops.fft", "egregora_tpu_torch.ops.spectral",
+            "egregora_tpu_torch.ops.mix", "egregora_tpu_torch.models.wpe",
+            "egregora_tpu_torch.models.rnnoise.model", "egregora_tpu_torch.models.rnnoise.train",
+            "egregora_tpu_torch.utils.native", "egregora_tpu_torch.utils.wavio",
+            "egregora_tpu_torch.nodes.spectral_enhance",
+            "egregora_tpu_torch.nodes.enhance_extras"} <= names
     assert "unavailable" not in r.stdout      # the registry merged every node module
 
 
@@ -106,3 +112,22 @@ def test_chip_smoke_fails_without_card(tmp_path):
         assert r.returncode != 0
         assert "no CUDA device" in r.stderr
         assert '"ok": true' not in r.stdout
+
+
+NEW_KEYS = ("EgregoraFatLlamaGPU", "EgregoraFatLlamaCPU", "Egregora_RNNoise_Denoise",
+            "Egregora_WPE_Dereverb")
+
+
+def test_registry_holds_the_enhance_nodes():
+    """The four enhance-chain keys are in the port's registry with the JAX
+    package's widgets, display names, return types and functions."""
+    import egregora_tpu
+    import egregora_tpu_torch
+    for key in NEW_KEYS:
+        tn, jn = egregora_tpu_torch.NODE_CLASS_MAPPINGS[key], egregora_tpu.NODE_CLASS_MAPPINGS[key]
+        assert tn.INPUT_TYPES() == jn.INPUT_TYPES()
+        assert (egregora_tpu_torch.NODE_DISPLAY_NAME_MAPPINGS[key]
+                == egregora_tpu.NODE_DISPLAY_NAME_MAPPINGS[key])
+        for attr in ("RETURN_TYPES", "FUNCTION", "CATEGORY"):
+            assert getattr(tn, attr) == getattr(jn, attr)
+    assert len(egregora_tpu_torch.NODE_CLASS_MAPPINGS) == 16

@@ -114,7 +114,35 @@ Phases, one line each on standard output:
    and RTF of the chain and of each stage; ``attn_rows`` and K4 counted
    by shape (the attention shapes not met before are measured as in
    phase 2);
-17. a JSON line ``{"kernels": [...]}`` of all six kernels, whose times
+17. DeepFilterNet (``dfn_phase``; plain PyTorch, no kernel): both
+   shipped weight sets asserted served by the node (its random-init
+   branch fails the run); the engine per variant on 60 s of seeded
+   48 kHz mono noise (``bench.py``'s ``dfn2_rtf_48k`` input) as RTF, the
+   GRU calls timed apart; one such GRU recurrence as the served cuDNN
+   call and as a step loop (time; max |d| 1e-5); ``enhance_mono_full``
+   on 10 s of noisy
+   speech-like 48 kHz on the card against the CPU: wave relative L2 5e-6
+   and ERB gains max |d| 5e-5 (the first run read 1.7e-7 and 4.4e-6),
+   beside three planted faults the limits must reject (z and r swapped
+   in the GRU; ``_conv_t`` without the kernel flip; the deep filter
+   reading frame t+1 for t-1, which moves the wave by 3e-5 only); the
+   node at its defaults with the post-filter on, 12 s of 16 kHz stereo,
+   VAD sources rms and rnnoise, card against CPU relative L2 1e-3;
+18. the DAC codec (``dac_phase``; plain PyTorch, no kernel): each shipped
+   codec on 10 s of speech-like stereo at its rate, encode and decode as
+   RTF, card against CPU (bf16 on both): latents and the share of codes
+   that agree (reported), decode of the CPU's latents relative L2 2e-2,
+   roundtrip SNR within 0.5 dB; the published 44 kHz geometry (76.6M
+   parameters, a seeded ``dac_44khz.npz`` in a temporary
+   ``EGREGORA_TPU_WEIGHTS``) through the encode and decode nodes, which
+   must resolve it as converted, on 30 s of stereo: RTF and peak memory;
+   a 2 s piece bf16 on the card against float32 on the CPU, latents and
+   decode relative L2 3e-2 (the first run read 1.4e-2 and 1.3e-2),
+   beside the transposed convs' kernels left unflipped (1.10); the
+   published 24 kHz geometry's encoder likewise, beside its stride-5
+   'SAME' pads reversed to (3, 2) (0.68); neither phase may launch a
+   kernel;
+19. a JSON line ``{"kernels": [...]}`` of all six kernels, whose times
    are the per-shape times of phases 2, 4 and 5 times the launches that
    phases 7, 9, 10, 11, 12 and 16 counted, and, last, ``{"ok": true, ...}``.
 
@@ -2993,6 +3021,467 @@ def chain_phase() -> dict:
             "loudness": loud, "metrics": rep, "counts": counts}
 
 
+# ---- DeepFilterNet and the DAC codec (plain PyTorch: no kernel) ----
+
+DFN_VARIANTS = ("DeepFilterNet2", "DeepFilterNet3")
+# DeepFilterNet, float32 end to end (its convs and GRUs in full float32):
+# the card against the same port on the CPU on 10 s of 48 kHz, the wave's
+# relative L2 and the ERB gains' max |d| (the first run read 1.7e-7 and
+# 4.4e-6; the deep filter's fault moves the wave by 3e-5 only, its
+# coefficients being small); the node on 12 s of 16 kHz stereo, relative
+# L2; the engine's RTF on bench.py's dfn2_rtf_48k input
+DFN_SECONDS, DFN_CHECK_SECONDS, DFN_NODE_SECONDS = 60.0, 10.0, 12.0
+DFN_WAVE_REL, DFN_GAINS, DFN_NODE_REL = 5e-6, 5e-5, 1e-3
+# the shipped DAC codecs, bf16 on both sides: decode of the CPU's latents,
+# relative L2, and the roundtrip SNR against the CPU's, dB
+DAC_SECONDS, DAC_DECODE_REL, DAC_SNR_DB = 10.0, 2e-2, 0.5
+# the published geometry (seeded weights, converted path), bf16 on the
+# card against float32 on the CPU on a 2 s piece: pre-quantisation latents
+# and decode of the CPU's latents, relative L2 (the first run read 1.4e-2
+# and 1.3e-2; the planted faults 0.68 and 1.10)
+DAC_PUB_SECONDS, DAC_PIECE_SECONDS = 30.0, 2.0
+DAC_PUB_LATENT_REL, DAC_PUB_DECODE_REL = 3e-2, 3e-2
+
+
+def noisy_speech(seconds: float, sr: int, channels: int, seed: int):
+    """``speech_signal`` plus seeded white noise at 0.05 (what a denoiser
+    is for); ``[C, S]`` float32."""
+    import numpy as np
+    x = speech_signal(seconds, sr, channels, seed)
+    return (x + 0.05 * np.random.default_rng(seed + 1000).standard_normal(x.shape)
+            ).astype(np.float32)
+
+
+def same_tree(a, b) -> bool:
+    import numpy as np
+    if isinstance(b, dict):
+        return set(a) == set(b) and all(same_tree(a[k], b[k]) for k in b)
+    return np.array_equal(np.asarray(a), np.asarray(b))
+
+
+def no_launches(phase: str) -> None:
+    """The phase ran none of the port's kernels (its modules hold none)."""
+    launched = {k: v for k, v in read_counts().items() if v}
+    if launched:
+        raise RuntimeError(f"{phase}: kernels launched {launched}")
+
+
+def dfn_run(params, x, device: str):
+    """(wave, ERB gains) of ``enhance_mono_full`` on ``device``, host arrays."""
+    import torch
+
+    from egregora_tpu_torch.models.deepfilternet import model as D
+    y, gains, _ = D.enhance_mono_full(params, torch.from_numpy(x).to(device))
+    return y.cpu().numpy(), gains.cpu().numpy()
+
+
+def dfn_compare(card, cpu) -> dict:
+    import numpy as np
+    (wave_c, gains_c), (wave_h, gains_h) = card, cpu
+    r = {"wave_rel_l2": float(np.linalg.norm(wave_c - wave_h) / np.linalg.norm(wave_h)),
+         "gains_max_abs": float(np.abs(gains_c - gains_h).max())}
+    r["ok"] = (r["wave_rel_l2"] <= DFN_WAVE_REL and r["gains_max_abs"] <= DFN_GAINS
+               and bool(np.isfinite(wave_c).all()))
+    return r
+
+
+def dfn_unflipped_conv_t(p, x, stride_f: int = 2):
+    """Planted fault: ``_conv_t`` with the kernel not flipped."""
+    import torch.nn.functional as F
+    t, f = x.shape[-2], x.shape[-1]
+    y = F.conv_transpose2d(x, p["kernel"].permute(2, 3, 0, 1), stride=(1, stride_f))
+    return y[..., :t, : f * stride_f] + p["bias"][:, None, None]
+
+
+def dfn_future_frames(x, order: int):
+    """Planted fault: the deep filter's stack reading frames t+1, t+2, ...
+    where it should read t-1, t-2, ..."""
+    import torch
+    import torch.nn.functional as F
+    t = x.shape[-2]
+    return torch.stack([x] + [F.pad(x, (0, 0, 0, k))[..., k:k + t, :]
+                              for k in range(1, order)], -1)
+
+
+def dfn_phase(card: str) -> dict:
+    """DeepFilterNet on the card: both shipped weight sets asserted loaded
+    by the node (its random-init branch fails the run); the engine on
+    60 s of seeded 48 kHz mono noise (``bench.py``'s ``dfn2_rtf_48k``
+    input) per variant as RTF, its GRUs timed apart; one GRU recurrence of
+    that length as the served cuDNN call and as a step loop of plain
+    operations (time, max |d| 1e-5); ``enhance_mono_full``
+    on 10 s of noisy speech-like 48 kHz on the card against the CPU (wave
+    and ERB gains) beside three planted faults the limits must reject (z
+    and r swapped in the GRU; ``_conv_t`` without the kernel flip; the
+    deep filter reading frame t+1 for t-1); the node at its defaults with
+    the post-filter on, on 12 s of 16 kHz stereo, with the rms and the
+    rnnoise VAD source, each on the card against the CPU."""
+    import numpy as np
+    import torch
+
+    from egregora_tpu_torch.models.deepfilternet import model as D
+    from egregora_tpu_torch.models.deepfilternet import train as dtr
+    from egregora_tpu_torch.models.rnnoise.model import params_on
+    from egregora_tpu_torch.nodes import enhance_extras as ee
+    from egregora_tpu_torch.nodes.base import DeviceNode
+    from egregora_tpu_torch.ops.fir import exact_f32
+    from egregora_tpu_torch.utils.weights import load_params
+
+    reset_counts()
+    node_cls = ee.Egregora_DeepFilterNet_Denoise
+    node_cls._PARAMS = {}
+    real_init = D.init_params
+
+    def refuse(*args, **kwargs):
+        raise RuntimeError("the DeepFilterNet node reached its random-init branch")
+
+    D.init_params = refuse
+    try:
+        params = {v: node_cls._params(v) for v in DFN_VARIANTS}
+    finally:
+        D.init_params = real_init
+    for v in DFN_VARIANTS:
+        if not same_tree(params[v], load_params(dtr.pretrained_path(v))):
+            raise RuntimeError(f"the DeepFilterNet node does not serve the shipped {v} weights")
+    log(f"deepfilternet ({card}): the node serves the shipped weights (" + ", ".join(
+        f"{dtr.pretrained_path(v).name} {dtr.pretrained_path(v).stat().st_size} bytes"
+        for v in DFN_VARIANTS) + ")")
+
+    failures, results = [], {}
+    rng = np.random.default_rng(9)
+    x60 = torch.from_numpy((rng.standard_normal((1, int(48000 * DFN_SECONDS))) * 0.1)
+                           .astype(np.float32)).cuda()
+    real_gru = D._torch_gru
+    gru_s = [0.0]
+
+    def timed_gru(*args):
+        out, wall = synced_wall(lambda: real_gru(*args))
+        gru_s[0] += wall
+        return out
+
+    for v in DFN_VARIANTS:
+        pd = params_on(params[v], "cuda")
+        D.enhance(pd, x60)
+        wall = min(synced_wall(lambda: D.enhance(pd, x60))[1] for _ in range(2))
+        D._torch_gru, gru_s[0] = timed_gru, 0.0
+        try:
+            _, split = synced_wall(lambda: D.enhance(pd, x60))
+        finally:
+            D._torch_gru = real_gru
+        frames = int(x60.shape[1] + D.N_FFT) // D.HOP + 1
+        results[f"{v} engine"] = {"wall_s": wall, "rtf": DFN_SECONDS / wall, "frames": frames,
+                                  "gru_s": gru_s[0], "rest_s": split - gru_s[0]}
+        log(f"deepfilternet {v} engine, 60 s 48 kHz mono ({frames} frames), {card}: warm "
+            f"{wall:.4f} s (RTF {DFN_SECONDS / wall:.1f}x); timed apart: the GRU calls "
+            f"{gru_s[0]:.4f} s, the rest {split - gru_s[0]:.4f} s")
+
+    # the served GRU form (one cuDNN call a recurrence) against a step loop
+    # of plain operations on one recurrence at 60 s: time, and agreement
+    from egregora_tpu_torch.models.rnnoise.model import _gru_update
+    g = params_on(params["DeepFilterNet2"]["df_dec"]["gru"], "cuda")
+    gen = torch.Generator().manual_seed(53)
+    xs = torch.tanh(torch.randn(1, frames, g["kernel"].shape[0], generator=gen)).cuda()
+
+    def step_loop():
+        xw, h, hs = xs @ g["kernel"] + g["bias"], xs.new_zeros(1, g["recurrent"].shape[0]), []
+        for t in range(frames):
+            h = _gru_update(h, xw[:, t], g["recurrent"])
+            hs.append(h)
+        return torch.stack(hs, 1)
+
+    with exact_f32():
+        real_gru(g["kernel"], g["recurrent"], g["bias"], xs)
+        cudnn_out, cudnn_wall = synced_wall(lambda: real_gru(g["kernel"], g["recurrent"],
+                                                             g["bias"], xs))
+        step_loop()
+        loop_out, loop_wall = synced_wall(step_loop)
+    gru_err = float((cudnn_out - loop_out).abs().max())
+    results["gru forms"] = {"frames": frames, "cudnn_s": cudnn_wall, "loop_s": loop_wall,
+                            "max_abs_diff": gru_err}
+    log(f"deepfilternet GRU (df decoder, 256 units, {frames} steps), {card}: one cuDNN call "
+        f"{cudnn_wall:.4f} s ({1e6 * cudnn_wall / frames:.1f} us a step), a step loop of plain "
+        f"operations {loop_wall:.4f} s ({1e6 * loop_wall / frames:.1f} us a step); max|d| "
+        f"{gru_err:.2e} (limit 1e-5)")
+    if not gru_err <= 1e-5:
+        failures.append(f"deepfilternet: the cuDNN GRU and the step loop differ by {gru_err}")
+
+    x10 = noisy_speech(DFN_CHECK_SECONDS, 48000, 1, seed=51)[0]
+    cpu_ref = {}
+    for v in DFN_VARIANTS:
+        cpu_ref[v] = dfn_run(params[v], x10, "cpu")
+        r = dfn_compare(dfn_run(params[v], x10, "cuda"), cpu_ref[v])
+        results[f"{v} card vs CPU"] = r
+        log(f"deepfilternet {v}, 10 s 48 kHz, card vs CPU ({card}): wave rel L2 "
+            f"{r['wave_rel_l2']:.3e} (limit {DFN_WAVE_REL:g}), gains max|d| "
+            f"{r['gains_max_abs']:.3e} (limit {DFN_GAINS:g}) {'ok' if r['ok'] else 'FAIL'}")
+        if not r["ok"]:
+            failures.append(f"deepfilternet {v} card vs CPU: {r}")
+    for fault, name, planted in (
+            ("z and r swapped in the GRU", "_cudnn_gate_order", lambda w: w),
+            ("_conv_t without the kernel flip", "_conv_t", dfn_unflipped_conv_t),
+            ("the deep filter reading frame t+1 for t-1", "_shift_stack", dfn_future_frames)):
+        real = getattr(D, name)
+        setattr(D, name, planted)
+        try:
+            bad = dfn_compare(dfn_run(params["DeepFilterNet2"], x10, "cuda"),
+                              cpu_ref["DeepFilterNet2"])
+        finally:
+            setattr(D, name, real)
+        results[f"planted: {fault}"] = bad
+        log(f"deepfilternet planted fault ({fault}; {card}): wave rel L2 "
+            f"{bad['wave_rel_l2']:.3e}, gains max|d| {bad['gains_max_abs']:.3e} "
+            f"{'NOT REJECTED' if bad['ok'] else 'rejected'}")
+        if bad["ok"]:
+            failures.append(f"the DeepFilterNet limits do not reject the planted fault: {fault}")
+
+    xs = noisy_speech(DFN_NODE_SECONDS, 16000, 2, seed=52)
+    audio = {"waveform": torch.from_numpy(xs[None]), "sample_rate": 16000}
+    seen = []
+    undo = on_devices(D, "enhance", seen)
+    try:
+        for vad in ("rms", "rnnoise"):
+            outs = {}
+            for dev in ("cuda", "cpu", "cuda"):
+                DeviceNode.DEVICE = dev
+                (out,), wall = synced_wall(lambda: node_cls().execute(
+                    audio, adaptive_vad_source=vad, use_postfilter=True))
+                outs[dev] = (out["waveform"].numpy(), wall, out["meta"]["deepfilternet"]["device"])
+            DeviceNode.DEVICE = "cuda"
+            (g, wall, ran), (h, cpu_wall, ran_h) = outs["cuda"], outs["cpu"]
+            rel = float(np.linalg.norm(g - h) / np.linalg.norm(h))
+            ok = (g.shape == (1, 2, xs.shape[1]) and bool(np.isfinite(g).all())
+                  and rel <= DFN_NODE_REL and (ran, ran_h) == ("cuda", "cpu"))
+            results[f"node {vad}"] = {"warm_wall_s": wall, "cpu_wall_s": cpu_wall, "rel_l2": rel,
+                                      "rtf": DFN_NODE_SECONDS / wall}
+            log(f"deepfilternet node, 12 s 16 kHz stereo, defaults + post-filter, VAD {vad}, "
+                f"{card}: warm {wall:.3f} s on the card (RTF {DFN_NODE_SECONDS / wall:.1f}x; CPU "
+                f"{cpu_wall:.2f} s), out {g.shape}, meta device {ran}, card vs CPU rel L2 "
+                f"{rel:.3e} (limit {DFN_NODE_REL:g}) {'ok' if ok else 'FAIL'}")
+            if not ok:
+                failures.append(f"deepfilternet node ({vad}): {g.shape}, rel L2 {rel}, {ran}")
+    finally:
+        undo()
+        DeviceNode.DEVICE = "cuda"
+    if seen != ["cuda", "cpu", "cuda"] * 2:
+        failures.append(f"deepfilternet node: the engine ran on {seen}")
+    no_launches("deepfilternet")
+    if failures:
+        raise RuntimeError("; ".join(failures))
+    return results
+
+
+def seeded_dac_tree(cfg, seed: int) -> dict:
+    """The JAX package's DAC parameter tree for ``cfg`` (its flax layout,
+    numpy leaves; ``utils.weights.save_params`` writes it as the JAX
+    package's ``save_params`` does) with seeded weights kept out of tanh
+    saturation: lecun-normal kernels with each residual unit's last conv
+    scaled by 0.3 and the decoder's output conv by 0.1, biases N(0, 0.01),
+    alphas U(0.5, 1.5), unit-normal codebooks."""
+    import torch
+
+    from egregora_tpu_torch.models.dac.model import DACModel
+    from egregora_tpu_torch.utils.weights import flax_tree
+    m = DACModel(cfg).init_params(seed)
+    gen = torch.Generator().manual_seed(seed + 1)
+    with torch.no_grad():
+        for name, p in m.named_parameters():
+            if name.endswith("alpha"):
+                p.copy_(0.5 + torch.rand(p.shape, generator=gen))
+            elif name.endswith("bias"):
+                p.copy_(0.01 * torch.randn(p.shape, generator=gen))
+        w = m.decoder.Conv_1.weight
+        w.copy_(0.1 * torch.randn(w.shape, generator=gen) * w[0].numel() ** -0.5)
+        for name, mod in m.named_modules():
+            if "ResidualUnit" in name and name.endswith("Conv_1"):
+                mod.weight.mul_(0.3)
+    return {name: flax_tree(getattr(m, name), values=True) for name in ("encoder", "decoder", "rvq")}
+
+
+def dac_rel(a, b) -> float:
+    import torch
+    a, b = torch.as_tensor(a).double().cpu(), torch.as_tensor(b).double().cpu()
+    return float((a - b).norm() / b.norm())
+
+
+def dac_phase(card: str) -> dict:
+    """The DAC codec on the card.  Each shipped codec (the node's
+    ``build_dac``, weights asserted shipped) on 10 s of seeded speech-like
+    stereo at its rate: encode and decode timed as RTF on the card; card
+    against the CPU (both bf16): latents relative L2 and the share of
+    codes that agree (reported), decode of the CPU's latents (limit), the
+    roundtrip SNR against the CPU's (limit).  The published 44 kHz
+    geometry (76.6M parameters, seeded ``dac_44khz.npz`` in a temporary
+    ``EGREGORA_TPU_WEIGHTS``) through the encode and decode nodes, which
+    must resolve it as converted, on 30 s of stereo: RTF and peak memory;
+    a 2 s piece in bf16 on the card against float32 on the CPU (latents,
+    decode of the CPU's latents), beside the transposed convs' kernels
+    left unflipped; the published 24 kHz geometry likewise on its
+    encoder, beside its stride-5 'SAME' pads reversed to (3, 2)."""
+    import copy
+    import dataclasses
+    import os
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    import numpy as np
+    import torch
+
+    from egregora_tpu_torch.models.dac import model as M
+    from egregora_tpu_torch.models.dac import train as dtr
+    from egregora_tpu_torch.models.flashsr import layers
+    from egregora_tpu_torch.nodes import enhance_extras as ee
+    from egregora_tpu_torch.nodes.base import DeviceNode
+    from egregora_tpu_torch.utils.weights import _flatten, save_params
+
+    reset_counts()
+    failures, results = [], {}
+    enc_cls, dec_cls = ee.Egregora_DAC_Encode, ee.Egregora_DAC_Decode
+    DeviceNode.DEVICE = "cuda"
+    for mt in ("16khz", "24khz", "44khz"):
+        M._CACHE.pop(mt, None)
+        enc_cls._MODELS.pop(mt, None)
+        model, sr = enc_cls._model(mt)
+        cpu = copy.deepcopy(model).to("cpu")
+        model.to("cuda")
+        x = speech_signal(DAC_SECONDS, sr, 2, seed=61)
+        xt = torch.from_numpy(x)
+        model.encode(xt)
+        (zq_c, codes_c), enc_wall = synced_wall(lambda: model.encode(xt))
+        zq_h, codes_h = cpu.encode(xt)
+        model.decode(zq_h)
+        y_c, dec_wall = synced_wall(lambda: model.decode(zq_h))
+        y_h = cpu.decode(zq_h)
+        snr_c, snr_h = dtr.roundtrip_snr_db(model, x), dtr.roundtrip_snr_db(cpu, x)
+        r = {"encode_wall_s": enc_wall, "encode_rtf": DAC_SECONDS / enc_wall,
+             "decode_wall_s": dec_wall, "decode_rtf": DAC_SECONDS / dec_wall,
+             "latent_rel_l2": dac_rel(zq_c, zq_h),
+             "codes_agree": float((codes_c.cpu() == codes_h).float().mean()),
+             "decode_rel_l2": dac_rel(y_c, y_h), "snr_db": snr_c, "cpu_snr_db": snr_h}
+        ok = (model.weight_source == "shipped" and r["decode_rel_l2"] <= DAC_DECODE_REL
+              and abs(snr_c - snr_h) <= DAC_SNR_DB and bool(torch.isfinite(y_c).all()))
+        results[f"shipped {mt}"] = r
+        log(f"dac {mt} (shipped, {model.weight_source}), 10 s stereo, {card}: encode "
+            f"{enc_wall:.4f} s (RTF {r['encode_rtf']:.1f}x), decode {dec_wall:.4f} s (RTF "
+            f"{r['decode_rtf']:.1f}x); card vs CPU: latents rel L2 {r['latent_rel_l2']:.3e}, codes "
+            f"agree {r['codes_agree']:.3f}, decode of the CPU's latents rel L2 "
+            f"{r['decode_rel_l2']:.3e} (limit {DAC_DECODE_REL:g}), roundtrip SNR {snr_c:.3f} dB "
+            f"(CPU {snr_h:.3f}, limit ±{DAC_SNR_DB:g}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"dac {mt}: {model.weight_source}, {r}")
+        M._CACHE.pop(mt, None)
+        enc_cls._MODELS.pop(mt, None)
+
+    tmp = Path(tempfile.mkdtemp(prefix="dac_weights_"))
+    env = os.environ.get("EGREGORA_TPU_WEIGHTS")
+    os.environ["EGREGORA_TPU_WEIGHTS"] = str(tmp)
+    try:
+        cfg = M.MODEL_TYPES["44khz"]
+        tree = seeded_dac_tree(cfg, seed=71)
+        n_params = sum(v.size for v in _flatten(tree).values())
+        save_params(tree, tmp / "dac_44khz.npz")
+        x30 = speech_signal(DAC_PUB_SECONDS, 44100, 2, seed=72)
+        audio = {"waveform": torch.from_numpy(x30[None]), "sample_rate": 44100}
+        (codes, _), cold = synced_wall(lambda: enc_cls().execute(audio, model_type="44khz"))
+        model = enc_cls._MODELS["44khz"][0]
+        dec_cls().execute(codes)
+        torch.cuda.reset_peak_memory_stats()
+        (codes, enc_log), enc_wall = synced_wall(lambda: enc_cls().execute(audio, model_type="44khz"))
+        enc_peak = torch.cuda.max_memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        (out, dec_log), dec_wall = synced_wall(lambda: dec_cls().execute(codes))
+        dec_peak = torch.cuda.max_memory_allocated()
+        y = out["waveform"].numpy()
+        r = {"parameters": n_params, "weight_source": model.weight_source, "cold_encode_s": cold,
+             "encode_wall_s": enc_wall, "encode_rtf": DAC_PUB_SECONDS / enc_wall,
+             "encode_peak_bytes": enc_peak, "decode_wall_s": dec_wall,
+             "decode_rtf": DAC_PUB_SECONDS / dec_wall, "decode_peak_bytes": dec_peak}
+        ok = (model.weight_source == "converted" and n_params == 76_620_777
+              and y.shape[:2] == (1, 2) and y.shape[2] >= x30.shape[1]
+              and bool(np.isfinite(y).all()) and out["sample_rate"] == 44100)
+        log(f"dac 44khz published geometry ({n_params} parameters, {model.weight_source} from "
+            f"$EGREGORA_TPU_WEIGHTS/dac_44khz.npz), 30 s stereo through the nodes, {card}: "
+            f"encode {enc_wall:.3f} s (RTF {r['encode_rtf']:.1f}x, peak "
+            f"{enc_peak / 2 ** 30:.2f} GiB; cold {cold:.2f} s), decode {dec_wall:.3f} s (RTF "
+            f"{r['decode_rtf']:.1f}x, peak {dec_peak / 2 ** 30:.2f} GiB), out {y.shape} "
+            f"{'ok' if ok else 'FAIL'}; {enc_log}; {dec_log}")
+        if not ok:
+            failures.append(f"dac published 44khz through the nodes: {r}, out {y.shape}")
+
+        def latents(m, x):
+            """Pre-quantisation latents of ``m`` on its device."""
+            with torch.no_grad():
+                return m.encoder(m.preprocess(x.to(m.device))[:, None])
+
+        f32 = M.DACModel(dataclasses.replace(cfg, dtype=torch.float32)).load_jax(tree)
+        xp = torch.from_numpy(np.ascontiguousarray(x30[:, :int(44100 * DAC_PIECE_SECONDS)]))
+        z_c, z_h = latents(model, xp), latents(f32, xp)
+        zq_h, _ = f32.rvq(z_h.transpose(1, 2))
+        y_h = f32.decode(zq_h)
+        lat, dec = dac_rel(z_c, z_h), dac_rel(model.decode(zq_h), y_h)
+        with torch.no_grad():
+            for m in model.modules():
+                if isinstance(m, layers.ConvTranspose1d):
+                    m.weight.copy_(m.weight.flip(2))
+            bad = dac_rel(model.decode(zq_h), y_h)
+            for m in model.modules():
+                if isinstance(m, layers.ConvTranspose1d):
+                    m.weight.copy_(m.weight.flip(2))
+        r.update(piece_latent_rel_l2=lat, piece_decode_rel_l2=dec, planted_unflipped_decode=bad)
+        ok = lat <= DAC_PUB_LATENT_REL and dec <= DAC_PUB_DECODE_REL and bad > DAC_PUB_DECODE_REL
+        log(f"dac 44khz published geometry, 2 s piece, bf16 on the card vs float32 on the CPU "
+            f"({card}): latents rel L2 {lat:.3e} (limit {DAC_PUB_LATENT_REL:g}), decode of the "
+            f"CPU's latents {dec:.3e} (limit {DAC_PUB_DECODE_REL:g}); planted fault (transposed "
+            f"convs unflipped): decode {bad:.3e} {'rejected' if bad > DAC_PUB_DECODE_REL else 'NOT REJECTED'} "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"dac published 44khz piece: latents {lat}, decode {dec}, fault {bad}")
+        results["published 44khz"] = r
+        del f32, model, codes, out
+        M._CACHE.pop("44khz", None)
+        enc_cls._MODELS.pop("44khz", None)
+
+        cfg24 = M.MODEL_TYPES["24khz"]
+        tree24 = seeded_dac_tree(cfg24, seed=73)
+        m24 = M.DACModel(cfg24).load_jax(tree24).cuda()
+        f24 = M.DACModel(dataclasses.replace(cfg24, dtype=torch.float32)).load_jax(tree24)
+        x24 = torch.from_numpy(speech_signal(DAC_PIECE_SECONDS, 24000, 2, seed=74))
+        z_h24 = latents(f24, x24)
+        lat24 = dac_rel(latents(m24, x24), z_h24)
+        real_pads = layers.same_pads
+
+        def reversed_at_5(size, k, stride=1, dilation=1):
+            lo, hi = real_pads(size, k, stride, dilation)
+            return (hi, lo) if stride == 5 else (lo, hi)
+
+        layers.same_pads = reversed_at_5
+        try:
+            bad24 = dac_rel(latents(m24, x24), z_h24)
+        finally:
+            layers.same_pads = real_pads
+        ok = lat24 <= DAC_PUB_LATENT_REL and bad24 > DAC_PUB_LATENT_REL
+        results["published 24khz"] = {"piece_latent_rel_l2": lat24,
+                                      "planted_pads_reversed_latent": bad24}
+        log(f"dac 24khz published geometry, 2 s piece, bf16 on the card vs float32 on the CPU "
+            f"({card}): latents rel L2 {lat24:.3e} (limit {DAC_PUB_LATENT_REL:g}); planted fault "
+            f"(stride-5 'SAME' pads as (3, 2)): {bad24:.3e} "
+            f"{'rejected' if bad24 > DAC_PUB_LATENT_REL else 'NOT REJECTED'} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"dac published 24khz piece: latents {lat24}, fault {bad24}")
+    finally:
+        if env is None:
+            os.environ.pop("EGREGORA_TPU_WEIGHTS", None)
+        else:
+            os.environ["EGREGORA_TPU_WEIGHTS"] = env
+        M._CACHE.pop("44khz", None)
+        enc_cls._MODELS.pop("44khz", None)
+        shutil.rmtree(tmp, ignore_errors=True)
+    no_launches("dac")
+    if failures:
+        raise RuntimeError("; ".join(failures))
+    return results
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3037,6 +3526,8 @@ def main() -> int:
     labs = lab_phase()
     enhance = {"rnnoise": rnnoise_phase(), "fat llama": fatllama_phase(), "wpe": wpe_phase()}
     chain = chain_phase()
+    dfn = dfn_phase(card)
+    dac = dac_phase(card)
 
     attn_counts = collections.Counter(pipe["counts"])
     attn_paths = {"full config (seeded weights)": pipe["launches"]}
@@ -3101,6 +3592,9 @@ def main() -> int:
         {"rnnoise": {k: v for k, v in enhance["rnnoise"].items() if not k.startswith("planted")},
          "fat llama": enhance["fat llama"]["node"], "wpe": enhance["wpe"],
          "full chain": {k: v for k, v in chain.items() if k != "counts"}}))
+    log(f"deepfilternet and dac on {card}: " + json.dumps(
+        {"deepfilternet": {k: v for k, v in dfn.items() if not k.startswith("planted")},
+         "dac": dac}))
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
     log(card)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -7,8 +7,10 @@ version that runs for CPU tensors.  Ported so far: the FlashSR node with
 the shipped weights and its pipeline (``models.flashsr.pipeline``), the
 eval pack and the null-test suite (``eval/``, ``nodes.eval_pack``,
 ``nodes.null_suite``), the Fat Llama spectral-enhance nodes
-(``ops.spectral``, ``nodes.spectral_enhance``), and the RNNoise and WPE
-nodes (``models.rnnoise``, ``models.wpe``, ``nodes.enhance_extras``).
+(``ops.spectral``, ``nodes.spectral_enhance``), and the RNNoise, WPE,
+DeepFilterNet and DAC nodes (``models.rnnoise``, ``models.wpe``,
+``models.deepfilternet``, ``models.dac``, ``nodes.enhance_extras``): all
+19 of the JAX package's nodes.
 
 The node registry: ``NODE_CLASS_MAPPINGS`` / ``NODE_DISPLAY_NAME_MAPPINGS``
 merge every ported node module's maps; a module that fails to import

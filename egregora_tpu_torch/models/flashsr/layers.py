@@ -57,22 +57,23 @@ class Conv2d(nn.Module):
 
 
 class Conv1d(nn.Module):
-    """flax ``nn.Conv(features, (k,), kernel_dilation=(d,))`` on NCW."""
+    """flax ``nn.Conv(features, (k,), strides=(s,), kernel_dilation=(d,))``
+    on NCW."""
 
     def __init__(self, cin: int, cout: int, k: int, dilation: int = 1,
-                 dtype: torch.dtype = torch.bfloat16):
+                 dtype: torch.dtype = torch.bfloat16, stride: int = 1):
         super().__init__()
         self.weight = nn.Parameter(torch.empty(cout, cin, k))
         self.bias = nn.Parameter(torch.zeros(cout))
-        self.k, self.dilation, self.dtype = k, dilation, dtype
+        self.k, self.dilation, self.stride, self.dtype = k, dilation, stride, dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.to(self.dtype)
         w, b = self.weight.to(self.dtype), self.bias.to(self.dtype)
-        lo, hi = same_pads(x.shape[-1], self.k, 1, self.dilation)
+        lo, hi = same_pads(x.shape[-1], self.k, self.stride, self.dilation)
         if lo == hi:
-            return F.conv1d(x, w, b, padding=lo, dilation=self.dilation)
-        return F.conv1d(F.pad(x, (lo, hi)), w, b, dilation=self.dilation)
+            return F.conv1d(x, w, b, self.stride, lo, self.dilation)
+        return F.conv1d(F.pad(x, (lo, hi)), w, b, self.stride, 0, self.dilation)
 
 
 def conv_transpose_pads(k: int, stride: int) -> Tuple[int, int]:

@@ -30,10 +30,12 @@ JAX package would build (``flax_tree`` derives that tree's keys and
 shapes from the port's own modules, inverting the mapping above), and
 ``params_from_jax`` carries the result onto the port.  ``save_params``
 and ``load_params`` keep converted trees in the JAX package's flat npz
-format, so a cache either package writes, the other reads.
+format, so a cache either package writes, the other reads; converted
+files live under ``weights_dir()``.
 """
 from __future__ import annotations
 
+import os
 from pathlib import Path
 from typing import Any, Callable, Dict, Iterator, Optional, Tuple
 
@@ -42,6 +44,16 @@ import torch
 
 from ..models.flashsr.layers import ConvTranspose1d, DenseGeneral, GroupNorm, LayerNorm
 from ..models.flashsr.pipeline import FlashSRConfig, FlashSRModules
+
+
+def weights_dir() -> Path:
+    """The converted-checkpoint root both packages read and write:
+    ``EGREGORA_TPU_WEIGHTS``, else ``~/.cache/egregora_tpu/weights``;
+    made if missing."""
+    env = os.environ.get("EGREGORA_TPU_WEIGHTS")
+    d = Path(env) if env else Path.home() / ".cache" / "egregora_tpu" / "weights"
+    d.mkdir(parents=True, exist_ok=True)
+    return d
 
 
 def _leaves(tree: Any, prefix: Tuple[str, ...] = ()) -> Iterator[Tuple[Tuple[str, ...], Any]]:

@@ -566,3 +566,70 @@ def test_enhance_nodes_run_on_the_card(card):
         for u in undo:
             u()
     assert seen == ["cuda", "cpu", "cuda", "cuda"]
+
+
+# ---- DeepFilterNet and the DAC codec (plain PyTorch on the card) against the CPU
+
+
+@pytest.mark.parametrize("variant", ["DeepFilterNet2", "DeepFilterNet3"])
+def test_dfn_card_matches_cpu(card, variant):
+    """Wave and ERB gains on 2 s within ``chip_smoke.dfn_compare``'s
+    limits of the CPU (convs and GRUs in full float32 whatever the global
+    TF32 flags say)."""
+    from egregora_tpu_torch.models.deepfilternet import train as dtr
+    params = dtr.load_pretrained(variant)
+    x = chip_smoke.noisy_speech(2.0, 48000, 1, seed=3)[0]
+    flags = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        r = chip_smoke.dfn_compare(chip_smoke.dfn_run(params, x, "cuda"),
+                                   chip_smoke.dfn_run(params, x, "cpu"))
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = flags
+    assert r["ok"], r
+
+
+@pytest.mark.parametrize("mt", ["16khz", "24khz", "44khz"])
+def test_dac_card_matches_cpu(card, mt):
+    """A shipped codec, bf16 on both: decode of the CPU's latents within
+    ``chip_smoke.DAC_DECODE_REL`` and the roundtrip SNR within
+    ``DAC_SNR_DB`` of the CPU's, on 1 s of speech-like stereo."""
+    import copy
+
+    from egregora_tpu_torch.models.dac import model as M
+    from egregora_tpu_torch.models.dac import train as dtr
+    cfg, tree = dtr.load_pretrained(mt)
+    cpu = M.DACModel(cfg).load_jax(tree)
+    gpu = copy.deepcopy(cpu).to(card)
+    x = chip_smoke.speech_signal(1.0, cfg.sample_rate, 2, seed=5)
+    zq, codes = cpu.encode(torch.from_numpy(x))
+    zq_c, codes_c = gpu.encode(torch.from_numpy(x))
+    assert zq_c.device.type == "cuda" and zq_c.shape == zq.shape and codes_c.shape == codes.shape
+    assert chip_smoke.dac_rel(gpu.decode(zq), cpu.decode(zq)) <= chip_smoke.DAC_DECODE_REL
+    assert abs(dtr.roundtrip_snr_db(gpu, x) - dtr.roundtrip_snr_db(cpu, x)) <= chip_smoke.DAC_SNR_DB
+
+
+def test_dfn_and_dac_nodes_run_on_the_card(card, monkeypatch):
+    """The DeepFilterNet and DAC nodes run on the card by default (the
+    ``device`` widget is ignored) and say so where the JAX node does."""
+    from egregora_tpu_torch.models.dac import model as M
+    from egregora_tpu_torch.models.deepfilternet import model as D
+    from egregora_tpu_torch.nodes import enhance_extras as ee
+    monkeypatch.setattr(ee.Egregora_DAC_Encode, "_MODELS", {})
+    monkeypatch.setattr(M, "_CACHE", {})
+    x = chip_smoke.speech_signal(1.0, 16000, 2, seed=2, gaps=())
+    audio = {"waveform": torch.from_numpy(x[None]), "sample_rate": 16000}
+    seen = []
+    undo = chip_smoke.on_devices(D, "enhance", seen)
+    try:
+        (out,) = ee.Egregora_DeepFilterNet_Denoise().execute(audio, device="cpu")
+    finally:
+        undo()
+    assert seen == ["cuda"] and out["meta"]["deepfilternet"]["device"] == "cuda"
+    assert out["waveform"].shape == (1, 2, 16000)
+    codes, log = ee.Egregora_DAC_Encode().execute(audio, model_type="16khz", device="cpu")
+    model, _ = ee.Egregora_DAC_Encode._MODELS["16khz"]
+    assert model.device.type == "cuda" and model.weight_source == "shipped"
+    assert codes["latents"][0][0].shape[0] == 2 and log.startswith("DAC encode ok")
+    (back, log) = ee.Egregora_DAC_Decode().execute(codes, device="cpu")
+    assert back["waveform"].shape[:2] == (1, 2) and back["waveform"].shape[2] >= 16000

@@ -290,18 +290,19 @@ def test_node_contract_matches_jax(key):
 
 
 def test_registry_holds_every_ported_node():
-    """The merged registry: the 16 keys of the five ported modules,
-    exactly the JAX package's keys and display names for them."""
+    """The merged registry: the 19 keys of the five ported modules, all
+    of the JAX package's, with its display names."""
+    import egregora_tpu
     from egregora_tpu.nodes import enhance_extras as j_ee
     from egregora_tpu.nodes import spectral_enhance as j_se
-    extras = {k: v for k, v in j_ee.NODE_DISPLAY_NAME_MAPPINGS.items()
-              if k in ("Egregora_RNNoise_Denoise", "Egregora_WPE_Dereverb")}
     keys = (set(j_sr.NODE_CLASS_MAPPINGS) | EVAL_KEYS | NULL_KEYS
-            | set(j_se.NODE_CLASS_MAPPINGS) | set(extras))
-    assert len(keys) == 16 and set(t_pkg.NODE_CLASS_MAPPINGS) == keys
+            | set(j_se.NODE_CLASS_MAPPINGS) | set(j_ee.NODE_CLASS_MAPPINGS))
+    assert len(keys) == 19 and set(t_pkg.NODE_CLASS_MAPPINGS) == keys
+    assert keys == set(egregora_tpu.NODE_CLASS_MAPPINGS)
     assert t_pkg.NODE_DISPLAY_NAME_MAPPINGS == {
         **j_sr.NODE_DISPLAY_NAME_MAPPINGS, **j_ep.NODE_DISPLAY_NAME_MAPPINGS,
-        **j_ns.NODE_DISPLAY_NAME_MAPPINGS, **j_se.NODE_DISPLAY_NAME_MAPPINGS, **extras}
+        **j_ns.NODE_DISPLAY_NAME_MAPPINGS, **j_se.NODE_DISPLAY_NAME_MAPPINGS,
+        **j_ee.NODE_DISPLAY_NAME_MAPPINGS} == egregora_tpu.NODE_DISPLAY_NAME_MAPPINGS
     from egregora_tpu_torch.nodes import NODE_CLASS_MAPPINGS
     assert NODE_CLASS_MAPPINGS is t_pkg.NODE_CLASS_MAPPINGS
 
@@ -323,7 +324,8 @@ def test_registry_degrades_per_module(monkeypatch, capsys):
         t_pkg._merge(name)
     keys = (set(j_sr.NODE_CLASS_MAPPINGS) | NULL_KEYS
             | {"EgregoraFatLlamaGPU", "EgregoraFatLlamaCPU", "Egregora_RNNoise_Denoise",
-               "Egregora_WPE_Dereverb"})
+               "Egregora_WPE_Dereverb", "Egregora_DeepFilterNet_Denoise", "Egregora_DAC_Encode",
+               "Egregora_DAC_Decode"})
     assert set(t_pkg.NODE_CLASS_MAPPINGS) == keys == set(t_pkg.NODE_DISPLAY_NAME_MAPPINGS)
     assert "'eval_pack' unavailable: planted failure" in capsys.readouterr().out
 

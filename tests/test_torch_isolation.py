@@ -68,7 +68,7 @@ def test_port_imports_without_jax():
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stderr
     names = set(r.stdout.split("imported", 1)[1].split())
-    assert len(names) >= 54          # every module of the package was imported
+    assert len(names) >= 60          # every module of the package was imported
     assert {"egregora_tpu_torch.ops.mrf_fused", "egregora_tpu_torch.ops.mrf_rows",
             "egregora_tpu_torch.models.flashsr.unet", "egregora_tpu_torch.models.flashsr.distill",
             "egregora_tpu_torch.nodes.base", "egregora_tpu_torch.nodes.super_resolution",
@@ -86,7 +86,10 @@ def test_port_imports_without_jax():
             "egregora_tpu_torch.models.rnnoise.model", "egregora_tpu_torch.models.rnnoise.train",
             "egregora_tpu_torch.utils.native", "egregora_tpu_torch.utils.wavio",
             "egregora_tpu_torch.nodes.spectral_enhance",
-            "egregora_tpu_torch.nodes.enhance_extras"} <= names
+            "egregora_tpu_torch.nodes.enhance_extras",
+            "egregora_tpu_torch.models.deepfilternet.model",
+            "egregora_tpu_torch.models.deepfilternet.train",
+            "egregora_tpu_torch.models.dac.model", "egregora_tpu_torch.models.dac.train"} <= names
     assert "unavailable" not in r.stdout      # the registry merged every node module
 
 
@@ -115,12 +118,14 @@ def test_chip_smoke_fails_without_card(tmp_path):
 
 
 NEW_KEYS = ("EgregoraFatLlamaGPU", "EgregoraFatLlamaCPU", "Egregora_RNNoise_Denoise",
-            "Egregora_WPE_Dereverb")
+            "Egregora_WPE_Dereverb", "Egregora_DeepFilterNet_Denoise", "Egregora_DAC_Encode",
+            "Egregora_DAC_Decode")
 
 
 def test_registry_holds_the_enhance_nodes():
-    """The four enhance-chain keys are in the port's registry with the JAX
-    package's widgets, display names, return types and functions."""
+    """The seven enhance keys are in the port's registry with the JAX
+    package's widgets, display names, return types and functions; the
+    registry holds all 19 of the JAX package's keys."""
     import egregora_tpu
     import egregora_tpu_torch
     for key in NEW_KEYS:
@@ -130,4 +135,6 @@ def test_registry_holds_the_enhance_nodes():
                 == egregora_tpu.NODE_DISPLAY_NAME_MAPPINGS[key])
         for attr in ("RETURN_TYPES", "FUNCTION", "CATEGORY"):
             assert getattr(tn, attr) == getattr(jn, attr)
-    assert len(egregora_tpu_torch.NODE_CLASS_MAPPINGS) == 16
+        assert getattr(tn, "RETURN_NAMES", None) == getattr(jn, "RETURN_NAMES", None)
+    assert len(egregora_tpu_torch.NODE_CLASS_MAPPINGS) == 19
+    assert set(egregora_tpu_torch.NODE_CLASS_MAPPINGS) == set(egregora_tpu.NODE_CLASS_MAPPINGS)

@@ -315,17 +315,16 @@ def test_node_contract_matches_jax(monkeypatch):
     from egregora_tpu.nodes import eval_pack as j_ep
     from egregora_tpu.nodes import null_suite as j_ns
     from egregora_tpu.nodes import spectral_enhance as j_se
-    # the package's registry: the 16 keys of the five ported node modules
-    # (of enhance_extras, the RNNoise and WPE nodes)
-    extras = {k: v for k, v in j_ee.NODE_DISPLAY_NAME_MAPPINGS.items()
-              if k in ("Egregora_RNNoise_Denoise", "Egregora_WPE_Dereverb")}
+    # the package's registry: the 19 keys of the five ported node modules
     keys = (set(j_node.NODE_CLASS_MAPPINGS) | set(j_ep.NODE_CLASS_MAPPINGS)
-            | set(j_ns.NODE_CLASS_MAPPINGS) | set(j_se.NODE_CLASS_MAPPINGS) | set(extras))
-    assert len(keys) == 16 and set(NODE_CLASS_MAPPINGS) == keys
+            | set(j_ns.NODE_CLASS_MAPPINGS) | set(j_se.NODE_CLASS_MAPPINGS)
+            | set(j_ee.NODE_CLASS_MAPPINGS))
+    assert len(keys) == 19 and set(NODE_CLASS_MAPPINGS) == keys
     assert NODE_DISPLAY_NAME_MAPPINGS == {**j_node.NODE_DISPLAY_NAME_MAPPINGS,
                                           **j_ep.NODE_DISPLAY_NAME_MAPPINGS,
                                           **j_ns.NODE_DISPLAY_NAME_MAPPINGS,
-                                          **j_se.NODE_DISPLAY_NAME_MAPPINGS, **extras}
+                                          **j_se.NODE_DISPLAY_NAME_MAPPINGS,
+                                          **j_ee.NODE_DISPLAY_NAME_MAPPINGS}
     tn, jn = NODE_CLASS_MAPPINGS["EgregoraAudioUpscaler"], j_node.EgregoraAudioSuperResolution
     assert tn is t_node.EgregoraAudioSuperResolution
     assert tn.INPUT_TYPES() == jn.INPUT_TYPES()

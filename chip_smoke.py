@@ -142,9 +142,31 @@ Phases, one line each on standard output:
    published 24 kHz geometry's encoder likewise, beside its stride-5
    'SAME' pads reversed to (3, 2) (0.68); neither phase may launch a
    kernel;
-19. a JSON line ``{"kernels": [...]}`` of all six kernels, whose times
+19. the entry points (``entry_phase``), with ``EGREGORA_TPU_OFFLINE=1``
+   (set for the whole run): the CLI (``egregora_tpu_torch.cli.main``) in
+   this process on seeded WAVs in a temporary directory: ``flashsr`` on
+   the istft trio (12 s of 16 kHz mono), on the HiFi-GAN trio with
+   ``EGREGORA_FUSED_VOCODER=1`` and ``EGREGORA_MRF_PATH`` pallas, rows,
+   dense and packed (3 chunks, an odd batch), packed again on 8 s (2
+   chunks), and on the published geometry from a seeded ``--ckpt-dir``
+   (``flashsr_params.npz`` + sidecar); ``enhance`` (50 iterations),
+   ``eval``, ``nulltest`` and ``loudness`` on a 60 s 48 kHz stereo pair,
+   ``codec`` at 16 kHz.  Each output is held to the same node called
+   directly on the card: within one PCM16 step (``flashsr``), one step
+   plus 1e-4 (``enhance``), 1e-4 relative on the printed JSON, relative
+   L2 2e-2 (``codec``); dense and packed to pallas within 5e-2.  Each
+   call's launches are counted: ``attn_rows`` on every ``flashsr``, the
+   MRF kernels on pallas and rows and on packed only at the odd batch,
+   none on dense, K4 on ``loudness`` and ``nulltest``; ``flashsr`` under
+   ``EGREGORA_ATTN_PATH=chunked`` launches no ``attn_rows`` and agrees
+   with the kernel path within 5e-2.  The example workflow through the
+   executor (``max_iterations`` 50) must equal the direct node chain,
+   with its ``timing_summary()``; one ``flashsr`` under
+   ``utils.profiling.trace`` must leave a trace that names the attn_rows
+   kernel; each subcommand's warm wall time beside the card;
+20. a JSON line ``{"kernels": [...]}`` of all six kernels, whose times
    are the per-shape times of phases 2, 4 and 5 times the launches that
-   phases 7, 9, 10, 11, 12 and 16 counted, and, last, ``{"ok": true, ...}``.
+   phases 7, 9, 10, 11, 12, 16 and 19 counted, and, last, ``{"ok": true, ...}``.
 
 Any failure exits non-zero and prints no ``"ok"`` line.  With no CUDA
 device it exits non-zero at once.
@@ -315,10 +337,10 @@ def fault_tile(d: int) -> int:
 def drop_last_tile(q, k, v):
     """A planted fault: attention that skips the last K/V tile (what a
     kernel that loses its tail tile computes), from the plain version."""
-    from egregora_tpu_torch.ops.attention import chunked_attention
+    from egregora_tpu_torch.ops.attn_rows import attn_rows_plain
     tile = fault_tile(q.shape[-1])
     m = (k.shape[1] - 1) // tile * tile
-    return chunked_attention(q, k[:, :m].contiguous(), v[:, :m].contiguous())
+    return attn_rows_plain(q, k[:, :m].contiguous(), v[:, :m].contiguous())
 
 
 def bound_share(kernel: str, row: dict, key) -> str:
@@ -636,14 +658,14 @@ def attn_shape_row(batch: int, heads: int, n: int, d: int, gen) -> dict:
     import torch.nn.functional as F
 
     from egregora_tpu_torch.ops import attn_rows as ar
-    from egregora_tpu_torch.ops.attention import chunked_attention
+    from egregora_tpu_torch.ops.attn_rows import attn_rows_plain
 
     bh = batch * heads
     q, k, v = (torch.randn(bh, n, d, generator=gen).to("cuda", torch.bfloat16)
                for _ in range(3))
     got = ar.attn_rows(q, k, v)
     torch.cuda.synchronize()
-    plain = chunked_attention(q, k, v)
+    plain = attn_rows_plain(q, k, v)
     ok, rel, err, limit = bf16_agreement(got, plain)
     bad_ok, bad_rel, bad_err, _ = bf16_agreement(drop_last_tile(q, k, v), plain)
     flops = 4.0 * bh * n * n * d
@@ -652,7 +674,7 @@ def attn_shape_row(batch: int, heads: int, n: int, d: int, gen) -> dict:
     bound_by = "operations" if flops / H100_BF16_FLOPS >= nbytes / H100_BYTES_PER_S else "bytes"
     reps = max(3, min(50, int(2e11 / flops)))
     ms = cuda_ms(lambda: ar.attn_rows(q, k, v), reps)
-    plain_ms = cuda_ms(lambda: chunked_attention(q, k, v), max(2, reps // 4), 1)
+    plain_ms = cuda_ms(lambda: attn_rows_plain(q, k, v), max(2, reps // 4), 1)
     q4, k4, v4 = (t.view(batch, heads, n, d) for t in (q, k, v))
     lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4), reps)
     row = {"bh": bh, "n": n, "d": d, "tile": list(ar.kernel_tile(d)),
@@ -985,6 +1007,7 @@ def reference_phase() -> None:
 
     from egregora_tpu_torch.models.flashsr import pipeline as P
     from egregora_tpu_torch.ops import attention
+    from egregora_tpu_torch.ops.attn_rows import attn_rows_plain
 
     def cfg(dtype):
         c = P.FlashSRConfig()
@@ -1014,7 +1037,7 @@ def reference_phase() -> None:
     calls = []
 
     def f32_attention(q, k, v):
-        return attention.chunked_attention(q.float(), k.float(), v.float())
+        return attn_rows_plain(q.float(), k.float(), v.float())
 
     def checked(q, k, v):
         """The kernel, held on the spot to the float32 plain version on the
@@ -1116,8 +1139,8 @@ def shipped_trio(name: str):
 def unscaled_attention(q, k, v):
     """A planted fault: attention without its D^-1/2 score scale, from
     the plain version."""
-    from egregora_tpu_torch.ops.attention import chunked_attention
-    return chunked_attention(q * q.shape[-1] ** 0.5, k, v)
+    from egregora_tpu_torch.ops.attn_rows import attn_rows_plain
+    return attn_rows_plain(q * q.shape[-1] ** 0.5, k, v)
 
 
 def planted_mrf(x, w, bias, kernels, dils):
@@ -1449,7 +1472,7 @@ def repair_phase() -> dict:
     from egregora_tpu_torch.ops import attn_rows as ar
     from egregora_tpu_torch.ops import mrf_fused as mf
     from egregora_tpu_torch.ops import mrf_rows as mr
-    from egregora_tpu_torch.ops.attention import chunked_attention
+    from egregora_tpu_torch.ops.attn_rows import attn_rows_plain
 
     attn, mrf, failures = [], [], []
     gen = torch.Generator().manual_seed(5)
@@ -1458,14 +1481,14 @@ def repair_phase() -> dict:
         q, k, v = (torch.randn(bh, n, d, generator=gen).to("cuda", dtype) for _ in range(3))
         got = ar.attn_rows(q, k, v)
         torch.cuda.synchronize()
-        plain = chunked_attention(q, k, v)
+        plain = attn_rows_plain(q, k, v)
         ok, rel, err, limit = kernel_agreement(got, plain)
         bad_ok, bad_rel, bad_err, _ = kernel_agreement(drop_last_tile(q, k, v), plain)
         size = q.element_size()
         bound_ms, bound_by = bound(4.0 * bh * n * n * d, 4.0 * bh * n * d * size,
                                    H100_BF16_FLOPS if dtype == torch.bfloat16 else H100_F32_FLOPS)
         ms = cuda_ms(lambda: ar.attn_rows(q, k, v), 20)
-        plain_ms = cuda_ms(lambda: chunked_attention(q, k, v), 5, 1)
+        plain_ms = cuda_ms(lambda: attn_rows_plain(q, k, v), 5, 1)
         heads = 4 if d == 24 else max(1, bh // BATCH)
         q4, k4, v4 = (t.view(-1, heads, n, d) for t in (q, k, v))
         lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4), 20)
@@ -2192,6 +2215,7 @@ def converted_reference(card, ckpt_dir) -> dict:
     from egregora_tpu_torch.models.flashsr import distill
     from egregora_tpu_torch.models.flashsr import pipeline as P
     from egregora_tpu_torch.ops import attention
+    from egregora_tpu_torch.ops.attn_rows import attn_rows_plain
 
     cfg, sd = distill.load_converted_flashsr(ckpt_dir)
     x = torch.from_numpy(test_signal(P.CHUNK_S, P.REQ_SR, seed=2)[:, :P.CHUNK_SAMPLES])
@@ -2215,7 +2239,7 @@ def converted_reference(card, ckpt_dir) -> dict:
 
     def checked(q, k, v):
         got = kernel(q, k, v)
-        ref32 = attention.chunked_attention(q.float(), k.float(), v.float())
+        ref32 = attn_rows_plain(q.float(), k.float(), v.float())
         calls.append((tuple(q.shape), rel_l2(got.float(), ref32),
                       rel_l2(drop_last_tile(q, k, v).float(), ref32)))
         return got
@@ -3482,6 +3506,383 @@ def dac_phase(card: str) -> dict:
     return results
 
 
+# ---- phase 19: the entry points (CLI, workflow executor, IO, profiler) ----
+
+WAV_STEP = 1.0 / 32768.0     # one PCM16 step of a WAV written and read back
+EVEN_SECONDS = 8.0           # 16 kHz input that makes 2 chunks (an even batch)
+ENTRY_PAIR_SECONDS = 60.0    # the eval subcommands' pair: 60 s of 48 kHz stereo
+ENTRY_ITERATIONS = 50        # Fat Llama iterations of `enhance` and the workflow
+DENSE_PACKED_LIMIT = 5e-2    # dense / packed / chunked attention against the kernel path
+# the HiFi-GAN trio's MRF paths through the CLI, on the 12 s input (3
+# chunks): label, EGREGORA_MRF_PATH, MRF launches at batch 1 (those of
+# NODE_PATHS; packed at this odd batch runs mrf_fused_cm, dense none)
+ENTRY_MRF_PATHS = [("pallas", "pallas", NODE_PATHS[0][3]), ("rows", "rows", NODE_PATHS[1][3]),
+                   ("dense", "dense", {}), ("packed", "packed", NODE_PATHS[0][3])]
+
+
+def run_cli(argv: list) -> tuple:
+    """``egregora_tpu_torch.cli.main(argv)`` in this process: (wall s, the
+    printed lines, the last printed JSON object or None); the card is
+    synchronised before the clock stops."""
+    import contextlib
+    import io
+
+    import torch
+
+    from egregora_tpu_torch import cli
+
+    buf = io.StringIO()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    lines = buf.getvalue().splitlines()
+    if rc != 0:
+        raise RuntimeError(f"cli {argv}: exit code {rc}: {lines}")
+    obj = next((json.loads(ln) for ln in reversed(lines) if ln.startswith("{")), None)
+    return wall, lines, obj
+
+
+def read_wav(path):
+    from egregora_tpu_torch.utils.wavio import read_audio
+    return read_audio(path)
+
+
+def json_agreement(label: str, got: dict, ref: dict, rel: float = 1e-4) -> float:
+    """Largest |d| / max(1, |ref|) over the keys; raises where the keys
+    differ or any exceeds ``rel``."""
+    if set(got) != set(ref):
+        raise RuntimeError(f"{label}: keys {sorted(got)} against {sorted(ref)}")
+    worst = max(abs(float(got[k]) - float(ref[k])) / max(1.0, abs(float(ref[k]))) for k in ref)
+    if not worst <= rel:
+        raise RuntimeError(f"{label}: {got} against {ref} (worst {worst:.3e}, limit {rel:g})")
+    return worst
+
+
+def seeded_converted_dir(root, seed: int = 7):
+    """``root/flashsr`` holding the published geometry's seeded weights as
+    the resolver's cache (``flashsr_params.npz``) and geometry sidecar,
+    the JAX package's format, as a user's ``--ckpt-dir`` would."""
+    from egregora_tpu_torch.models.flashsr import distill
+    from egregora_tpu_torch.models.flashsr import pipeline as P
+    from egregora_tpu_torch.utils import weights
+
+    cfg = published_cfg()
+    mods = P.FlashSRModules(cfg)
+    mods.init_params(seed)
+    d = root / "flashsr"
+    d.mkdir(parents=True, exist_ok=True)
+    weights.save_params({name: weights.flax_tree(m, values=True)
+                         for name, m in mods.by_name().items()}, d / distill.CACHE)
+    (d / distill.SIDECAR).write_text(distill._cfg_to_json(cfg))
+    return cfg
+
+
+def trace_kernel_names(logdir) -> list:
+    """Names of the card kernels in the Chrome trace ``utils.profiling.trace``
+    wrote into ``logdir``."""
+    from pathlib import Path
+    files = sorted(Path(logdir).glob("*.pt.trace.json"))
+    if len(files) != 1:
+        raise RuntimeError(f"profiler trace: expected one *.pt.trace.json in {logdir}, "
+                           f"found {[f.name for f in files]}")
+    events = json.loads(files[0].read_text()).get("traceEvents", [])
+    return [ev.get("name", "") for ev in events if ev.get("cat") == "kernel"]
+
+
+def entry_phase(card: str) -> dict:
+    """The standalone entry points on the card, with ``EGREGORA_TPU_OFFLINE``
+    set: the CLI in this process on seeded WAVs in a temporary directory
+    (``flashsr`` on the istft trio, on the HiFi-GAN trio with the fused
+    vocoder on each MRF path, at an even batch on the packed path, and on
+    the published geometry from a seeded ``--ckpt-dir``; ``enhance``,
+    ``eval``, ``nulltest``, ``loudness``, ``codec`` at 16 kHz), each output
+    held to the same node called directly on the card (within one PCM16
+    step, or the node limits above), each call's kernel launches counted;
+    ``mha`` under ``EGREGORA_ATTN_PATH=chunked``; the example workflow
+    through the executor against the direct node chain; one ``flashsr``
+    under ``utils.profiling.trace``, whose trace must name the attn_rows
+    kernel; each subcommand's warm wall time."""
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    import numpy as np
+    import torch
+
+    import egregora_tpu_torch
+    from egregora_tpu_torch.nodes import super_resolution
+    from egregora_tpu_torch.nodes.base import comfy_audio
+    from egregora_tpu_torch.pipeline.executor import WorkflowExecutor
+    from egregora_tpu_torch.pipeline.run_workflow import EXAMPLE
+    from egregora_tpu_torch.utils import profiling
+    from egregora_tpu_torch.utils.wavio import write_audio
+
+    reg = egregora_tpu_torch.NODE_CLASS_MAPPINGS
+    up = super_resolution.EgregoraAudioSuperResolution
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_entry_"))
+    sr_in = 16000
+    wav12, wav8 = tmp / "in12.wav", tmp / "in8.wav"
+    write_audio(wav12, test_signal(SECONDS, sr_in, seed=0), sr_in)
+    write_audio(wav8, test_signal(EVEN_SECONDS, sr_in, seed=4), sr_in)
+    pair_a = eval_signal(ENTRY_PAIR_SECONDS, seed=21)
+    wav_a, wav_b = tmp / "a.wav", tmp / "b.wav"
+    write_audio(wav_a, pair_a, EVAL_SR)
+    write_audio(wav_b, frac_delayed(pair_a, PLANTED_DELAY, PLANTED_GAIN_DB), EVAL_SR)
+    res = {"walls": {}, "paths": {}, "counts": {}}
+
+    def cli_call(label: str, argv: list, cold: bool = False):
+        """One CLI call counted from 0 (after a cold call when asked)."""
+        if cold:
+            run_cli(argv)
+        reset_counts()
+        wall, lines, obj = run_cli(argv)
+        counts = read_counts()
+        res["walls"][label] = wall
+        res["counts"][label] = counts
+        log(f"entry cli {label}: {wall:.3f} s wall{' (warm)' if cold else ''}, "
+            f"launches {counts}; {' | '.join(ln for ln in lines if not ln.startswith('{'))}")
+        return counts, obj
+
+    def node_wave(audio_path, sr):
+        """The upscaler node called directly on the card on the WAV's audio."""
+        cs, _ = read_wav(audio_path)
+        up._PIPE = None
+        (out,) = up().run({"waveform": torch.from_numpy(cs[None]), "sample_rate": sr},
+                          False, "48000")
+        return out["waveform"][0].numpy()
+
+    def held(label: str, got, ref, abs_limit: float = WAV_STEP, rel_limit=None) -> dict:
+        """The CLI's WAV against a reference array: max |d| within
+        ``abs_limit`` (one PCM16 step for the same node on the same path),
+        or, given ``rel_limit``, relative L2 within it (another path)."""
+        got = np.asarray(got, np.float32)
+        ref = np.asarray(ref, np.float32)
+        if got.shape != ref.shape or not np.isfinite(got).all():
+            raise RuntimeError(f"entry {label}: output {got.shape} against {ref.shape}, "
+                               f"finite {bool(np.isfinite(got).all())}")
+        d = float(np.abs(got - ref).max())
+        rel = rel_l2(torch.from_numpy(got), torch.from_numpy(ref))
+        ok = d <= abs_limit if rel_limit is None else rel <= rel_limit
+        limit = f"max|d| {abs_limit:.3e}" if rel_limit is None else f"relative L2 {rel_limit:g}"
+        log(f"entry {label}: max|d| {d:.3e} ({d / WAV_STEP:.2f} PCM16 steps), relative L2 "
+            f"{rel:.3e} (limit {limit}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise RuntimeError(f"entry {label}: the CLI's output disagrees ({d}, {rel})")
+        return {"max_abs_err": d, "rel_l2": rel}
+
+    def expect(label: str, got: dict, want: dict) -> None:
+        if got != want:
+            raise RuntimeError(f"entry {label}: launches {got}, expected {want}")
+
+    try:
+        set_env(EGREGORA_TPU_WEIGHTS=str(tmp / "no_weights"), EGREGORA_FLASHSR_VARIANT=None,
+                EGREGORA_FUSED_VOCODER=None, EGREGORA_MRF_PATH=None, EGREGORA_ATTN_PATH=None)
+        # flashsr, istft trio (the default)
+        out = str(tmp / "sr_istft.wav")
+        counts, _ = cli_call("flashsr istft", ["flashsr", "--in", str(wav12), "--out", out],
+                             cold=True)
+        expect("flashsr istft", counts, expected_counts({}, BATCH, 1))
+        istft = read_wav(out)[0]
+        res["paths"]["flashsr istft"] = held("flashsr istft vs the node", istft,
+                                             node_wave(wav12, sr_in))
+        # where a warm flashsr call goes: weights resolved, pipeline built, the file processed
+        from egregora_tpu_torch.cli import _load
+        from egregora_tpu_torch.models.flashsr.distill import resolve_flashsr
+        from egregora_tpu_torch.models.flashsr.pipeline import FlashSRPipeline
+        t0 = time.perf_counter()
+        buf = _load(str(wav12))
+        t1 = time.perf_counter()
+        cfg_i, params_i, _ = resolve_flashsr()
+        t2 = time.perf_counter()
+        pipe = FlashSRPipeline(cfg_i, params=params_i, device="cuda")
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        pipe.process(buf).numpy()
+        t4 = time.perf_counter()
+        res["flashsr_breakdown_s"] = {"read": t1 - t0, "resolve": t2 - t1, "build": t3 - t2,
+                                      "process": t4 - t3}
+        log(f"entry flashsr istft, warm, by step: {json.dumps(res['flashsr_breakdown_s'])}")
+        del pipe
+        # the same under EGREGORA_ATTN_PATH=chunked: no attn_rows, near the kernel path
+        set_env(EGREGORA_ATTN_PATH="chunked")
+        counts, _ = cli_call("flashsr istft, attention chunked",
+                             ["flashsr", "--in", str(wav12), "--out", str(tmp / "sr_chunked.wav")])
+        set_env(EGREGORA_ATTN_PATH=None)
+        expect("flashsr istft, attention chunked", counts, expected_counts({}, BATCH, 1)
+               | {"attn_rows": {}})
+        res["paths"]["attention chunked"] = held(
+            "flashsr istft, attention chunked vs the kernel path",
+            read_wav(tmp / "sr_chunked.wav")[0], istft, rel_limit=DENSE_PACKED_LIMIT)
+        # flashsr under the profiler: the trace must name the attn_rows kernel
+        logdir = tmp / "trace"
+        with profiling.trace(str(logdir)):
+            run_cli(["flashsr", "--in", str(wav12), "--out", str(tmp / "sr_traced.wav")])
+        names = trace_kernel_names(logdir)
+        rows_k = [n for n in names if "RowsNumerics" in n]
+        log(f"entry profiler trace: {len(names)} kernel events, {len(rows_k)} of the attn_rows "
+            f"kernel ({rows_k[0] if rows_k else 'none'})")
+        if not rows_k:
+            raise RuntimeError("entry: the profiler trace names no attn_rows kernel "
+                               f"(kernel events: {sorted(set(names))[:10]})")
+        res["trace"] = {"kernel_events": len(names), "attn_rows_events": len(rows_k)}
+
+        # flashsr, HiFi-GAN trio with the fused vocoder on each MRF path
+        set_env(EGREGORA_FLASHSR_VARIANT="hifigan", EGREGORA_FUSED_VOCODER="1")
+        waves = {}
+        for i, (label, path, per_item) in enumerate(ENTRY_MRF_PATHS):
+            set_env(EGREGORA_MRF_PATH=path)
+            out = str(tmp / f"sr_{label}.wav")
+            counts, _ = cli_call(f"flashsr hifigan {label}",
+                                 ["flashsr", "--in", str(wav12), "--out", out], cold=i == 0)
+            expect(f"flashsr hifigan {label}", counts, expected_counts(per_item, BATCH, 1))
+            waves[label] = read_wav(out)[0]
+            res["paths"][f"flashsr hifigan {label}"] = held(
+                f"flashsr hifigan {label} vs the node", waves[label], node_wave(wav12, sr_in))
+            if label in ("dense", "packed"):
+                res["paths"][f"flashsr hifigan {label}"]["vs_pallas_rel_l2"] = held(
+                    f"flashsr hifigan {label} vs pallas", waves[label], waves["pallas"],
+                    rel_limit=DENSE_PACKED_LIMIT)["rel_l2"]
+        # packed at an even batch (8 s: 2 chunks) launches no MRF kernel
+        set_env(EGREGORA_MRF_PATH="packed")
+        counts, _ = cli_call("flashsr hifigan packed, even batch",
+                             ["flashsr", "--in", str(wav8), "--out", str(tmp / "sr_even.wav")])
+        expect("flashsr hifigan packed, even batch", counts, expected_counts({}, 2, 1))
+        res["paths"]["flashsr hifigan packed, even batch"] = held(
+            "flashsr hifigan packed, even batch vs the node", read_wav(tmp / "sr_even.wav")[0],
+            node_wave(wav8, sr_in))
+        set_env(EGREGORA_MRF_PATH="pallas")
+        res["paths"]["flashsr hifigan packed, even batch"]["vs_pallas_rel_l2"] = held(
+            "flashsr hifigan packed, even batch vs pallas", read_wav(tmp / "sr_even.wav")[0],
+            node_wave(wav8, sr_in), rel_limit=DENSE_PACKED_LIMIT)["rel_l2"]
+        set_env(EGREGORA_FLASHSR_VARIANT=None, EGREGORA_FUSED_VOCODER=None, EGREGORA_MRF_PATH=None)
+
+        # flashsr, the published geometry from a seeded --ckpt-dir
+        ckpt = tmp / "ckpt"
+        t = time.perf_counter()
+        cfg = seeded_converted_dir(ckpt)
+        log(f"entry: seeded published-geometry --ckpt-dir written in "
+            f"{time.perf_counter() - t:.1f} s")
+        out = str(tmp / "sr_published.wav")
+        counts, _ = cli_call("flashsr published", ["flashsr", "--ckpt-dir", str(ckpt), "--in",
+                                                   str(wav12), "--out", out], cold=True)
+        expect("flashsr published", counts, converted_counts({}, BATCH, 1))
+        ref = node_wave(wav12, sr_in)
+        if up._PIPE.weight_source != "converted" or up._PIPE.cfg != cfg:
+            raise RuntimeError("entry: the node did not resolve the seeded --ckpt-dir")
+        res["paths"]["flashsr published"] = held("flashsr published vs the node",
+                                                 read_wav(out)[0], ref)
+        set_env(EGREGORA_TPU_WEIGHTS=str(tmp / "no_weights"))
+        up._PIPE = None
+
+        # enhance: against the Fat Llama GPU node
+        out = str(tmp / "enh.wav")
+        counts, _ = cli_call("enhance", ["enhance", "--in", str(wav12), "--out", out,
+                                         "--iterations", str(ENTRY_ITERATIONS)], cold=True)
+        cs, _ = read_wav(wav12)
+        (fl,) = reg["EgregoraFatLlamaGPU"]().run("wav", ENTRY_ITERATIONS, 0.6, 1411, True, True,
+                                                 AUDIO=comfy_audio(sr_in, cs))
+        got, sr = read_wav(out)
+        if sr != fl["sample_rate"]:
+            raise RuntimeError(f"entry enhance: {sr} Hz against the node's {fl['sample_rate']}")
+        res["paths"]["enhance"] = held("enhance vs the Fat Llama GPU node", got, fl["samples"],
+                                       WAV_STEP + 1e-4)
+
+        # eval, nulltest, loudness: printed JSON against the nodes' on the same files
+        a, sr_a = read_wav(wav_a)
+        b, _ = read_wav(wav_b)
+        _, rep = cli_call("eval", ["eval", "--ref", str(wav_a), "--proc", str(wav_b)], cold=True)
+        (m,) = reg["Metrics (LSD + SI-SDR)"]().execute(comfy_audio(sr_a, a), comfy_audio(sr_a, b))
+        res["paths"]["eval"] = {"worst_rel": json_agreement("eval", rep, m), "report": rep}
+        counts, rep = cli_call("nulltest", ["nulltest", "--ref", str(wav_a), "--proc",
+                                            str(wav_b)], cold=True)
+        if not sum(counts["iir_lowpass"].values()):
+            raise RuntimeError("entry nulltest: K4 (iir_lowpass) was not launched")
+        _m, _n, delay_ms, gain_db, metrics, *_ = reg["Null Test (Full)"]().execute(
+            comfy_audio(sr_a, a), comfy_audio(sr_a, b), draw_waveforms=False,
+            draw_spectrograms=False, draw_diffspec=False)
+        node_rep = {**dict(metrics), "delay_ms": delay_ms, "gain_db": gain_db}
+        res["paths"]["nulltest"] = {"worst_rel": json_agreement("nulltest", rep, node_rep),
+                                    "report": rep}
+        counts, rep = cli_call("loudness", ["loudness", "--in", str(wav_a)], cold=True)
+        if not sum(counts["iir_lowpass"].values()):
+            raise RuntimeError("entry loudness: K4 (iir_lowpass) was not launched")
+        (meter,) = reg["Loudness Meter (BS1770)"]().execute(comfy_audio(sr_a, a))
+        res["paths"]["loudness"] = {"worst_rel": json_agreement("loudness", rep, meter),
+                                    "report": rep}
+        log("entry eval / nulltest / loudness: printed JSON equals the nodes' within 1e-4 "
+            "relative: " + json.dumps({k: res["paths"][k]["worst_rel"]
+                                        for k in ("eval", "nulltest", "loudness")}))
+
+        # codec at 16 kHz: against the DAC encode and decode nodes
+        out = str(tmp / "codec.wav")
+        counts, rep = cli_call("codec 16khz", ["codec", "--in", str(wav12), "--out", out,
+                                               "--model-type", "16khz"], cold=True)
+        if any(sum(c.values()) for c in counts.values()):
+            raise RuntimeError(f"entry codec: the DAC path launched a kernel: {counts}")
+        codes, _ = reg["Egregora_DAC_Encode"]().execute(comfy_audio(sr_in, cs), "16khz")
+        (dec, _) = reg["Egregora_DAC_Decode"]().execute(codes)
+        got = read_wav(out)[0]
+        res["paths"]["codec 16khz"] = held("codec 16khz vs the DAC nodes", got,
+                                           dec["samples"][:, : got.shape[-1]], rel_limit=2e-2)
+        res["paths"]["codec 16khz"]["report"] = rep
+
+        # the example workflow through the executor against the direct node chain
+        ex = WorkflowExecutor(timer=profiling.NodeTimer())
+        ex.run(EXAMPLE, overrides={"1": {"path": str(wav12)},
+                                   "4": {"max_iterations": ENTRY_ITERATIONS}})
+        reset_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        results = ex.run(EXAMPLE, overrides={"1": {"path": str(wav12)},
+                                             "4": {"max_iterations": ENTRY_ITERATIONS}})
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        counts = read_counts()
+        expect("workflow", counts, expected_counts({}, BATCH, 1))
+        (up_out,) = up().run(comfy_audio(sr_in, cs), False, "48000")
+        (chain,) = reg["EgregoraFatLlamaGPU"]().run("wav", ENTRY_ITERATIONS, 0.6, 1411, True,
+                                                    True, AUDIO=up_out)
+        wf_out = np.asarray(results["4"][0]["samples"])
+        d = float(np.abs(wf_out - chain["samples"]).max()) if wf_out.shape == \
+            chain["samples"].shape else float("inf")
+        summary = ex.timing_summary()
+        log(f"entry workflow (example, max_iterations {ENTRY_ITERATIONS}): {wall:.3f} s wall "
+            f"warm, out {wf_out.shape} @ {results['4'][0]['sample_rate']} Hz, vs the direct "
+            f"node chain max|d| {d:.3e}; launches {counts}; timing_summary "
+            f"{json.dumps(summary)}")
+        if d != 0.0:
+            raise RuntimeError(f"entry workflow: the executor's output differs from the "
+                               f"direct node chain by {d}")
+        res["walls"]["workflow"] = wall
+        res["counts"]["workflow"] = counts
+        res["workflow"] = {"timing_summary": summary, "max_abs_err": d}
+    finally:
+        set_env(EGREGORA_TPU_WEIGHTS=None, EGREGORA_FLASHSR_VARIANT=None,
+                EGREGORA_FUSED_VOCODER=None, EGREGORA_MRF_PATH=None, EGREGORA_ATTN_PATH=None)
+        up._PIPE = None
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"entry warm wall times on {card}: " + "; ".join(
+        f"{k} {v:.3f} s" for k, v in res["walls"].items()))
+    return res
+
+
+def entry_launches(entry: dict, kernel: str) -> tuple:
+    """(launches by shape, launches by path) of ``kernel`` over the entry
+    phase's counted calls."""
+    total, by_path = collections.Counter(), {}
+    for label, counts in entry["counts"].items():
+        n = sum(counts[kernel].values())
+        if n:
+            total.update(counts[kernel])
+            by_path[f"entry: {label}"] = n
+    return total, by_path
+
+
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3495,6 +3896,8 @@ def main() -> int:
               "from the root of a checkout of the repository", file=sys.stderr, flush=True)
         return 2
 
+    import os
+    os.environ["EGREGORA_TPU_OFFLINE"] = "1"     # hermetic: no first-use weight download
     t_start = time.perf_counter()
     card = card_line()
     log(card)
@@ -3528,6 +3931,7 @@ def main() -> int:
     chain = chain_phase()
     dfn = dfn_phase(card)
     dac = dac_phase(card)
+    entry = entry_phase(card)
 
     attn_counts = collections.Counter(pipe["counts"])
     attn_paths = {"full config (seeded weights)": pipe["launches"]}
@@ -3544,23 +3948,41 @@ def main() -> int:
     chain_attn = chain["counts"]["attn_rows"]
     attn_counts.update(chain_attn)
     attn_paths["full chain"] = sum(chain_attn.values())
+    entry_attn, entry_attn_paths = entry_launches(entry, "attn_rows")
+    attn_counts.update(entry_attn)
+    attn_paths.update(entry_attn_paths)
     gen = torch.Generator().manual_seed(1)
     heads = SERVED_ATTN[0]          # the istft trio's one attention block
     measured = {(r["bh"], r["n"], r["d"]) for r in attn_rows_}
     attn_rows_ += [attn_shape_row(bh // heads, heads, n, d, gen)
-                   for bh, n, d in chain_attn if (bh, n, d) not in measured]
+                   for bh, n, d in set(chain_attn) | set(entry_attn) if (bh, n, d) not in measured]
     k4_counts = collections.Counter(evals["k4_counts"])
     k4_counts.update(chain["counts"]["iir_lowpass"])
     k4_paths = {**evals["k4_by_path"], "full chain": sum(chain["counts"]["iir_lowpass"].values())}
+    entry_k4, entry_k4_paths = entry_launches(entry, "iir_lowpass")
+    k4_counts.update(entry_k4)
+    k4_paths.update(entry_k4_paths)
+    entry_fused, entry_fused_paths = entry_launches(entry, "mrf_fused_cm")
+    entry_rows, entry_rows_paths = entry_launches(entry, "mrf_rows")
+    k4_measured = {(r["c"], r["n"]) for r in k4_rows}
+    mrf_measured = {(r["entry"], r["b"], r["c"], r["t"]) for r in mrf_rows_}
+    unmeasured = ([("iir_lowpass",) + s for s in entry_k4 if s not in k4_measured]
+                  + [("mrf_fused_cm",) + s for s in entry_fused
+                     if ("mrf_fused_cm",) + s not in mrf_measured]
+                  + [("mrf_rows",) + s for s in entry_rows if ("mrf_rows",) + s not in mrf_measured])
+    if unmeasured:
+        raise RuntimeError(f"entry phase: launches at shapes no kernel phase measured: {unmeasured}")
     k1b_counts = labs["attn_flash_lab"]["counts"]["flash_online"]
     k3_counts = labs["edge_conv_lab"]["counts"]["conv3x3_out1"]
     kernels = [attn_entry(attn_rows_, dict(attn_counts), attn_paths),
-               mrf_entry("mrf_fused_cm", mrf_rows_, dict(fused),
+               mrf_entry("mrf_fused_cm", mrf_rows_, dict(fused + entry_fused),
                          {"HiFi-GAN trio, fused MRF": sum(fused.values()) - sum(conv_fused.values()),
-                          "converted trio, fused MRF": sum(conv_fused.values())}),
-               mrf_entry("mrf_rows", mrf_rows_, dict(rows),
+                          "converted trio, fused MRF": sum(conv_fused.values()),
+                          **entry_fused_paths}),
+               mrf_entry("mrf_rows", mrf_rows_, dict(rows + entry_rows),
                          {"HiFi-GAN trio, rows MRF": sum(rows.values()) - sum(conv_rows.values()),
-                          "converted trio, rows MRF": sum(conv_rows.values())}),
+                          "converted trio, rows MRF": sum(conv_rows.values()),
+                          **entry_rows_paths}),
                iir_entry(k4_rows, dict(k4_counts), k4_paths),
                edge_entry("flash_online", edge["flash_online"], k1b_counts,
                           {"attn_flash_lab": sum(k1b_counts.values())}),
@@ -3595,6 +4017,10 @@ def main() -> int:
     log(f"deepfilternet and dac on {card}: " + json.dumps(
         {"deepfilternet": {k: v for k, v in dfn.items() if not k.startswith("planted")},
          "dac": dac}))
+    log(f"entry points on {card}: " + json.dumps(
+        {"warm_wall_s": entry["walls"], "flashsr_breakdown_s": entry["flashsr_breakdown_s"],
+         "trace": entry["trace"],
+         "workflow_timing_summary": entry["workflow"]["timing_summary"]}))
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
     log(card)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -10,7 +10,10 @@ eval pack and the null-test suite (``eval/``, ``nodes.eval_pack``,
 (``ops.spectral``, ``nodes.spectral_enhance``), and the RNNoise, WPE,
 DeepFilterNet and DAC nodes (``models.rnnoise``, ``models.wpe``,
 ``models.deepfilternet``, ``models.dac``, ``nodes.enhance_extras``): all
-19 of the JAX package's nodes.
+19 of the JAX package's nodes; and the standalone entry points: the
+command line (``python -m egregora_tpu_torch.cli``) and the workflow
+executor (``pipeline.executor``, ``python -m
+egregora_tpu_torch.pipeline.run_workflow``).
 
 The node registry: ``NODE_CLASS_MAPPINGS`` / ``NODE_DISPLAY_NAME_MAPPINGS``
 merge every ported node module's maps; a module that fails to import

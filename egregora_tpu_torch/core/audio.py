@@ -100,6 +100,34 @@ class AudioBuffer:
     def num_samples(self) -> int:
         return int(self.samples.shape[-1])
 
+    @property
+    def duration_s(self) -> float:
+        """Seconds of audio: samples over rate, whatever the samples' dtype
+        (an int16 wire buffer holds one sample per element too)."""
+        return self.num_samples / float(self.sample_rate)
+
+    def mono(self) -> Union[torch.Tensor, np.ndarray]:
+        """Channel-averaged mono signal ``[S]`` in float32: a tensor on the
+        samples' device if they are a tensor, numpy if they are numpy; an
+        int16 wire buffer is dequantized first."""
+        if isinstance(self.samples, torch.Tensor):
+            s = self.samples
+            if s.dtype == torch.int16:
+                s = torch.from_numpy(self.numpy()).to(s.device)
+            return s.float().mean(0)
+        return np.mean(self.numpy(), axis=0, dtype=np.float32)
+
+    def with_samples(self, samples: Union[torch.Tensor, np.ndarray],
+                     sample_rate: Optional[int] = None,
+                     meta: Optional[Dict[str, Any]] = None) -> "AudioBuffer":
+        """A new buffer of ``samples``, keeping this one's rate and meta
+        unless they are given."""
+        return AudioBuffer(
+            samples=samples,
+            sample_rate=int(sample_rate if sample_rate is not None else self.sample_rate),
+            meta=dict(self.meta if meta is None else meta),
+        )
+
     def numpy(self) -> np.ndarray:
         a = _to_numpy(self.samples)
         if a.dtype == np.int16:          # pcm16 wire output

@@ -13,9 +13,9 @@ Reference checkpoints: the three ``.pth`` files of upstream FlashSR
 name map onto the JAX package's flax tree and then onto the port, and
 the converted arrays are cached beside them as ``flashsr_params.npz``
 with a ``flashsr_params.cfg.json`` sidecar, in the JAX package's format:
-a cache either package wrote loads in the other.  Nothing is ever
-downloaded: with files missing, the resolver falls through to the
-shipped trios.
+a cache either package wrote loads in the other.  With files missing the
+resolver makes one first-use download attempt (``utils.fetch``; off under
+``EGREGORA_TPU_OFFLINE``), then falls through to the shipped trios.
 
 Shipped trios: the JAX package ships two distilled trios as data files, ``pretrained_istft.npz`` (the
 served default: phase-conditioned exciter ``SpectralVocoder``) and
@@ -36,6 +36,8 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from ...utils.fetch import (FLASHSR_FILES as CONVERTED_FILES, FETCHED, auto_fetch_flashsr,
+                            fetched_files, missing_flashsr_files)
 from ...utils.weights import (convert_state_dict, flax_tree, load_params,
                               load_torch_state_dict, params_from_jax, save_params,
                               unflatten)
@@ -49,7 +51,6 @@ from .vocoder import VocoderConfig, hifigan_name_map
 SHIPPED_DIR = Path(__file__).resolve().parents[3] / "egregora_tpu" / "models" / "flashsr"
 PRETRAINED = SHIPPED_DIR / "pretrained.npz"
 PRETRAINED_ISTFT = SHIPPED_DIR / "pretrained_istft.npz"
-CONVERTED_FILES = ("student_ldm.pth", "sr_vocoder.pth", "vae.pth")
 CACHE = "flashsr_params.npz"
 SIDECAR = "flashsr_params.cfg.json"
 
@@ -156,21 +157,37 @@ def load_converted_flashsr(ckpt_dir: Optional[Path] = None
     ``ckpt_dir`` (default ``weights_dir()``), or None when they are not
     all there.  The cache comes first (its sidecar's geometry, or the full
     config for a cache without one); else the three ``.pth`` files, with
-    the geometry inferred from their shapes, converted and cached.
-    Nothing is fetched."""
+    the geometry inferred from their shapes, converted and cached.  With
+    files missing it makes the JAX resolver's first-use download attempt
+    (``utils.fetch.auto_fetch_flashsr``: once per directory per process,
+    none under ``EGREGORA_TPU_OFFLINE``) before giving up.  A file that
+    fetch downloaded is read as tensors only (``weights_only``), and one
+    that holds anything else raises; files put in place by hand are
+    unpickled whole, as the JAX package does."""
     d = Path(ckpt_dir) if ckpt_dir is not None else weights_dir()
     cache, sidecar = d / CACHE, d / SIDECAR
     if cache.exists():
         cfg = _cfg_from_json(sidecar.read_text()) if sidecar.exists() else FlashSRConfig()
         return cfg, params_from_jax(cfg, load_params(cache))
-    missing = [f for f in CONVERTED_FILES if not (d / f).exists()]
-    if missing:
+    missing = missing_flashsr_files(d)
+    if missing and not auto_fetch_flashsr(d):
         if len(missing) < len(CONVERTED_FILES):
             print(f"[egregora_tpu_torch] FlashSR: {d} lacks {', '.join(missing)}; "
-                  "nothing is downloaded, the reference checkpoints are skipped")
+                  "the reference checkpoints are skipped")
         return None
-    sds = {name: load_torch_state_dict(d / f"{name}.pth")
-           for name in ("vae", "student_ldm", "sr_vocoder")}
+    fetched = fetched_files(d)
+    sds = {}
+    for name in ("vae", "student_ldm", "sr_vocoder"):
+        f = f"{name}.pth"
+        try:
+            sds[name] = load_torch_state_dict(d / f, weights_only=f in fetched)
+        except Exception as e:
+            if f not in fetched:
+                raise
+            raise RuntimeError(
+                f"{d / f} was downloaded and holds more than tensors, so it is not "
+                f"loaded; delete it, or put a trusted copy there by hand and take its "
+                f"name out of {d / FETCHED}") from e
     cfg = infer_flashsr_config(sds["vae"], sds["student_ldm"], sds["sr_vocoder"])
     print(f"[egregora_tpu_torch] FlashSR geometry inferred from checkpoints: "
           f"vae base={cfg.vae.base_channels} mults={cfg.vae.channel_mults}; "
@@ -186,8 +203,8 @@ def resolve_flashsr(seed: int = 0) -> Tuple[FlashSRConfig, Optional[StateDicts],
     resolver's order:
 
     1. converted reference checkpoints (the cache ``flashsr_params.npz``
-       or all three ``.pth`` files in ``weights_dir()``; "converted");
-       nothing is ever fetched;
+       or all three ``.pth`` files in ``weights_dir()``, after one
+       first-use download attempt; "converted");
     2. the shipped istft trio ``pretrained_istft.npz`` ("distilled-istft"),
        unless ``EGREGORA_FLASHSR_VARIANT=hifigan``;
     3. the shipped HiFi-GAN trio ``pretrained.npz`` ("distilled");

@@ -7,7 +7,9 @@ Counterpart of ``egregora_tpu/models/flashsr/vocoder.py``:
   hop (10*8*6) and multi-receptive-field (``MRF``) residual stacks
   between stages.  ``forward`` is the module path; ``apply_fused`` runs
   each stage's MRF through the hand-written kernels of ``csrc/mrf.cu``
-  (``ops.mrf_fused``, ``ops.mrf_rows``) with the same weights.  ``forward``
+  (``ops.mrf_fused``, ``ops.mrf_rows``), or the JAX package's plain
+  layout engines (``ops.mrf_dense``, ``ops.mrf_packed``), with the same
+  weights.  ``forward``
   takes NWC mel ``[B, F, n_mels]``; inside, tensors are NCW.
 * ``SpectralVocoder`` (``kind="istft"``): a ConvNeXt backbone at frame
   rate predicting log-magnitude and phase of a 1920-point STFT, inverted
@@ -25,7 +27,9 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ...ops.mrf_dense import mrf_dense_cm
 from ...ops.mrf_fused import mrf_fused_cm, pack_resblock_weights
+from ...ops.mrf_packed import conv_packed, mrf_packed, pack_batch, unpack_batch
 from ...ops.mrf_rows import mrf_rows
 from ...ops.stft import istft_dense, stft_conv
 from .layers import Conv1d, ConvTranspose1d, Dense, LayerNorm, leaky_relu
@@ -114,17 +118,22 @@ ROWS_TILES = (4096, 2048, 1024, 512, 256, 128)
 
 
 def apply_fused(voc: SRVocoder, mel: torch.Tensor) -> torch.Tensor:
-    """``SRVocoder.forward`` with each MRF on the hand-written kernels,
-    the stage dispatch of the JAX ``apply_fused``:
+    """``SRVocoder.forward`` with each MRF on another engine, stage by
+    stage as the JAX ``apply_fused`` routes them by ``EGREGORA_MRF_PATH``:
 
-    * ``EGREGORA_MRF_PATH=rows``: the NWC kernel (``ops.mrf_rows``, one
-      launch a branch) on every stage whose T a tile of ``ROWS_TILES``
-      divides, the module path on the others;
-    * otherwise (unset or ``pallas``): the channel-major kernel
-      (``ops.mrf_fused``, one launch a stage) on stages of C <= 64, the
-      module path on wider ones;
-    * ``dense`` and ``packed``, the JAX package's XLA layout engines, are
-      not ported.
+    * ``rows``: the NWC kernel (``ops.mrf_rows``, one launch a branch) on
+      every stage whose T a tile of ``ROWS_TILES`` divides, the module
+      path on the others;
+    * ``packed`` with an even batch: the stages of C <= 64 on the
+      batch-packed grouped convs (``ops.mrf_packed``, two items a group,
+      plain PyTorch); the last stage stays packed through the one-channel
+      post conv;
+    * ``dense``: the stages of C <= 64 on the channel-major per-tap
+      products (``ops.mrf_dense``, plain PyTorch);
+    * otherwise (unset, ``pallas``, and ``packed`` with an odd batch): the
+      channel-major kernel (``ops.mrf_fused``, one launch a stage) on
+      stages of C <= 64;
+    * wider stages take the module path.
 
     Pre/post convs and the transposed convs are the modules themselves."""
     c = voc.cfg
@@ -134,11 +143,9 @@ def apply_fused(voc: SRVocoder, mel: torch.Tensor) -> torch.Tensor:
             f"({c.resblock_dilations}); the fused MRF kernels apply one schedule "
             "to every branch; use SRVocoder.forward for this config")
     path = os.environ.get("EGREGORA_MRF_PATH", "pallas")
-    if path in ("dense", "packed"):
-        raise NotImplementedError(
-            f"EGREGORA_MRF_PATH={path}: the JAX package's {path} MRF engine is not "
-            "ported (ROADMAP.md, Queue 1); use pallas or rows")
     dils = c.resblock_dilations[0]
+    last = len(c.upsample_factors) - 1
+    packed_g = 0          # > 0: h is batch-packed NWC [B/g, T, g*C]
     h = voc.Conv_0(mel.transpose(1, 2))
     for i in range(len(c.upsample_factors)):
         h = getattr(voc, f"ConvTranspose_{i}")(leaky_relu(h))
@@ -151,13 +158,25 @@ def apply_fused(voc: SRVocoder, mel: torch.Tensor) -> torch.Tensor:
                              c.resblock_kernels, dils).transpose(1, 2)
             else:
                 h = mrf(h)
+        elif ch <= 64 and path == "packed" and h.shape[0] % 2 == 0:
+            g = 2
+            hp = mrf_packed(pack_batch(h.to(c.dtype).transpose(1, 2), g), mrf, g,
+                            c.resblock_kernels, dils)
+            if i == last:
+                packed_g, h = g, hp
+            else:
+                h = unpack_batch(hp, g).transpose(1, 2)
         elif ch <= 64:
             w, b = pack_resblock_weights(mrf, c.dtype)
-            h = mrf_fused_cm(h.to(c.dtype).contiguous(), w, b, c.resblock_kernels, dils)
+            engine = mrf_dense_cm if path == "dense" else mrf_fused_cm
+            h = engine(h.to(c.dtype).contiguous(), w, b, c.resblock_kernels, dils)
         else:
             h = mrf(h)
-    h = voc.Conv_1(leaky_relu(h))
-    return torch.tanh(h.float())[:, 0]
+    h = leaky_relu(h)
+    if packed_g:
+        h = conv_packed(h, voc.Conv_1.weight, voc.Conv_1.bias, 1, packed_g)
+        return torch.tanh(unpack_batch(h, packed_g).float())[..., 0]
+    return torch.tanh(voc.Conv_1(h).float())[:, 0]
 
 
 class ConvNeXtBlock1D(nn.Module):

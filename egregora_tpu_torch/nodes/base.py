@@ -8,7 +8,8 @@ CPU float32 tensors ``[1, H, W, 3]`` in 0..1.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+import contextlib
+from typing import Any, Dict, Iterator, Optional
 
 import numpy as np
 import torch
@@ -41,7 +42,7 @@ def buffer_to_comfy(buf: AudioBuffer) -> Dict[str, Any]:
 
 
 class DeviceNode:
-    """Base of the eval and null-suite nodes: ``DEVICE`` is where their
+    """Base of the eval, null-suite, enhance and upscaler nodes: ``DEVICE`` is where their
     compute runs, the card unless a caller sets ``"cpu"`` (on this class
     for all of them, or on one node class)."""
     DEVICE = "cuda"
@@ -51,6 +52,20 @@ class DeviceNode:
         buf = from_any(x)
         cn = torch.from_numpy(np.ascontiguousarray(buf.numpy(), np.float32)).to(self.DEVICE)
         return {"sr": buf.sample_rate, "cn": cn, "meta": dict(buf.meta)}
+
+
+@contextlib.contextmanager
+def node_device(device: Any) -> Iterator[None]:
+    """Every node's ``DEVICE`` set to ``device`` ("cuda" or "cpu") for the
+    block through ``DeviceNode``, and restored after it, also when a node
+    raises (a class that pins its own, as ``EgregoraFatLlamaCPU`` does,
+    keeps it)."""
+    saved = DeviceNode.DEVICE
+    DeviceNode.DEVICE = torch.device(device).type
+    try:
+        yield
+    finally:
+        DeviceNode.DEVICE = saved
 
 
 def host(x: torch.Tensor) -> np.ndarray:

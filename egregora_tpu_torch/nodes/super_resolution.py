@@ -3,22 +3,24 @@
 Counterpart of ``egregora_tpu/nodes/super_resolution.py``, with the same
 inputs (``audio``, ``lowpass_input`` BOOLEAN, ``output_sr`` in {48000,
 44100, 96000}) and one AUDIO output.  The pipeline (weights from
-``distill.resolve_flashsr``) is built once and cached on the class.  It
-runs on ``DEVICE``, the card unless a caller sets ``"cpu"``.
+``distill.resolve_flashsr``) is built once per device and cached on the
+class.  It runs on ``DeviceNode.DEVICE``, the card unless a caller sets
+``"cpu"``.
 """
 from __future__ import annotations
 
 from typing import Optional
 
+import torch
+
 from ..models.flashsr.pipeline import FlashSRPipeline
-from .base import buffer_to_comfy, to_buffer
+from .base import DeviceNode, buffer_to_comfy, to_buffer
 
 FUNCTION = "run"
 CATEGORY = "Egregora/Audio"
 
 
-class EgregoraAudioSuperResolution:
-    DEVICE = "cuda"
+class EgregoraAudioSuperResolution(DeviceNode):
     _PIPE: Optional[FlashSRPipeline] = None
 
     @classmethod
@@ -38,7 +40,8 @@ class EgregoraAudioSuperResolution:
 
     @classmethod
     def _pipeline(cls) -> FlashSRPipeline:
-        if cls._PIPE is None:
+        # one cached pipeline, rebuilt when DEVICE names another device
+        if cls._PIPE is None or cls._PIPE.device.type != torch.device(cls.DEVICE).type:
             from ..models.flashsr.distill import resolve_flashsr
             cfg, params, source = resolve_flashsr()
             pipe = FlashSRPipeline(cfg, params=params, device=cls.DEVICE)

@@ -10,10 +10,9 @@ dropped), with the scale of the true D.  The bf16 kernel is the
 warpgroup-MMA core of ``csrc/attn_core.cuh`` (TMA K/V ring, O in
 registers) with flash_rows's rounding; float32 runs on the SIMT cores.
 A CUDA tensor goes to the kernel or raises; a CPU tensor goes to the
-plain version,
-``ops.attention.chunked_attention``, which has flash_rows's math
-(f32 scores scaled after the product, true row max, weights rounded to
-the value dtype, f32 accumulation).
+plain version, ``attn_rows_plain``, which has flash_rows's math (f32
+scores scaled after the product, true row max, weights rounded to the
+value dtype, f32 accumulation).
 """
 from __future__ import annotations
 
@@ -59,11 +58,28 @@ def kernel_tile(d: int) -> tuple:
     return (dk,) + BF16_TILES[dk]
 
 
+def attn_rows_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    block: int = 256) -> torch.Tensor:
+    """The plain version: exact attention ``[B, N, D]`` a query block at a
+    time, with flash_rows's rounding.  Each block's whole score row
+    ``[block, N]`` is formed in f32 (scale applied after the product),
+    softmaxed with the true row max, rounded to the value dtype and
+    multiplied into v with f32 accumulation; the output takes q's dtype."""
+    n, d = q.shape[-2:]
+    scale = d ** -0.5
+    kt, vf = k.float().transpose(1, 2), v.float()
+    out = torch.empty_like(q)
+    for i in range(0, n, block):
+        s = torch.matmul(q[:, i:i + block].float(), kt) * scale
+        w = torch.softmax(s, dim=-1).to(v.dtype)
+        out[:, i:i + block] = torch.matmul(w.float(), vf).to(q.dtype)
+    return out
+
+
 def attn_rows(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """Exact attention ``[BH, N, D]`` (scale ``D**-0.5``)."""
     if q.device.type == "cpu":
-        from .attention import chunked_attention
-        return chunked_attention(q, k, v)
+        return attn_rows_plain(q, k, v)
     if q.device.type != "cuda":
         raise ValueError(f"attn_rows: unsupported device {q.device}")
     for name, t in (("k", k), ("v", v)):

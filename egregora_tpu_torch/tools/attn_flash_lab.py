@@ -29,7 +29,7 @@ import torch.nn.functional as F
 
 from .. import tools
 from ..ops import attn_flash, attn_rows
-from ..ops.attention import chunked_attention
+from ..ops.attn_rows import attn_rows_plain
 from . import cuda_ms
 
 SHAPES = [("vae-mid", 26, 8192, 256), ("unet-ds2", 208, 2048, 32),
@@ -59,7 +59,7 @@ def sweep(rounds: int = 6, names=None, seed: int = 0, extra=(), other=None) -> l
         q, k, v = (torch.randn(bh, n, d, generator=gen, device="cuda").bfloat16()
                    for _ in range(3))
         flops = 4.0 * bh * n * n * d
-        plain_rows = chunked_attention(q, k, v).float()
+        plain_rows = attn_rows_plain(q, k, v).float()
         plain_online = attn_flash.flash_online_plain(q, k, v).float()
         heads = HEADS.get(name, 1)
         q4, k4, v4 = (t.view(bh // heads, heads, n, d) for t in (q, k, v))

@@ -1,7 +1,8 @@
-"""ctypes bindings of the repo's native audio codec (``native/``), read side.
+"""ctypes bindings of the repo's native audio codec (``native/``).
 
 Counterpart of ``egregora_tpu/utils/native.py`` for what ``utils.wavio``
-reads: ``read_wav`` and ``read_flac``.  The library is built from
+reads and writes: ``read_wav``, ``read_flac``, ``write_wav`` (16-bit PCM
+or 32-bit float) and ``write_flac`` (16-bit).  The library is built from
 ``native/wavcodec.cc`` and ``native/flaccodec.cc`` with g++ at first use
 into the port's build directory, ``egregora_tpu_torch/_build/`` (never
 under ``native/``), keyed by a hash of the sources and flags.  Where
@@ -81,6 +82,9 @@ def load() -> Optional[ctypes.CDLL]:
     lib.wc_free.argtypes = [ctypes.c_void_p]
     lib.wc_last_error.restype = ctypes.c_char_p
     lib.wc_last_error.argtypes = []
+    lib.wc_write.restype = ctypes.c_int
+    lib.wc_write.argtypes = [ctypes.c_char_p, ctypes.POINTER(ctypes.c_float),
+                             ctypes.c_int, ctypes.c_long, ctypes.c_int, ctypes.c_int]
     if hasattr(lib, "fc_read"):
         lib.fc_read.restype = ctypes.c_int
         lib.fc_read.argtypes = read_args
@@ -88,6 +92,9 @@ def load() -> Optional[ctypes.CDLL]:
         lib.fc_free.argtypes = [ctypes.c_void_p]
         lib.fc_last_error.restype = ctypes.c_char_p
         lib.fc_last_error.argtypes = []
+        lib.fc_write.restype = ctypes.c_int
+        lib.fc_write.argtypes = [ctypes.c_char_p, ctypes.POINTER(ctypes.c_float),
+                                 ctypes.c_int, ctypes.c_long, ctypes.c_int]
     _LIB = lib
     return _LIB
 
@@ -120,3 +127,29 @@ def read_wav(path: str) -> Tuple[np.ndarray, int]:
 def read_flac(path: str) -> Tuple[np.ndarray, int]:
     """A FLAC through the native codec -> ([C, S] float32, sr)."""
     return _read(path, "fc")
+
+
+def _write(path: str, prefix: str, samples_cn: np.ndarray, *args: int) -> None:
+    lib = load()
+    if lib is None or not hasattr(lib, f"{prefix}_write"):
+        raise RuntimeError(f"native {prefix} codec unavailable")
+    s = np.ascontiguousarray(samples_cn, dtype=np.float32)
+    if s.ndim == 1:
+        s = s[None, :]
+    rc = getattr(lib, f"{prefix}_write")(str(path).encode(),
+                                          s.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+                                          s.shape[0], s.shape[1], *args)
+    if rc != 0:
+        err = getattr(lib, f"{prefix}_last_error")().decode()
+        raise RuntimeError(f"native {prefix} write failed ({rc}): {err}")
+
+
+def write_wav(path: str, samples_cn: np.ndarray, sr: int, bits: int = 16) -> None:
+    """``[C, S]`` float32 -> a WAV through the native codec: 16-bit PCM
+    (``round(x * 32768)``, clipped) or, at ``bits=32``, IEEE float."""
+    _write(path, "wc", samples_cn, int(sr), int(bits))
+
+
+def write_flac(path: str, samples_cn: np.ndarray, sr: int) -> None:
+    """``[C, S]`` float32 -> a 16-bit FLAC through the native codec."""
+    _write(path, "fc", samples_cn, int(sr))

@@ -181,13 +181,14 @@ def flax_tree(module: torch.nn.Module, values: bool = False) -> Dict[str, Any]:
     return {"params": tree}
 
 
-def load_torch_state_dict(path: Path) -> Dict[str, np.ndarray]:
+def load_torch_state_dict(path: Path, weights_only: bool = False) -> Dict[str, np.ndarray]:
     """A ``.pth`` file as numpy arrays, unwrapped from a module or a
     ``{"state_dict": ...}`` dict as the JAX package unwraps it; entries
     that are not tensors dropped.  Like the JAX package's, it unpickles
-    the whole file (``weights_only=False``): load only checkpoints you
-    trust."""
-    obj = torch.load(str(path), map_location="cpu", weights_only=False)
+    the whole file by default: load only checkpoints you trust.  With
+    ``weights_only`` (a downloaded file) it reads tensors and plain
+    containers only, and raises on anything else."""
+    obj = torch.load(str(path), map_location="cpu", weights_only=weights_only)
     if hasattr(obj, "state_dict"):
         obj = obj.state_dict()
     if isinstance(obj, dict) and "state_dict" in obj:

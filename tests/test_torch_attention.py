@@ -1,7 +1,8 @@
 """PyTorch port vs the JAX package: attention and the noise latent.
 
-The port's plain attention (``chunked_attention``, what ``attn_rows``
-runs for CPU tensors) against the Pallas kernel it replaces,
+The plain version of the port's attention kernel (``attn_rows_plain``,
+what ``attn_rows`` runs for CPU tensors) against the Pallas kernel it
+replaces,
 ``flash_rows``, run in interpret mode as ``tests/test_attn_pallas.py``
 runs it: in bf16 within ``chip_smoke.bf16_agreement``'s limits (relative
 L2 1e-2, max |d| two bf16 ulps of the largest output), in float32 within
@@ -79,7 +80,7 @@ def test_bf16_limits_pass_kernel_math_and_reject_faults(b, n, d, fault):
     L2 ~3e-3, max |d| one ulp) and reject each planted fault (relative L2
     9e-2 and more)."""
     q, k, v = (torch.from_numpy(t).to(torch.bfloat16) for t in _qkv(b, n, d, 5))
-    plain = chunked_attention(q, k, v)
+    plain = ar.attn_rows_plain(q, k, v)
     got = {"none": lambda: _online(q, k, v),
            "drop_last_tile": lambda: _online(q, k, v, drop_last=True),
            "no_rescale": lambda: _online(q, k, v, rescale=False),
@@ -119,7 +120,7 @@ def test_planted_fault_drops_the_kernels_smaller_tile():
         32: 64, 64: 64, 128: 64, 256: 64, 512: 32}
     q, k, v = (torch.from_numpy(t).to(torch.bfloat16) for t in _qkv(1, 200, 512, 4))
     dropped = chip_smoke.drop_last_tile(q, k, v)
-    assert torch.equal(dropped, chunked_attention(q, k[:, :192], v[:, :192]))
+    assert torch.equal(dropped, ar.attn_rows_plain(q, k[:, :192], v[:, :192]))
 
 
 def test_lab_loads_another_checkout_beside_this_one():
@@ -147,7 +148,7 @@ def test_plain_f32_close_to_flash_rows_and_exact(n):
     q, k, v = _qkv(4, n, 32, 3)
     ref = np.asarray(flash_rows(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
                                 block_q=256, interpret=True))
-    got = chunked_attention(*(torch.from_numpy(t) for t in (q, k, v))).numpy()
+    got = ar.attn_rows_plain(*(torch.from_numpy(t) for t in (q, k, v))).numpy()
     assert np.abs(got - ref).max() < 1e-4
     assert np.abs(got - _exact(q, k, v)).max() < 1e-4
 

@@ -10,7 +10,7 @@ import torch
 
 import chip_smoke
 from egregora_tpu_torch.ops import attn_rows as ar
-from egregora_tpu_torch.ops.attention import chunked_attention
+from egregora_tpu_torch.ops.attn_rows import attn_rows_plain
 
 pytestmark = pytest.mark.cuda
 
@@ -51,7 +51,7 @@ def test_attn_rows_matches_plain(card, bh, n, d):
     assert ar.launches == before + 1
     assert ar.launches_by_shape[(bh, n, d)] == before_shape + 1
     assert got.dtype == torch.bfloat16 and got.shape == q.shape
-    ok, rel, err, limit = chip_smoke.bf16_agreement(got, chunked_attention(q, k, v))
+    ok, rel, err, limit = chip_smoke.bf16_agreement(got, attn_rows_plain(q, k, v))
     assert ok, (rel, err, limit)
 
 
@@ -68,7 +68,7 @@ def test_attn_rows_f32_matches_plain(card, bh, n, d):
     torch.cuda.synchronize()
     assert ar.launches_by_shape[(bh, n, d)] == before + 1
     assert got.dtype == torch.float32 and got.shape == q.shape
-    ok, rel, err = chip_smoke.f32_agreement(got, chunked_attention(q, k, v))
+    ok, rel, err = chip_smoke.f32_agreement(got, attn_rows_plain(q, k, v))
     assert ok, (rel, err)
 
 

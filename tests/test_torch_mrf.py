@@ -134,8 +134,9 @@ def test_apply_fused_matches_jax(monkeypatch, path):
 def test_apply_fused_dispatch(monkeypatch):
     """Stages over 64 channels keep the module path and the rest go to
     ``mrf_fused_cm`` (the shapes it is called with are recorded); the
-    result matches JAX's ``apply_fused``; heterogeneous dilations and
-    the engines not ported raise."""
+    result matches JAX's ``apply_fused``; the dense and packed engines
+    (at this even batch) take those stages off the kernel with the same
+    result; heterogeneous dilations raise."""
     jc, tc = _voc_cfgs(upsample_initial=256, channel_floor=16)
     jm, p, tm, mel = _vocoders(jc, tc, seed=2)
     calls = []
@@ -147,10 +148,12 @@ def test_apply_fused_dispatch(monkeypatch):
         got = t_voc.apply_fused(tm, torch.from_numpy(mel)).numpy()
     assert np.abs(got - ref).max() <= 2e-4
     assert calls == [(2, 64, 64 * 4), (2, 32, 64 * 12)]   # C=128 stage: module path
-    for engine in ("dense", "packed"):
+    for engine in ("dense", "packed"):      # batch 2: both keep the narrow stages off the kernel
         monkeypatch.setenv("EGREGORA_MRF_PATH", engine)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            t_voc.apply_fused(tm, torch.from_numpy(mel))
+        calls.clear()
+        with torch.no_grad():
+            other = t_voc.apply_fused(tm, torch.from_numpy(mel)).numpy()
+        assert calls == [] and np.abs(other - ref).max() <= 2e-4
     monkeypatch.delenv("EGREGORA_MRF_PATH")
     het = dataclasses.replace(tc, resblock_dilations=((1, 3, 5), (1, 3, 5), (2, 6, 12)))
     with pytest.raises(NotImplementedError, match="resblock_dilations"):

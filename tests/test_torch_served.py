@@ -351,6 +351,7 @@ def test_node_contract_matches_jax(monkeypatch):
     tp = t_pipe.FlashSRPipeline(tcfg, params=params_from_jax(tcfg, params), device="cpu")
     monkeypatch.setattr(jn, "_PIPE", jp)
     monkeypatch.setattr(tn, "_PIPE", tp)
+    monkeypatch.setattr(tn, "DEVICE", "cpu")           # the node serves tp, built for the CPU
     wave = torch.from_numpy(_x((1, 2, 32000), 7, scale=0.2))        # [B=1, C=2, T] 16 kHz
     audio = {"waveform": wave, "sample_rate": 16000}
     (ref,) = jn().run(audio, lowpass_input=False, output_sr="44100")

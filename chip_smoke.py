@@ -164,9 +164,43 @@ Phases, one line each on standard output:
    with its ``timing_summary()``; one ``flashsr`` under
    ``utils.profiling.trace`` must leave a trace that names the attn_rows
    kernel; each subcommand's warm wall time beside the card;
-20. a JSON line ``{"kernels": [...]}`` of all six kernels, whose times
+20. training (``train_phase``), bf16 on the card: the distilled
+   config at ``distill()``'s defaults (batch 8 x 61 440 samples) from
+   ``init_params(0)``, five AdamW steps on one fixed batch, whose loss must
+   fall; every parameter with a finite gradient, beside the planted fault
+   of the attention kernel detached (launched with no ``grad_fn``),
+   which must leave parameters without one; the same step on 2 items
+   against float32 on the CPU (loss and each sub-model's gradient,
+   relative, ``TRAIN_LOSS_LIMIT`` / ``TRAIN_GRAD_LIMITS``); the full config
+   at batch 2 (hop 480, 256 mels) with ``attn_rows`` counted by shape in
+   the step; ``distill(steps=3)`` at its defaults into a temporary
+   directory; step time, the host's draws (data and noise), the card's
+   synthesis time and peak memory of each;
+21. the attention gradient (``attn_grad_phase``) at every training shape:
+   the ``AttnRows`` backward against autograd through ``attn_rows_plain`` in
+   float32 (dq, dk, dv relative L2 ``ATTN_GRAD_LIMIT``), beside the planted
+   fault ``dS = P * dP`` (row term dropped), with its time and SDPA's
+   backward at the same shape;
+22. ``distill_vocoder`` (``vocoder_distill_phase``) for 4 steps from the
+   shipped ``pretrained.npz``'s frozen VAE/UNet with the shipped istft
+   head's geometry, into a temporary directory, the frozen StudentUNet's
+   ``attn_rows`` counted;
+23. a checkpoint (``checkpoint_phase``) written at step 2 and read back
+   exactly (weights, moments, count), then step 3 resumed against the run
+   that went on (each parameter within ``RESUME_LR_SHARE`` of the lr);
+24. ``evaluate`` on both shipped trios beside their json records, and the
+   gate pair (seed 123) held to ``tests/test_flashsr_distilled.py``'s bars;
+25. the mesh (``mesh_phase``): ``process(mesh=make_chunk_mesh())`` equal to
+   ``mesh=None``, two slots of the card (two streams) against one device at
+   the same forward batches, then two ranks on the card over gloo in
+   subprocesses: a sharded float32 train step against the one-process step
+   (``MESH_STEP_LIMIT``), and the sharded ``process`` one-shot and with
+   ``max_batch`` against one device (``MESH_PROCESS_LIMIT``), the fused MRF
+   kernels counted on each rank;
+26. a JSON line ``{"kernels": [...]}`` of all six kernels, whose times
    are the per-shape times of phases 2, 4 and 5 times the launches that
-   phases 7, 9, 10, 11, 12, 16 and 19 counted, and, last, ``{"ok": true, ...}``.
+   phases 7, 9, 10, 11, 12, 16, 19, 20 and 22 counted, and, last,
+   ``{"ok": true, ...}``.
 
 Any failure exits non-zero and prints no ``"ok"`` line.  With no CUDA
 device it exits non-zero at once.
@@ -991,6 +1025,22 @@ ATTN_ONLY_LIMITS = {"mel_hr": 2.25e-2, "wave": 2.15e-2, "high_band": 3.0e-2}
 ATTN_CALL_LIMIT = 3e-3
 
 
+def legacy_init(mods, seed: int):
+    """The seeded weights the earlier phases' limits were measured on:
+    flax-like scales drawn from a torch generator in module order
+    (``layers.seeded_init_``), the draw ``FlashSRModules.init_params`` made
+    before it took the JAX package's (``fast_init_like``).  Their bf16
+    against float32 readings sit between the sound run and the planted
+    fault for these weights; other weights move them."""
+    import torch
+
+    from egregora_tpu_torch.models.flashsr.layers import seeded_init_
+    gen = torch.Generator().manual_seed(int(seed))
+    for m in mods.all():
+        seeded_init_(m, gen)
+    return mods
+
+
 def reference_phase() -> None:
     """The full config on one chunk, seeded weights: bf16 on the card
     (through the kernel) against float32 arithmetic on the CPU (plain
@@ -1026,12 +1076,14 @@ def reference_phase() -> None:
                 "high_band": high.float().cpu()}
 
     cpu = P.FlashSRPipeline(cfg(torch.float32), seed=1, device="cpu")
+    legacy_init(cpu.modules, 1)
     with torch.no_grad():     # the card's weights: the same draw, rounded to bf16
         for m in cpu.modules.all():
             for p in m.parameters():
                 p.copy_(p.bfloat16().float())
     ref = outputs(cpu)
     card = P.FlashSRPipeline(cfg(torch.bfloat16), seed=1, device="cuda")
+    legacy_init(card.modules, 1)
     sound = outputs(card)
     kernel = attention.attn_rows
     calls = []
@@ -1389,6 +1441,7 @@ def pipeline_phase() -> dict:
         raise RuntimeError(f"the test signal makes {k} chunks, not {BATCH}")
     t0 = time.perf_counter()
     pipe = FlashSRPipeline(FlashSRConfig(), seed=0, device="cuda")
+    legacy_init(pipe.modules, 0)
     torch.cuda.synchronize()
     n_params = sum(p.numel() for m in pipe.modules.all() for p in m.parameters())
     log(f"pipeline: full config, {n_params / 1e6:.1f}M params from seed 0 "
@@ -1596,6 +1649,7 @@ def narrow_node_run() -> dict:
         vocoder=V.VocoderConfig(upsample_initial=16, channel_floor=8))
     node_cls = super_resolution.NODE_CLASS_MAPPINGS["EgregoraAudioUpscaler"]
     node_cls._PIPE = pipe = P.FlashSRPipeline(cfg, seed=0, device="cuda")
+    legacy_init(pipe.modules, 0)
     x = test_signal(SECONDS, 16000, seed=0)
     set_env(EGREGORA_FUSED_VOCODER="1", EGREGORA_MRF_PATH=None)
     try:
@@ -2006,8 +2060,7 @@ def upstream_state_dicts(cfg, seed: int) -> dict:
     from egregora_tpu_torch.models.flashsr.vocoder import hifigan_name_map
     from egregora_tpu_torch.utils import weights
 
-    mods = P.FlashSRModules(cfg)
-    mods.init_params(seed)
+    mods = legacy_init(P.FlashSRModules(cfg), seed)
     maps = {"vae": audioldm_vae_name_map(cfg.vae).__self__,
             "student_ldm": ldm_unet_name_map(cfg.unet).__self__,
             "sr_vocoder": hifigan_name_map(cfg.vocoder).__self__}
@@ -3570,8 +3623,7 @@ def seeded_converted_dir(root, seed: int = 7):
     from egregora_tpu_torch.utils import weights
 
     cfg = published_cfg()
-    mods = P.FlashSRModules(cfg)
-    mods.init_params(seed)
+    mods = legacy_init(P.FlashSRModules(cfg), seed)
     d = root / "flashsr"
     d.mkdir(parents=True, exist_ok=True)
     weights.save_params({name: weights.flax_tree(m, values=True)
@@ -3883,6 +3935,544 @@ def entry_launches(entry: dict, kernel: str) -> tuple:
 
 
 
+# ---- training: the FlashSR trainers, the attention gradient, the mesh ----
+
+TRAIN_BATCH, TRAIN_FRAMES = 8, 128          # distill()'s defaults: 8 x 61 440 samples
+FULL_TRAIN_BATCH = 2                        # the full config at hop 480, 256 mels
+TRAIN_STEPS = 5                             # steps on one fixed batch (loss must fall)
+# one distilled step, bf16 on the card against float32 on the CPU, same weights, data
+# and noise (the first TRAIN_CPU_ITEMS items): loss and each sub-model's gradient,
+# relative.  The bring-up run on an H100 read 8.8e-4 and 3.1e-2 / 2.7e-2 / 0.137 (the
+# HiFi-GAN vocoder's 50-odd bf16 convs; its high band reads 0.18 in inference too)
+TRAIN_CPU_ITEMS = 2
+TRAIN_LOSS_LIMIT = 5e-3
+TRAIN_GRAD_LIMITS = {"vae": 0.1, "student_ldm": 0.1, "sr_vocoder": 0.3}
+# the attention Function's gradient (bf16 inputs, float32 sums) against autograd
+# through attn_rows_plain in float32, relative L2 of each of dq, dk, dv: read 1.7e-3
+# (the bf16 rounding of the outputs); the planted fault >= 3.7e-2 on dq or dk
+ATTN_GRAD_LIMIT = 1e-2
+# a checkpoint resumed at step k against the run that went on: the weights and
+# moments read back exactly; after one more step each parameter within this share
+# of the learning rate (Adam moves a parameter by about lr a step; read 0.0)
+RESUME_LR_SHARE = 0.5
+# the mesh: a sharded process against one device running the same forward batches
+# (relative L2; only the stitch's float32 sums can differ; read 0.0), and the
+# two-rank float32 train step against the one-process step (loss and gradients,
+# relative; read 0.0 and up to 5.5e-4, the vocoder's convs at batch 2 against 4)
+MESH_PROCESS_LIMIT = 1e-4
+MESH_STEP_LIMIT = 2e-3
+
+
+def named_grads(mods) -> dict:
+    """``{(sub-model, key): grad}`` of every parameter (None where autograd
+    left none)."""
+    return {(name, key): p.grad for name, m in mods.by_name().items()
+            for key, p in m.named_parameters()}
+
+
+def loss_and_grads(mods, lr_w, hr_w, kn, hop=480, n_mels=256):
+    """The distillation loss of one batch and the gradients autograd gives
+    (every ``.grad`` cleared first)."""
+    from egregora_tpu_torch.models.flashsr import train
+    for p in mods.parameters():
+        p.grad = None
+    loss = train.loss_fn(mods, lr_w, hr_w, kn, hop, n_mels, 2048)
+    loss.backward()
+    return float(loss.detach()), named_grads(mods)
+
+
+def grad_holes(grads: dict) -> tuple:
+    """(parameters without a gradient, parameters with a non-finite one)."""
+    import torch
+    missing = [k for k, g in grads.items() if g is None]
+    bad = [k for k, g in grads.items() if g is not None and not bool(torch.isfinite(g).all())]
+    return missing, bad
+
+
+def detached_attention():
+    """A planted fault: the attention kernel as it was before the autograd
+    Function, launched by raw pointer with no ``grad_fn``."""
+    from egregora_tpu_torch.ops import attn_rows as ar
+    return lambda q, k, v: ar._attn_rows(q, k, v)
+
+
+def sub_model_rel(a: dict, b: dict) -> dict:
+    """Relative L2 of each sub-model's gradients, ``a`` against ``b``."""
+    import torch
+    out = {}
+    for name in ("vae", "student_ldm", "sr_vocoder"):
+        keys = [k for k in b if k[0] == name]
+        ga = torch.cat([a[k].double().flatten().cpu() for k in keys])
+        gb = torch.cat([b[k].double().flatten().cpu() for k in keys])
+        out[name] = float((ga - gb).norm() / gb.norm())
+    return out
+
+
+def f32_cfg(cfg):
+    import dataclasses
+    import torch
+    f = lambda c: dataclasses.replace(c, dtype=torch.float32)      # noqa: E731
+    return dataclasses.replace(cfg, vae=f(cfg.vae), unet=f(cfg.unet), vocoder=f(cfg.vocoder))
+
+
+def train_run(label: str, cfg, batch: int, seed_key: int, steps: int, lr: float) -> dict:
+    """``steps`` AdamW steps of ``cfg`` (init_params(0), on the card) on one
+    fixed synthetic batch: losses, warm step time, the host's draws (data
+    and noise) and the card's synthesis time, peak memory, attn_rows
+    launches by shape."""
+    import torch
+
+    from egregora_tpu_torch.models.flashsr import distill, pipeline as P, prng, train
+    mods = P.FlashSRModules(cfg)
+    mods.init_params(0)
+    mods.to("cuda")
+    kd, kn = prng.split(prng.prng_key(seed_key))
+    length = 480 * TRAIN_FRAMES
+    t0 = time.perf_counter()
+    draws = distill.synth_draws(kd, batch, length)
+    draws_s = time.perf_counter() - t0
+    for _ in range(2):          # the second call is timed (the first sets up cuFFT)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lr_w, hr_w = distill.synth_from_draws(draws, length, device="cuda")
+        torch.cuda.synchronize()
+        synth_s = time.perf_counter() - t0
+    with torch.no_grad():
+        z_shape = (batch,) + tuple(mods.vae.encode(
+            torch.zeros(1, TRAIN_FRAMES, 256, 1, device="cuda")).shape[1:])
+    t0 = time.perf_counter()
+    prng.normal_from_key(kn, z_shape)
+    noise_s = time.perf_counter() - t0
+    step = train.make_train_step(mods, train.make_optimizer(mods, lr), None, 480, 256, 2048)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    losses, walls = [], []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(float(step(lr_w, hr_w, kn)))
+        walls.append(time.perf_counter() - t0)
+    counts = read_counts()
+    attn = counts["attn_rows"]
+    out = {"label": label, "batch": batch, "samples": length, "losses": losses,
+           "step_s_warm": sum(walls[1:]) / max(len(walls) - 1, 1), "step_s_cold": walls[0],
+           "draws_data_s": draws_s, "draws_noise_s": noise_s, "synth_card_s": synth_s,
+           "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "attn_counts": {"x".join(map(str, k)): v // steps for k, v in attn.items()},
+           "attn_counts_all": attn,
+           "params_m": sum(p.numel() for p in mods.parameters()) / 1e6}
+    log(f"train {label}: {out['params_m']:.1f}M parameters, batch {batch} x {length}: losses "
+        f"{', '.join(f'{x:.4f}' for x in losses)}; warm step {out['step_s_warm']:.3f} s "
+        f"(cold {walls[0]:.3f}); host draws {draws_s:.3f} s data + {noise_s:.3f} s noise, "
+        f"synthesis on the card {synth_s:.4f} s; peak {out['peak_gib']:.2f} GiB; attn_rows a "
+        f"step {out['attn_counts']}")
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        raise RuntimeError(f"train {label}: the loss did not fall on a fixed batch: {losses}")
+    out.update(mods=mods, lr_w=lr_w, hr_w=hr_w, kn=kn)
+    return out
+
+
+def train_phase(card: str) -> dict:
+    """The distilled config at distill()'s defaults and the full config, on
+    the card: falling loss, a gradient on every parameter (planted fault: the
+    detached attention), card against CPU, the trainer entry point."""
+    import tempfile
+    from pathlib import Path
+
+    import torch
+
+    from egregora_tpu_torch.models.flashsr import distill, pipeline as P
+    from egregora_tpu_torch.ops import attention
+
+    res = {"card": card}
+    dist_run = train_run("distilled", distill.distilled_config(), TRAIN_BATCH, 1,
+                         TRAIN_STEPS, 1e-3)
+    mods, lr_w, hr_w, kn = (dist_run.pop(k) for k in ("mods", "lr_w", "hr_w", "kn"))
+    # every parameter gets a finite gradient; the planted detached kernel must not
+    loss, grads = loss_and_grads(mods, lr_w, hr_w, kn)
+    missing, bad = grad_holes(grads)
+    real = attention.attn_rows
+    attention.attn_rows = detached_attention()
+    try:
+        _, planted = loss_and_grads(mods, lr_w, hr_w, kn)
+    finally:
+        attention.attn_rows = real
+    p_missing, _ = grad_holes(planted)
+    log(f"train distilled: {len(grads)} parameters, {len(missing)} without a gradient, "
+        f"{len(bad)} non-finite {'ok' if not (missing or bad) else 'FAIL'}; planted fault "
+        f"(the attention kernel detached): {len(p_missing)} without a gradient "
+        f"({', '.join('/'.join(k) for k in p_missing[:4])}...) "
+        f"{'rejected' if p_missing else 'NOT REJECTED'}")
+    if missing or bad:
+        raise RuntimeError(f"train: parameters without a finite gradient: {missing[:5]} {bad[:5]}")
+    if not p_missing:
+        raise RuntimeError("train: a detached attention kernel leaves every gradient in place")
+    # the same step on the CPU in float32 (same weights, data, noise)
+    n = TRAIN_CPU_ITEMS
+    card_loss, card_grads = loss_and_grads(mods, lr_w[:n], hr_w[:n], kn)
+    cpu = P.FlashSRModules(f32_cfg(mods.cfg))
+    cpu.load_state_dicts({name: {k: v.cpu() for k, v in m.state_dict().items()}
+                          for name, m in mods.by_name().items()})
+    t0 = time.perf_counter()
+    cpu_loss, cpu_grads = loss_and_grads(cpu, lr_w[:n].cpu(), hr_w[:n].cpu(), kn)
+    cpu_s = time.perf_counter() - t0
+    loss_rel = abs(card_loss - cpu_loss) / abs(cpu_loss)
+    grad_rel = sub_model_rel(card_grads, cpu_grads)
+    ok = loss_rel <= TRAIN_LOSS_LIMIT and all(grad_rel[k] <= TRAIN_GRAD_LIMITS[k]
+                                              for k in grad_rel)
+    log(f"train distilled, {n} items, bf16 card vs float32 CPU ({cpu_s:.1f} s there): loss "
+        f"{card_loss:.5f} vs {cpu_loss:.5f} (rel {loss_rel:.3e}, limit {TRAIN_LOSS_LIMIT:g}); "
+        f"gradient rel L2 " + ", ".join(f"{k} {v:.3e} (limit {TRAIN_GRAD_LIMITS[k]:g})"
+                                        for k, v in grad_rel.items())
+        + f" {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise RuntimeError(f"train: card and CPU disagree: loss {loss_rel}, grads {grad_rel}")
+    del cpu, cpu_grads, card_grads, grads, planted
+    res["distilled"] = dict(dist_run, cpu_loss_rel=loss_rel, cpu_grad_rel=grad_rel,
+                            params_without_grad=len(missing),
+                            planted_params_without_grad=len(p_missing))
+    del mods
+    torch.cuda.empty_cache()
+    # the full config at batch 2: attn_rows launched inside the step
+    full = train_run("full config", P.FlashSRConfig(), FULL_TRAIN_BATCH, 2, 3, 1e-4)
+    full_mods = full.pop("mods")
+    for k in ("lr_w", "hr_w", "kn"):
+        full.pop(k)
+    if not full["attn_counts"]:
+        raise RuntimeError("train full config: no attn_rows launch inside the step")
+    res["full"] = full
+    del full_mods
+    torch.cuda.empty_cache()
+    # the trainer's entry point: distill() at its defaults for a few steps
+    with tempfile.TemporaryDirectory() as d:
+        reset_counts()
+        t0 = time.perf_counter()
+        m = distill.distill(steps=3, log_every=1, out_path=Path(d) / "pretrained.npz")
+        wall = time.perf_counter() - t0
+        counts = read_counts()["attn_rows"]
+        back = distill.load_pretrained_with_cfg(Path(d) / "pretrained.npz")
+        if back is None or back[0] != distill.distilled_config():
+            raise RuntimeError("distill(): the written trio does not load back")
+    log(f"distill(steps=3) at its defaults: {wall:.1f} s with evaluate() of 4 chunks; "
+        f"metrics {json.dumps({k: m[k] for k in ('loss_first', 'loss_last', 'lsd_model')})}; "
+        f"attn_rows {counts}")
+    res["distill_entry"] = {"wall_s": wall, "metrics": m, "attn_counts": counts}
+    return res
+
+
+def attn_grad_phase(shapes) -> list:
+    """The attention Function's backward at the training shapes: against
+    autograd through attn_rows_plain in float32 (dq, dk, dv), beside the
+    planted fault (dS = P * dP, the row term dropped), with its time and
+    SDPA's backward at the same shapes."""
+    import torch
+    import torch.nn.functional as F
+
+    from egregora_tpu_torch.ops import attn_rows as ar
+
+    gen = torch.Generator().manual_seed(3)
+    rows = []
+    for bh, n, d in sorted(shapes):
+        q, k, v, do = (torch.randn(bh, n, d, generator=gen).to("cuda", torch.bfloat16)
+                       for _ in range(4))
+        o = ar._attn_rows(q, k, v)
+        got = ar.attn_rows_backward(q, k, v, o, do)
+        qf, kf, vf = (t.float().requires_grad_() for t in (q, k, v))
+        want = torch.autograd.grad(ar.attn_rows_plain(qf, kf, vf), (qf, kf, vf), do.float())
+        rel = [rel_l2(g.float(), w) for g, w in zip(got, want)]
+        bad = [rel_l2(g.float(), w) for g, w in zip(planted_backward(q, k, v, do), want)]
+        ok = all(r <= ATTN_GRAD_LIMIT for r in rel)
+        rejected = any(r > ATTN_GRAD_LIMIT for r in bad)
+        reps = max(3, min(30, int(1e11 / (8.0 * bh * n * n * d))))
+        ms = cuda_ms(lambda: ar.attn_rows_backward(q, k, v, o, do), reps)
+        q4, k4, v4 = (t.view(bh, 1, n, d).requires_grad_() for t in (q, k, v))
+        o4 = F.scaled_dot_product_attention(q4, k4, v4)
+        do4 = do.view(bh, 1, n, d)
+        lib_ms = cuda_ms(lambda: torch.autograd.grad(o4, (q4, k4, v4), do4, retain_graph=True),
+                         reps)
+        # the scores recomputed (2 n^2 d) and the dV, dP, dQ, dK products (8 n^2 d);
+        # q, k, v, o, dO read and dq, dk, dv written once, bf16
+        b_ms, b_by = bound(10.0 * bh * n * n * d, 2.0 * 8 * bh * n * d, H100_BF16_FLOPS)
+        row = {"bh": bh, "n": n, "d": d, "rel_dq_dk_dv": rel, "planted_rel": bad,
+               "backward_ms": ms, "sdpa_backward_ms": lib_ms, "bound_ms": b_ms,
+               "bound_by": b_by}
+        log(f"attn_rows backward [{bh},{n},{d}]: dq/dk/dv rel L2 "
+            f"{', '.join(f'{r:.2e}' for r in rel)} (limit {ATTN_GRAD_LIMIT:g}) "
+            f"{'ok' if ok else 'FAIL'}; planted fault (row term dropped) "
+            f"{', '.join(f'{r:.2e}' for r in bad)} {'rejected' if rejected else 'NOT REJECTED'}; "
+            f"plain backward {ms:.4f} ms, SDPA backward {lib_ms:.4f} ms, bound {b_ms:.4f} ms "
+            f"({b_by}, recomputing the scores)")
+        if not ok:
+            raise RuntimeError(f"attention backward disagrees at [{bh},{n},{d}]: {rel}")
+        if not rejected:
+            raise RuntimeError(f"the attention gradient limit does not reject the planted "
+                               f"fault at [{bh},{n},{d}]")
+        rows.append(row)
+        del q, k, v, do, o, got, want, q4, k4, v4, o4
+    return rows
+
+
+def planted_backward(q, k, v, do, block: int = 256):
+    """A planted fault: ``attn_rows_backward`` with ``dS = P * dP``, the
+    row term ``rowsum(dO * O)`` dropped."""
+    import torch
+    n, d = q.shape[-2:]
+    s = d ** -0.5
+    qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
+    dq, dk, dv = torch.empty_like(qf), torch.zeros_like(kf), torch.zeros_like(vf)
+    for i in range(0, n, block):
+        r = slice(i, i + block)
+        p = torch.softmax(qf[:, r] @ kf.transpose(1, 2) * s, dim=-1)
+        dv += p.transpose(1, 2) @ dof[:, r]
+        ds = p * (dof[:, r] @ vf.transpose(1, 2))
+        dq[:, r] = ds @ kf * s
+        dk += ds.transpose(1, 2) @ qf[:, r] * s
+    return dq, dk, dv
+
+
+def vocoder_distill_phase() -> dict:
+    """distill_vocoder from the shipped pretrained.npz's frozen VAE/UNet with
+    the shipped istft head's geometry (hidden 256, depth 6, phase_cond,
+    exciter), a few steps, into a temporary directory."""
+    import tempfile
+    from pathlib import Path
+
+    from egregora_tpu_torch.models.flashsr import distill
+    with tempfile.TemporaryDirectory() as d:
+        out = Path(d) / "pretrained_istft.npz"
+        reset_counts()
+        t0 = time.perf_counter()
+        m = distill.distill_vocoder(steps=4, hidden=256, depth=6, phase_cond=True,
+                                    exciter=True, out_path=out)
+        wall = time.perf_counter() - t0
+        counts = read_counts()["attn_rows"]
+        back = distill.load_pretrained_with_cfg(out)
+    if back is None or not (back[0].vocoder.phase_cond and back[0].vocoder.exciter):
+        raise RuntimeError("distill_vocoder: the written trio does not load back")
+    if not all(math.isfinite(m[k]) for k in ("loss_first", "loss_last", "lsd_model")):
+        raise RuntimeError(f"distill_vocoder: non-finite metrics {m}")
+    if not counts:
+        raise RuntimeError("distill_vocoder: the frozen StudentUNet launched no attn_rows")
+    log(f"distill_vocoder(steps=4, hidden 256, depth 6, phase_cond, exciter): {wall:.1f} s "
+        f"with evaluate(); losses {m['loss_first']:.4f} -> {m['loss_last']:.4f}, LSD "
+        f"{m['lsd_model']:.2f} dB, SI-SDR {m['sisdr_model']:.2f} dB; attn_rows {counts}")
+    return {"wall_s": wall, "metrics": m, "attn_counts": counts}
+
+
+def checkpoint_phase() -> dict:
+    """A checkpoint written at step k and resumed against the run that went
+    on to step k + 1 (distilled config, batch 2, the card)."""
+    import tempfile
+
+    import torch
+
+    from egregora_tpu_torch.models.flashsr import distill, pipeline as P, prng, train
+    cfg, lr, k = distill.distilled_config(), 2e-4, 2
+    base = prng.prng_key(21)
+
+    def run(mods, opt, i):
+        return distill.make_distill_step(mods, opt, 2, 480 * TRAIN_FRAMES)(prng.fold_in(base, i))
+
+    a = P.FlashSRModules(cfg)
+    a.init_params(0)
+    a.to("cuda")
+    opt_a = train.make_optimizer(a, lr)
+    for i in range(k):
+        run(a, opt_a, i)
+    with tempfile.TemporaryDirectory() as d:
+        train.save_checkpoint(d, a, opt_a, k)
+        b = P.FlashSRModules(cfg)
+        b.init_params(1)
+        b.to("cuda")
+        opt_b = train.make_optimizer(b, lr)
+        step = train.load_checkpoint(d, b, opt_b)
+    same_state = step == k and all(torch.equal(x, y) for x, y in zip(a.parameters(), b.parameters()))
+    for x, y in zip(a.parameters(), b.parameters()):
+        sa, sb = opt_a.state[x], opt_b.state[y]
+        same_state &= all(torch.equal(sa[n].float(), sb[n].to(sa[n].device).float())
+                          for n in ("step", "exp_avg", "exp_avg_sq"))
+    la, lb = float(run(a, opt_a, k)), float(run(b, opt_b, k))
+    moved = max(float((x - y).detach().abs().max()) for x, y in zip(a.parameters(),
+                                                                     b.parameters()))
+    ok = same_state and moved <= RESUME_LR_SHARE * lr
+    log(f"checkpoint at step {k}: weights, moments and count read back exactly "
+        f"{'ok' if same_state else 'FAIL'}; step {k + 1} resumed vs uninterrupted: loss "
+        f"{lb:.5f} vs {la:.5f}, max |d param| {moved:.3e} (limit {RESUME_LR_SHARE} x lr = "
+        f"{RESUME_LR_SHARE * lr:.1e}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise RuntimeError(f"checkpoint resume differs: state {same_state}, moved {moved}")
+    return {"loss_uninterrupted": la, "loss_resumed": lb, "max_param_diff": moved}
+
+
+EVAL_BARS = {"pretrained.npz": 4.0, "pretrained_istft.npz": 8.79}   # gate-pair SI-SDR bars
+
+
+def evaluate_phase() -> dict:
+    """evaluate() on both shipped trios (seed 7, 4 chunks) beside their json
+    records, and the gate pair (seed 123, one chunk) held to the bars of
+    tests/test_flashsr_distilled.py: LSD < 7 dB, 20 dB under passthrough,
+    SI-SDR above 4 dB (HiFi-GAN) / 8.79 dB (istft)."""
+    from egregora_tpu_torch.eval.metrics import lsd_sisdr_report
+    from egregora_tpu_torch.models.flashsr import distill, pipeline as P, prng
+    out = {}
+    for name, bar in EVAL_BARS.items():
+        cfg, sds = shipped_trio(name)
+        m = distill.evaluate(sds, cfg, seed=7, n=4)
+        rec = json.loads((distill.SHIPPED_DIR / name).with_suffix(".json").read_text())
+        pipe = P.FlashSRPipeline(cfg, params=sds)
+        lr_w, hr_w = distill.synth_pair_batch(prng.prng_key(123), 1, P.CHUNK_SAMPLES)
+        est = pipe.chunk_forward(lr_w)
+        pt, md = lsd_sisdr_report(hr_w[0], lr_w[0]), lsd_sisdr_report(hr_w[0], est[0])
+        gate = {"lsd_pt": float(pt["lsd_mean_db"]), "lsd": float(md["lsd_mean_db"]),
+                "sisdr": float(md["si_sdr_db"])}
+        ok = gate["lsd"] < 7.0 and gate["lsd"] < gate["lsd_pt"] - 20.0 and gate["sisdr"] > bar
+        log(f"evaluate {name} (seed 7, 4 chunks): LSD {m['lsd_model']:.2f} dB (passthrough "
+            f"{m['lsd_passthrough']:.2f}), SI-SDR {m['sisdr_model']:.2f} dB (passthrough "
+            f"{m['sisdr_passthrough']:.2f}); the json record: "
+            f"{json.dumps({k: rec[k] for k in rec if k in ('lsd_model', 'sisdr_model', 'gate_pair_seed123')})}; "
+            f"gate pair (seed 123): LSD {gate['lsd']:.2f} dB (pt {gate['lsd_pt']:.2f}), SI-SDR "
+            f"{gate['sisdr']:.2f} dB (bar > {bar}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise RuntimeError(f"evaluate: {name} misses the quality bars: {gate}")
+        out[name] = {"evaluate": m, "gate_pair": gate}
+    return out
+
+
+MESH_CHILD = r'''
+import json, os, sys
+import numpy as np, torch
+torch.backends.cudnn.allow_tf32 = False
+torch.backends.cuda.matmul.allow_tf32 = False
+rank, port = int(sys.argv[1]), sys.argv[2]
+from egregora_tpu_torch.parallel import multihost as MH
+MH.initialize_distributed(f"tcp://127.0.0.1:{port}", 2, rank)
+import torch.distributed as dist
+import chip_smoke as C
+from egregora_tpu_torch.core.audio import AudioBuffer
+from egregora_tpu_torch.models.flashsr import distill, pipeline as P, prng, train
+mesh = MH.make_global_chunk_mesh()
+out = {"rank": rank, "backend": dist.get_backend(), "mesh_size": mesh.size}
+# one sharded train step (float32, full width) == the one-process step
+cfg = C.f32_cfg(distill.distilled_config())
+ref, sh = P.FlashSRModules(cfg), P.FlashSRModules(cfg)
+ref.init_params(0); sh.init_params(0); ref.to("cuda"); sh.to("cuda")
+lr_w, hr_w = distill.synth_pair_batch(prng.prng_key(31), 4, 480 * 128)
+key = prng.prng_key(32)
+l_ref = float(train.make_train_step(ref, train.make_optimizer(ref, 2e-4), None, 480, 256, 2048)(lr_w, hr_w, key))
+l_sh = float(train.make_train_step(sh, train.make_optimizer(sh, 2e-4), mesh, 480, 256, 2048)(lr_w, hr_w, key))
+gr, gs = C.named_grads(ref), C.named_grads(sh)
+out["step"] = {"loss_ref": l_ref, "loss_sharded": l_sh, "loss_rel": abs(l_sh - l_ref) / abs(l_ref),
+               "grad_rel": C.sub_model_rel(gs, gr)}
+del ref, sh
+torch.cuda.empty_cache()
+# the sharded process == one device running the same forward batches
+os.environ["EGREGORA_FUSED_VOCODER"] = "1"
+os.environ["EGREGORA_FLASHSR_VARIANT"] = "hifigan"
+cfg, sds = C.shipped_trio("pretrained.npz")
+pipe = P.FlashSRPipeline(cfg, params=sds)
+audio = AudioBuffer(C.test_signal(C.SECONDS, 16000, 0), 16000)
+res = {}
+for label, kw, ref_kw in (("one-shot", {}, {"max_batch": 2, "pad_to_multiple": 2}),
+                          ("max_batch=2", {"max_batch": 2}, {"max_batch": 1, "pad_to_multiple": 2})):
+    want = pipe.process(audio, output_sr=48000, mesh=None, wire="f32", **ref_kw).numpy()
+    C.reset_counts()
+    got = pipe.process(audio, output_sr=48000, mesh=mesh, wire="f32", **kw).numpy()
+    counts = C.read_counts()
+    res[label] = {"rel": float(np.linalg.norm(got - want) / np.linalg.norm(want)),
+                  "finite": bool(np.isfinite(got).all()), "shape_ok": got.shape == want.shape,
+                  "mrf_fused_cm": sum(counts["mrf_fused_cm"].values()),
+                  "attn_rows": sum(counts["attn_rows"].values())}
+out["process"] = res
+print("MESHRANK " + json.dumps(out), flush=True)
+dist.destroy_process_group()
+'''
+
+
+def mesh_phase() -> dict:
+    """process(mesh=...) in this process (the one-card mesh, and two slots
+    on the card's streams) against mesh=None, then two ranks on the one
+    card over gloo in subprocesses: a sharded train step against the
+    one-process step, the sharded process (one-shot and max_batch) against
+    one device, with the fused MRF kernels counted on each rank."""
+    import os
+    import socket
+    from pathlib import Path
+
+    import numpy as np
+
+    from egregora_tpu_torch.core.audio import AudioBuffer
+    from egregora_tpu_torch.models.flashsr import pipeline as P
+    from egregora_tpu_torch.parallel.mesh import ChunkMesh, make_chunk_mesh
+
+    set_env(EGREGORA_FUSED_VOCODER="1")
+    try:
+        cfg, sds = shipped_trio("pretrained.npz")
+        pipe = P.FlashSRPipeline(cfg, params=sds)
+        audio = AudioBuffer(test_signal(SECONDS, 16000, 0), 16000)
+        one = pipe.process(audio, mesh=None, wire="f32").numpy()
+        card_mesh = pipe.process(audio, mesh=make_chunk_mesh(), wire="f32").numpy()
+        exact = bool(np.array_equal(card_mesh, one))
+        want = pipe.process(audio, mesh=None, wire="f32", max_batch=2, pad_to_multiple=2).numpy()
+        reset_counts()
+        two = pipe.process(audio, mesh=ChunkMesh(("cuda:0", "cuda:0")), wire="f32").numpy()
+        slot_counts = read_counts()
+        slot_rel = float(np.linalg.norm(two - want) / np.linalg.norm(want))
+    finally:
+        set_env(EGREGORA_FUSED_VOCODER=None)
+    ok = exact and slot_rel <= MESH_PROCESS_LIMIT
+    log(f"mesh, one process: process(mesh=make_chunk_mesh()) == mesh=None bit for bit "
+        f"{'ok' if exact else 'FAIL'}; two slots on the card's streams against one device at "
+        f"the same forward batches rel L2 {slot_rel:.2e} (limit {MESH_PROCESS_LIMIT:g}) "
+        f"{'ok' if slot_rel <= MESH_PROCESS_LIMIT else 'FAIL'}; fused MRF launches "
+        f"{sum(slot_counts['mrf_fused_cm'].values())}")
+    if not ok:
+        raise RuntimeError(f"mesh: process(mesh=...) differs from one device ({exact}, {slot_rel})")
+    root = Path(__file__).resolve().parent
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    env = dict(os.environ, PYTHONPATH=str(root))
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, "-c", MESH_CHILD, str(r), str(port)], cwd=root,
+                              env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for r in range(2)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=600)[0])
+    finally:
+        for p in procs:
+            p.kill()
+    wall = time.perf_counter() - t0
+    ranks = []
+    for r, (p, text) in enumerate(zip(procs, outs)):
+        lines = [ln for ln in text.splitlines() if ln.startswith("MESHRANK ")]
+        if p.returncode != 0 or not lines:
+            raise RuntimeError(f"mesh rank {r} failed (rc {p.returncode}):\n{text[-3000:]}")
+        ranks.append(json.loads(lines[-1][len("MESHRANK "):]))
+    for r in ranks:
+        st, pr = r["step"], r["process"]
+        ok = (r["backend"] == "gloo" and r["mesh_size"] == 2
+              and st["loss_rel"] <= MESH_STEP_LIMIT
+              and all(v <= MESH_STEP_LIMIT for v in st["grad_rel"].values())
+              and all(x["finite"] and x["shape_ok"] and x["rel"] <= MESH_PROCESS_LIMIT
+                      and x["mrf_fused_cm"] > 0 and x["attn_rows"] > 0 for x in pr.values()))
+        log(f"mesh rank {r['rank']} of 2 ({r['backend']}, one card): sharded float32 train step "
+            f"loss rel {st['loss_rel']:.2e}, gradient rel "
+            + ", ".join(f"{k} {v:.2e}" for k, v in st["grad_rel"].items())
+            + f" (limit {MESH_STEP_LIMIT:g}); process " + "; ".join(
+                f"{k}: rel {v['rel']:.2e} (limit {MESH_PROCESS_LIMIT:g}), mrf_fused_cm "
+                f"{v['mrf_fused_cm']}, attn_rows {v['attn_rows']}" for k, v in pr.items())
+            + f" {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise RuntimeError(f"mesh rank {r['rank']}: {r}")
+    log(f"mesh: two ranks in {wall:.1f} s (process start, CUDA set-up and both checks)")
+    return {"one_process": {"exact": exact, "two_slot_rel": slot_rel}, "ranks": ranks,
+            "wall_s": wall}
+
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3932,6 +4522,15 @@ def main() -> int:
     dfn = dfn_phase(card)
     dac = dac_phase(card)
     entry = entry_phase(card)
+    trained = train_phase(card)
+    train_attn = collections.Counter()
+    for key in ("distilled", "full"):
+        train_attn.update(trained[key]["attn_counts_all"])
+    attn_grads = attn_grad_phase(set(train_attn))
+    voc_distill = vocoder_distill_phase()
+    resumed = checkpoint_phase()
+    evaluated = evaluate_phase()
+    meshed = mesh_phase()
 
     attn_counts = collections.Counter(pipe["counts"])
     attn_paths = {"full config (seeded weights)": pipe["launches"]}
@@ -3951,11 +4550,22 @@ def main() -> int:
     entry_attn, entry_attn_paths = entry_launches(entry, "attn_rows")
     attn_counts.update(entry_attn)
     attn_paths.update(entry_attn_paths)
+    trainer_attn = {"train: distilled config, fixed batch": trained["distilled"]["attn_counts_all"],
+                    "train: full config, fixed batch": trained["full"]["attn_counts_all"],
+                    "train: distill() entry": trained["distill_entry"]["attn_counts"],
+                    "train: distill_vocoder()": voc_distill["attn_counts"]}
+    for label, counts in trainer_attn.items():
+        attn_counts.update(counts)
+        attn_paths[label] = sum(counts.values())
     gen = torch.Generator().manual_seed(1)
     heads = SERVED_ATTN[0]          # the istft trio's one attention block
     measured = {(r["bh"], r["n"], r["d"]) for r in attn_rows_}
     attn_rows_ += [attn_shape_row(bh // heads, heads, n, d, gen)
                    for bh, n, d in set(chain_attn) | set(entry_attn) if (bh, n, d) not in measured]
+    measured = {(r["bh"], r["n"], r["d"]) for r in attn_rows_}
+    train_shapes = set().union(*(set(c) for c in trainer_attn.values()))
+    attn_rows_ += [attn_shape_row(bh, 1, n, d, gen) for bh, n, d in sorted(train_shapes)
+                   if (bh, n, d) not in measured]
     k4_counts = collections.Counter(evals["k4_counts"])
     k4_counts.update(chain["counts"]["iir_lowpass"])
     k4_paths = {**evals["k4_by_path"], "full chain": sum(chain["counts"]["iir_lowpass"].values())}
@@ -3990,6 +4600,7 @@ def main() -> int:
                           {"edge_conv_lab": sum(k3_counts.values())})]
     kernels[5]["launches_by_route"] = labs["edge_conv_lab"]["conv3x3_out1_by_route"]
     kernels[0]["launches_streaming"] = pipe["launches_streaming"]
+    kernels[0]["training_backward"] = attn_grads
     for k, lib in ((kernels[0], "attn_rows"), (kernels[4], "attn_online")):
         k["ptxas"] = [r for r in ptxas if r["library"] == lib]
     for k, rounding in ((kernels[1], "Circ"), (kernels[2], "Rows")):
@@ -4021,6 +4632,14 @@ def main() -> int:
         {"warm_wall_s": entry["walls"], "flashsr_breakdown_s": entry["flashsr_breakdown_s"],
          "trace": entry["trace"],
          "workflow_timing_summary": entry["workflow"]["timing_summary"]}))
+    log(f"training on {card}: " + json.dumps(
+        {"distilled": {k: v for k, v in trained["distilled"].items() if k != "attn_counts_all"},
+         "full": {k: v for k, v in trained["full"].items() if k != "attn_counts_all"},
+         "distill_entry_wall_s": trained["distill_entry"]["wall_s"],
+         "distill_vocoder": {k: voc_distill[k] for k in ("wall_s", "metrics")},
+         "checkpoint": resumed, "evaluate": evaluated,
+         "mesh": {"one_process": meshed["one_process"], "wall_s": meshed["wall_s"],
+                  "ranks": meshed["ranks"]}}, default=str))
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
     log(card)
     print(json.dumps({"kernels": kernels}), flush=True)

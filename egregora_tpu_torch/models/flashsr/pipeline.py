@@ -22,6 +22,7 @@ compact trios (the ``StudentUNet`` mid block).  With
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
 import os
 from typing import Dict, Optional, Union
@@ -35,8 +36,9 @@ from ...ops.resample import resample, resampled_length
 from ...ops.stft import device_tensor, istft_dense, stft_conv
 from ...ops.wola import (chunk_batch, num_chunks, wola_accumulate_dense,
                          wola_finalize, wola_stitch)
+from ...parallel.mesh import chunk_parallel, make_chunk_mesh, replicate, resolve
+from ...parallel.multihost import all_gather_rows, local_batch_slice, world
 from . import prng
-from .layers import seeded_init_
 from .ldm_unet import LDMUNet, LDMUNetConfig
 from .mel import (HOP, SAMPLE_RATE, _reflect_pad, envelope_gain, log_mel,
                   mel_band_peaks, mel_envelope_match, mel_filterbank)
@@ -82,15 +84,25 @@ class FlashSRModules:
     def all(self):
         return self.vae, self.unet, self.vocoder
 
+    def parameters(self):
+        """Every parameter of the trio, in ``all()``'s order."""
+        for m in self.all():
+            yield from m.parameters()
+
     def by_name(self) -> Dict[str, torch.nn.Module]:
         return dict(zip(self.NAMES, self.all()))
 
     def init_params(self, seed: int = 0) -> None:
-        """Seeded random weights in place (flax-like scales), drawn on
-        the CPU so a seed gives the same weights on every device."""
-        gen = torch.Generator().manual_seed(int(seed))
-        for m in self.all():
-            seeded_init_(m, gen)
+        """Seeded random weights in place: the JAX package's
+        ``init_params(seed)`` draw for draw (``utils.weights.fast_init_like``
+        over the trio's flax tree, JAX's sorted leaf order), drawn on the
+        host, so a seed gives the same weights in both packages and on
+        every device."""
+        from ...utils.weights import fast_init_like, flax_tree, module_from_jax
+        mods = self.by_name()
+        tree = fast_init_like({name: flax_tree(m) for name, m in mods.items()}, seed)
+        for name, m in mods.items():
+            m.load_state_dict(module_from_jax(m, tree[name]), strict=True)
 
     def load_state_dicts(self, params: Dict[str, Dict[str, torch.Tensor]]) -> None:
         """Load ``{"vae": sd, "student_ldm": sd, "sr_vocoder": sd}``
@@ -233,16 +245,62 @@ class FlashSRPipeline:
         y = istft_dense(rl * w + rh * (1.0 - w), il * w + ih * (1.0 - w), n_fft, hop)
         return y[..., pad: pad + t]
 
+    # ---- chunk parallelism ----
+    def _resolve_mesh(self, mesh):
+        """'auto' -> a chunk mesh over every visible card when there is
+        more than one and the pipeline is on the card, else None."""
+        if mesh != "auto":
+            return mesh
+        if self.device.type != "cuda" or torch.cuda.device_count() <= 1:
+            return None
+        return make_chunk_mesh()
+
+    def _sharded_forward(self, mesh, flat: torch.Tensor, lowpass_input: bool) -> torch.Tensor:
+        """``chunk_forward`` of ``[K, CHUNK_SAMPLES]`` over the mesh: this
+        process's ``local_batch_slice`` of the rows, split over its cards
+        (one copy of the trio a card), then every process's rows gathered
+        in order.  K is a multiple of ``mesh.size``."""
+        if mesh is None:
+            return self.chunk_forward(flat, lowpass_input=lowpass_input)
+        if mesh.devices[0] != resolve(self.device):
+            raise ValueError(f"process: the mesh's first device {mesh.devices[0]} is not "
+                             f"the pipeline's {self.device}")
+        if mesh.world != world():
+            raise ValueError(f"process: the mesh spans {mesh.world} processes, the "
+                             f"torch.distributed group {world()}")
+        local = flat[local_batch_slice(flat.shape[0])] if mesh.world > 1 else flat
+        replicas = []
+        for mods in replicate(mesh, self.modules):
+            rep = self
+            if mods is not self.modules:
+                rep = copy.copy(self)
+                rep.modules, rep.device, rep._noise = mods, next(mods.parameters()).device, {}
+            replicas.append(rep)
+        run = chunk_parallel(
+            lambda i, x: replicas[i].chunk_forward(x, lowpass_input=lowpass_input), mesh)
+        out = run(local)
+        return all_gather_rows(out) if mesh.world > 1 else out
+
     # ---- full-file processing ----
     @torch.inference_mode()
     def process(self, audio: AudioBuffer, lowpass_input: bool = False,
                 output_sr: int = 48000, pad_to_multiple: int = 1,
-                max_batch: Optional[int] = None, wire: str = "auto") -> AudioBuffer:
+                max_batch: Optional[int] = None, mesh="auto",
+                wire: str = "auto") -> AudioBuffer:
         """The reference node flow on the card.
 
         ``max_batch`` bounds device memory for long inputs: fixed-size
         chunk batches stream through the forward and fold into running
         Hann-weighted sums; None runs every chunk in one batch.
+
+        ``mesh``: 'auto' shards the chunk batch over every visible card
+        when there is more than one (``parallel.mesh``); a ``ChunkMesh``
+        pins one (``multihost.make_global_chunk_mesh()`` across the
+        processes of a ``torch.distributed`` group: each process runs its
+        ``local_batch_slice`` and every process gets the whole output);
+        None keeps one card.  The chunk count is padded to
+        ``lcm(pad_to_multiple, mesh.size)`` and a streaming ``max_batch``
+        rounded up to a multiple of ``mesh.size``.
 
         ``wire``: host<->device transfer format of the one-shot path.
         "pcm16" moves int16 samples both ways (2 bytes a sample, -90 dBFS
@@ -254,11 +312,15 @@ class FlashSRPipeline:
         the card (``EGREGORA_WIRE=f32`` turns it off); "f32" never."""
         in_sr = int(audio.sample_rate)
         out_sr = int(output_sr)
+        mesh = self._resolve_mesh(mesh)
+        pad_mult = int(np.lcm(max(pad_to_multiple, 1), mesh.size)) if mesh else pad_to_multiple
         total48 = resampled_length(audio.samples.shape[-1], in_sr, REQ_SR)
-        k = -(-num_chunks(total48, CHUNK_SAMPLES, HOP_SAMPLES) // pad_to_multiple) * pad_to_multiple
+        k = -(-num_chunks(total48, CHUNK_SAMPLES, HOP_SAMPLES) // pad_mult) * pad_mult
         if max_batch is not None and k > max_batch:
-            return self._process_streaming(audio, lowpass_input, out_sr,
-                                           pad_to_multiple, int(max_batch))
+            b = int(max_batch)
+            if mesh:
+                b = -(-b // mesh.size) * mesh.size
+            return self._process_streaming(audio, lowpass_input, out_sr, pad_mult, b, mesh)
 
         env_f32 = os.environ.get("EGREGORA_WIRE", "").lower() == "f32"
         use_wire = wire == "pcm16" or (
@@ -275,9 +337,8 @@ class FlashSRPipeline:
         x = resample(x, in_sr, REQ_SR)
         c, total = x.shape
         chunks, starts, lengths = chunk_batch(x, CHUNK_SAMPLES, HOP_SAMPLES,
-                                              pad_to_multiple=pad_to_multiple)
-        preds = self.chunk_forward(chunks.reshape(-1, CHUNK_SAMPLES),
-                                   lowpass_input=lowpass_input)
+                                              pad_to_multiple=pad_mult)
+        preds = self._sharded_forward(mesh, chunks.reshape(-1, CHUNK_SAMPLES), lowpass_input)
         out = wola_stitch(preds.reshape(chunks.shape), starts, lengths, total, CHUNK_SAMPLES)
         out = resample(out, REQ_SR, out_sr)
         if use_wire:
@@ -288,7 +349,7 @@ class FlashSRPipeline:
         return AudioBuffer(out, out_sr, meta)
 
     def _process_streaming(self, audio: AudioBuffer, lowpass_input: bool, out_sr: int,
-                           pad_to_multiple: int, b: int) -> AudioBuffer:
+                           pad_to_multiple: int, b: int, mesh=None) -> AudioBuffer:
         """Fixed-size batches of ``b`` chunks folded into running dense
         OLA accumulators: O(batch) activations, O(total) accumulators."""
         x = torch.as_tensor(audio.samples).to(self.device, torch.float32)
@@ -301,8 +362,8 @@ class FlashSRPipeline:
         acc = torch.zeros(c, alloc, device=self.device)
         wsum = torch.zeros(alloc, device=self.device)
         for s0 in range(0, k, b):
-            pred = self.chunk_forward(chunks[s0: s0 + b].reshape(-1, CHUNK_SAMPLES),
-                                      lowpass_input=lowpass_input)
+            pred = self._sharded_forward(mesh, chunks[s0: s0 + b].reshape(-1, CHUNK_SAMPLES),
+                                         lowpass_input)
             wola_accumulate_dense(pred.reshape(b, c, CHUNK_SAMPLES), lengths[s0: s0 + b],
                                   HOP_SAMPLES, acc, wsum, s0 * HOP_SAMPLES)
         out = wola_finalize(acc[:, :total], wsum[:total])

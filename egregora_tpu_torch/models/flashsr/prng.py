@@ -1,4 +1,5 @@
-"""JAX's default PRNG in numpy: threefry2x32 and ``jax.random.normal``.
+"""JAX's default PRNG in numpy: threefry2x32, ``split``, ``fold_in`` and
+the ``uniform`` / ``normal`` / ``bernoulli`` draws.
 
 ``FlashSRPipeline.chunk_forward`` draws its one-step noise latent as
 ``jax.random.normal(jax.random.PRNGKey(noise_seed), shape, float32)``.
@@ -7,8 +8,11 @@ bit for bit: the threefry2x32 block cipher (20 rounds, Salmon et al.
 2011), JAX's partitionable bit scheme (one cipher call per element,
 counter = the element's row-major index as a (hi, lo) pair of 32-bit
 words, bits = out_hi ^ out_lo), the mantissa-fill uniform draw on
-``[nextafter(-1, 0), 1)``, and ``sqrt(2) * erfinv(u)`` with XLA's f32
-erfinv (Giles' single-precision polynomial).
+``[nextafter(-1, 0), 1)`` (scaled with one rounding, as XLA's fused
+multiply-add), and ``sqrt(2) * erfinv(u)`` with XLA's f32
+erfinv (Giles' single-precision polynomial).  The trainers draw their
+data and noise from the same keys as the JAX package's (``fold_in`` a
+step, ``split``), so the same flags draw the same numbers.
 """
 from __future__ import annotations
 
@@ -63,7 +67,10 @@ def uniform(key: np.ndarray, shape, minval: float, maxval: float) -> np.ndarray:
     one = np.array(1.0, np.float32).view(np.uint32)
     floats = ((bits >> np.uint32(32 - 23)) | one).view(np.float32) - np.float32(1.0)
     lo, hi = np.float32(minval), np.float32(maxval)
-    return np.maximum(lo, floats * (hi - lo) + lo)
+    # floats * (hi - lo) + lo rounded once, as the fused multiply-add XLA
+    # emits (the float32 product is exact in float64)
+    v = floats.astype(np.float64) * np.float64(hi - lo) + np.float64(lo)
+    return np.maximum(lo, v.astype(np.float32))
 
 
 _ERFINV_LT5 = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06,
@@ -110,3 +117,18 @@ def normal_from_key(key: np.ndarray, shape) -> np.ndarray:
 def normal(seed: int, shape) -> np.ndarray:
     """``jax.random.normal(jax.random.PRNGKey(seed), shape, float32)``."""
     return normal_from_key(prng_key(seed), shape)
+
+
+def fold_in(key: np.ndarray, data: int) -> np.ndarray:
+    """``jax.random.fold_in(key, data)``: the cipher of the counter
+    ``(0, data)`` (``data`` taken as uint32), both words kept -> ``[2]``."""
+    with np.errstate(over="ignore"):
+        b0, b1 = threefry2x32(key, np.zeros(1, np.uint32),
+                              np.array([int(data) & 0xFFFFFFFF], np.uint32))
+    return np.array([b0[0], b1[0]], np.uint32)
+
+
+def bernoulli(key: np.ndarray, p: float, shape=()) -> np.ndarray:
+    """``jax.random.bernoulli(key, p, shape)``: a float32 uniform draw on
+    ``[0, 1)`` below ``p``."""
+    return uniform(key, tuple(shape), 0.0, 1.0) < np.float32(p)

@@ -20,7 +20,10 @@ package's ``mha`` does:
   bf16 under ``EGREGORA_ATTN_SCORES=bf16``.
 
 Any other value raises ``ValueError``: a misspelt path never takes the
-card off its kernel silently.
+card off its kernel silently.  Both engines are differentiable: the
+kernel path through ``attn_rows.AttnRows`` (the kernel forward, a plain
+PyTorch backward) wherever autograd records, ``chunked_attention``
+through autograd itself.
 """
 from __future__ import annotations
 

@@ -13,6 +13,16 @@ A CUDA tensor goes to the kernel or raises; a CPU tensor goes to the
 plain version, ``attn_rows_plain``, which has flash_rows's math (f32
 scores scaled after the product, true row max, weights rounded to the
 value dtype, f32 accumulation).
+
+The kernel writes through raw pointers, so its output carries no
+``grad_fn``.  Where autograd records (a training step), ``attn_rows``
+runs as ``AttnRows``, a ``torch.autograd.Function``: the same forward
+(the kernel on the card, the plain version on the CPU) and a plain
+PyTorch backward, ``attn_rows_backward``, the exact softmax-attention
+gradient recomputed from the saved q, k, v a query block at a time (the
+JAX package's Pallas kernels have no backward kernel either: autodiff
+there goes through XLA).  Under ``no_grad`` / ``inference_mode`` it
+launches exactly what it did before.
 """
 from __future__ import annotations
 
@@ -76,8 +86,57 @@ def attn_rows_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out
 
 
+def attn_rows_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       o: torch.Tensor, do: torch.Tensor, block: int = 256):
+    """``(dq, dk, dv)`` of ``o = softmax(q k^T s) v`` (``s = D**-0.5``)
+    for the incoming gradient ``do``, in plain PyTorch, a query block at
+    a time so that no ``[N, N]`` matrix is kept: P from the float32
+    scores scaled after the product (flash_rows's rounding),
+    ``dV = P^T dO``, ``dP = dO V^T``, ``dS = P * (dP - rowsum(dO * O))``,
+    ``dQ = dS K s``, ``dK = dS^T Q s``; float32 sums, the inputs' dtypes
+    out."""
+    n, d = q.shape[-2:]
+    scale = d ** -0.5
+    qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
+    delta = (dof * o.float()).sum(-1, keepdim=True)        # rowsum(dO * O)
+    dq = torch.empty_like(qf)
+    dk = torch.zeros_like(kf)
+    dv = torch.zeros_like(vf)
+    kt, vt = kf.transpose(1, 2), vf.transpose(1, 2)
+    for i in range(0, n, block):
+        rows = slice(i, i + block)
+        p = torch.softmax(torch.matmul(qf[:, rows], kt) * scale, dim=-1)
+        dv += torch.matmul(p.transpose(1, 2), dof[:, rows])
+        ds = p * (torch.matmul(dof[:, rows], vt) - delta[:, rows])
+        dq[:, rows] = torch.matmul(ds, kf) * scale
+        dk += torch.matmul(ds.transpose(1, 2), qf[:, rows]) * scale
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+class AttnRows(torch.autograd.Function):
+    """``attn_rows`` with a gradient: the kernel (or, for CPU tensors, the
+    plain version) forward, ``attn_rows_backward`` backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v):
+        o = _attn_rows(q, k, v)
+        ctx.save_for_backward(q, k, v, o)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        return attn_rows_backward(*ctx.saved_tensors, do)
+
+
 def attn_rows(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """Exact attention ``[BH, N, D]`` (scale ``D**-0.5``)."""
+    """Exact attention ``[BH, N, D]`` (scale ``D**-0.5``), through
+    ``AttnRows`` where autograd records."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return AttnRows.apply(q, k, v)
+    return _attn_rows(q, k, v)
+
+
+def _attn_rows(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     if q.device.type == "cpu":
         return attn_rows_plain(q, k, v)
     if q.device.type != "cuda":

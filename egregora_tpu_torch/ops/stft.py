@@ -41,8 +41,11 @@ def _window(n_fft: int, window: str) -> np.ndarray:
 @functools.lru_cache(maxsize=32)
 def device_tensor(array_fn, *args, device: str = "cpu") -> torch.Tensor:
     """``torch.from_numpy(array_fn(*args))`` on ``device``, cached: the
-    constant matrices of the DSP ops are made once per device."""
-    return torch.from_numpy(np.ascontiguousarray(array_fn(*args))).to(device)
+    constant matrices of the DSP ops are made once per device.  Made
+    outside inference mode, so that a constant first made by an inference
+    call can still be saved for a training step's backward."""
+    with torch.inference_mode(False):
+        return torch.from_numpy(np.ascontiguousarray(array_fn(*args))).to(device)
 
 
 def num_frames(n: int, n_fft: int, hop: int) -> int:

@@ -145,14 +145,19 @@ def params_from_jax(cfg: FlashSRConfig, flax_params: Dict[str, Any]
 
 # ---- reference checkpoints ------------------------------------------------
 
-def flax_tree(module: torch.nn.Module, values: bool = False) -> Dict[str, Any]:
+def flax_tree(module: torch.nn.Module, values: bool = False,
+              tensors: Optional[Dict[str, torch.Tensor]] = None) -> Dict[str, Any]:
     """``{"params": ...}``: the flax variable tree of ``module``'s JAX
     counterpart, the inverse of ``module_from_jax``'s mapping (norm
     weights are ``scale``, other weights ``kernel`` in flax's layout).
     Leaves are ``meta`` tensors of the flax shapes or, with ``values``,
-    numpy arrays of the module's parameters."""
+    numpy arrays of the module's parameters, or of ``tensors`` (tensors
+    of the parameters' shapes keyed like the state dict, e.g. an
+    optimizer's moments) in their place."""
     tree: Dict[str, Any] = {}
     for key, t in module.state_dict(keep_vars=True).items():
+        if tensors is not None:
+            t = tensors[key]
         *mods, leaf = key.split(".")
         owner = module.get_submodule(".".join(mods))
         perm, flip = None, None
@@ -209,6 +214,40 @@ def _flatten(tree: Any, prefix: str = "") -> Dict[str, Any]:
     else:
         flat[prefix.rstrip("/")] = tree
     return flat
+
+
+def sorted_leaves(tree: Any, prefix: Tuple[str, ...] = ()
+                  ) -> Iterator[Tuple[Tuple[str, ...], Any]]:
+    """``(path, leaf)`` in ``jax.tree_util``'s order for nested dicts:
+    keys sorted at every level."""
+    if hasattr(tree, "items"):
+        for k in sorted(tree):
+            yield from sorted_leaves(tree[k], prefix + (str(k),))
+    else:
+        yield prefix, tree
+
+
+def fast_init_like(shape_tree: Any, seed: int = 0) -> Dict[str, Any]:
+    """The JAX package's ``utils.weights.fast_init_like``, draw for draw:
+    one ``np.random.default_rng(seed)`` walks the leaves in JAX's sorted
+    flatten order; a leaf named ``*bias`` is zero, ``*scale`` or
+    ``alpha`` one, anything else ``standard_normal(shape, float32) /
+    sqrt(prod(shape[:-1]))`` (lecun-normal).  Leaves need only a
+    ``shape`` (``flax_tree``'s meta tensors); returns numpy float32."""
+    rng = np.random.default_rng(seed)
+    flat: Dict[str, np.ndarray] = {}
+    for path, spec in sorted_leaves(shape_tree):
+        name, shape = path[-1], tuple(spec.shape)
+        if name.endswith("bias"):
+            val = np.zeros(shape, np.float32)
+        elif name in ("scale", "alpha") or name.endswith("scale"):
+            val = np.ones(shape, np.float32)
+        else:
+            fan_in = int(np.prod(shape[:-1])) if len(shape) > 1 else int(shape[0])
+            std = 1.0 / np.sqrt(max(fan_in, 1))
+            val = (rng.standard_normal(shape, dtype=np.float32) * std).astype(np.float32)
+        flat["/".join(path)] = val
+    return unflatten(flat)
 
 
 def save_params(params: Any, path: Path) -> None:

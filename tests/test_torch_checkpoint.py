@@ -271,8 +271,7 @@ def test_smoke_trio_writer_inverts_the_conversion(tmp_path, monkeypatch):
     # converts untransposed (ROADMAP.md, Queue 3)
     cfg = dataclasses.replace(cfg, vocoder=dataclasses.replace(cfg.vocoder, upsample_initial=32))
     chip_smoke.write_reference_trio(cfg, tmp_path, seed=5)
-    src = t_pipe.FlashSRModules(cfg)
-    src.init_params(5)
+    src = chip_smoke.legacy_init(t_pipe.FlashSRModules(cfg), 5)
     j_cfg, j_params = j_weights.load_converted_flashsr(ckpt_dir=tmp_path)
     t_cfg, t_sd = distill.load_converted_flashsr(ckpt_dir=tmp_path)   # reads the JAX cache
     assert distill._cfg_to_json(t_cfg) == j_distill._cfg_to_json(j_cfg)

@@ -633,3 +633,69 @@ def test_dfn_and_dac_nodes_run_on_the_card(card, monkeypatch):
     assert codes["latents"][0][0].shape[0] == 2 and log.startswith("DAC encode ok")
     (back, log) = ee.Egregora_DAC_Decode().execute(codes, device="cpu")
     assert back["waveform"].shape[:2] == (1, 2) and back["waveform"].shape[2] >= 16000
+
+
+# ---- training (the attention Function, a distilled step, the mesh) ----
+
+@pytest.mark.parametrize("bh,n,d,dtype", [(32, 128, 32, torch.bfloat16), (16, 512, 64, torch.bfloat16),
+                                          (2, 1000, 40, torch.bfloat16), (4, 300, 32, torch.float32)])
+def test_attn_rows_gradient_matches_plain(card, bh, n, d, dtype):
+    """Autograd through ``attn_rows`` (the kernel forward, the plain
+    backward of ``AttnRows``) against autograd through the plain version
+    in float32: dq, dk, dv within ``chip_smoke.ATTN_GRAD_LIMIT``; the
+    forward is one kernel launch."""
+    gen = torch.Generator().manual_seed(bh + n)
+    q, k, v, do = (torch.randn(bh, n, d, generator=gen).to(card, dtype) for _ in range(4))
+    qs, ks, vs = (t.clone().requires_grad_() for t in (q, k, v))
+    before = ar.launches
+    o = ar.attn_rows(qs, ks, vs)
+    assert ar.launches == before + 1 and o.grad_fn is not None
+    got = torch.autograd.grad(o, (qs, ks, vs), do)
+    qf, kf, vf = (t.float().requires_grad_() for t in (q, k, v))
+    want = torch.autograd.grad(attn_rows_plain(qf, kf, vf), (qf, kf, vf), do.float())
+    for g, w in zip(got, want):
+        assert g.dtype == dtype
+        assert chip_smoke.rel_l2(g.float(), w) <= chip_smoke.ATTN_GRAD_LIMIT
+    with torch.inference_mode():          # the served path: no Function, one launch
+        before = ar.launches
+        assert ar.attn_rows(q, k, v).grad_fn is None and ar.launches == before + 1
+
+
+def test_distilled_step_gives_every_parameter_a_gradient(card):
+    """The distilled config at full width, batch 2: every parameter has a
+    finite gradient, the attention projections of the StudentUNet's mid
+    block among them; one AdamW step updates every parameter."""
+    from egregora_tpu_torch.models.flashsr import distill, pipeline as P, prng, train
+    mods = P.FlashSRModules(distill.distilled_config())
+    mods.init_params(0)
+    mods.to(card)
+    kd, kn = prng.split(prng.prng_key(1))
+    lr_w, hr_w = distill.synth_pair_batch(kd, 2, 480 * 64)
+    loss, grads = chip_smoke.loss_and_grads(mods, lr_w, hr_w, kn)
+    assert chip_smoke.grad_holes(grads) == ([], [])
+    mid = [k for k in grads if "MultiHeadDotProductAttention" in k[1]]
+    assert mid and all(float(grads[k].abs().max()) > 0 for k in mid if k[1].endswith("query.weight"))
+    before = [p.detach().clone() for p in mods.parameters()]
+    step = train.make_train_step(mods, train.make_optimizer(mods, 1e-3), None, 480, 256, 2048)
+    assert torch.isfinite(step(lr_w, hr_w, kn))
+    assert all(not torch.equal(a, b) for a, b in zip(before, mods.parameters()))
+
+
+def test_process_mesh_matches_one_device(card, monkeypatch):
+    """``process(mesh=make_chunk_mesh())`` equals ``mesh=None`` bit for bit,
+    and two slots of the card (two streams) equal one device at the same
+    forward batches, with the fused MRF kernels."""
+    import numpy as np
+
+    from egregora_tpu_torch.core.audio import AudioBuffer
+    from egregora_tpu_torch.models.flashsr import pipeline as P
+    from egregora_tpu_torch.parallel.mesh import ChunkMesh, make_chunk_mesh
+    monkeypatch.setenv("EGREGORA_FUSED_VOCODER", "1")
+    cfg, sds = chip_smoke.shipped_trio("pretrained.npz")
+    pipe = P.FlashSRPipeline(cfg, params=sds)
+    audio = AudioBuffer(chip_smoke.test_signal(chip_smoke.SECONDS, 16000, 0), 16000)
+    one = pipe.process(audio, mesh=None, wire="f32").numpy()
+    assert np.array_equal(pipe.process(audio, mesh=make_chunk_mesh(), wire="f32").numpy(), one)
+    want = pipe.process(audio, mesh=None, wire="f32", max_batch=2, pad_to_multiple=2).numpy()
+    two = pipe.process(audio, mesh=ChunkMesh(("cuda:0", "cuda:0")), wire="f32").numpy()
+    assert np.linalg.norm(two - want) / np.linalg.norm(want) <= chip_smoke.MESH_PROCESS_LIMIT

@@ -89,7 +89,9 @@ def test_port_imports_without_jax():
             "egregora_tpu_torch.nodes.enhance_extras",
             "egregora_tpu_torch.models.deepfilternet.model",
             "egregora_tpu_torch.models.deepfilternet.train",
-            "egregora_tpu_torch.models.dac.model", "egregora_tpu_torch.models.dac.train"} <= names
+            "egregora_tpu_torch.models.dac.model", "egregora_tpu_torch.models.dac.train",
+            "egregora_tpu_torch.models.flashsr.train", "egregora_tpu_torch.models.flashsr.prng",
+            "egregora_tpu_torch.parallel.mesh", "egregora_tpu_torch.parallel.multihost"} <= names
     assert "unavailable" not in r.stdout      # the registry merged every node module
 
 

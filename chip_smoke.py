@@ -197,7 +197,37 @@ Phases, one line each on standard output:
    (``MESH_STEP_LIMIT``), and the sharded ``process`` one-shot and with
    ``max_batch`` against one device (``MESH_PROCESS_LIMIT``), the fused MRF
    kernels counted on each rank;
-26. a JSON line ``{"kernels": [...]}`` of all six kernels, whose times
+26. the RNNoise trainer (``rnnoise_train_phase``; plain PyTorch, no
+   kernel): ``train_device(steps=3)`` and ``train(steps=3)`` at their
+   defaults; warm steps at 16 x 50 frames with the host's draws and the
+   card's synthesis timed apart, peak memory; one fixed batch (a quiet
+   lead-in, as the CPU tests) card against CPU, float32: the loss relative
+   ``TRAINER_LOSS_REL`` and every leaf's gradient relative L2
+   ``TRAINER_GRAD_REL``, every leaf with a gradient, beside the planted
+   fault of the GRU carries detached every frame; the shipped weights' SNR
+   gain on ``synth_batch(default_rng(4242), 4, 40)`` above +5 dB;
+27. the DeepFilterNet trainer (``dfn_train_phase``), DFN2 and DFN3:
+   ``train_device(steps=3)`` at its defaults (4 x 50 frames), warm steps
+   timed as in 26; card against CPU on one batch within the same limits,
+   every leaf with a gradient, beside the planted fault of the GRU run
+   under ``no_grad`` as it ran before its repair (it leaves the GRUs and the
+   encoder without one);
+28. the DAC trainer (``dac_train_phase``): ``train(distilled_config(
+   "44khz"), steps=10, batch=8, length=16384)`` in bf16 (ae 5, proj 1, vq
+   4, the held-out evaluations) and ``finetune("44khz", steps=2)``; warm vq
+   steps timed as in 26; the distilled geometry in float32 with
+   ``seeded_dac_tree``'s weights card against CPU: ``ae_loss_fn``,
+   ``proj_loss_fn`` (rvq only) and ``ema_loss_fn`` (loss ``DAC_LOSS_REL``,
+   each sub-model's gradients ``DAC_GRAD_REL``) and one
+   ``ema_codebook_update`` from one key (max |d| 1e-4); one rvq-only step
+   with a visible decay, encoder and decoder card against CPU
+   (``DAC_DECAY_REL``), beside the planted fault of ``None`` gradients
+   skipped as ``torch.optim`` skips them; ``gate_metrics`` of the three
+   shipped codecs on the card against the CPU (``DAC_GATE_SNR_DB``),
+   printed beside the JAX test's record.  Phases 26-28 run in a temporary
+   ``EGREGORA_TPU_WEIGHTS``, launch no kernel, and hash every file under
+   ``egregora_tpu/`` before and after (equal);
+29. a JSON line ``{"kernels": [...]}`` of all six kernels, whose times
    are the per-shape times of phases 2, 4 and 5 times the launches that
    phases 7, 9, 10, 11, 12, 16, 19, 20 and 22 counted, and, last,
    ``{"ok": true, ...}``.
@@ -3350,15 +3380,24 @@ def dfn_phase(card: str) -> dict:
 def seeded_dac_tree(cfg, seed: int) -> dict:
     """The JAX package's DAC parameter tree for ``cfg`` (its flax layout,
     numpy leaves; ``utils.weights.save_params`` writes it as the JAX
-    package's ``save_params`` does) with seeded weights kept out of tanh
-    saturation: lecun-normal kernels with each residual unit's last conv
+    package's ``save_params`` does) with seeded weights from a torch
+    generator (``layers.seeded_init_``; quick at the published geometry,
+    where the flax draws of ``DACModel.init_params`` take a while) kept out
+    of tanh saturation: lecun-normal kernels with each residual unit's last conv
     scaled by 0.3 and the decoder's output conv by 0.1, biases N(0, 0.01),
     alphas U(0.5, 1.5), unit-normal codebooks."""
     import torch
 
     from egregora_tpu_torch.models.dac.model import DACModel
+    from egregora_tpu_torch.models.flashsr.layers import seeded_init_
     from egregora_tpu_torch.utils.weights import flax_tree
-    m = DACModel(cfg).init_params(seed)
+    m = DACModel(cfg)
+    gen = torch.Generator().manual_seed(int(seed))
+    seeded_init_(m, gen)
+    with torch.no_grad():
+        for name, p in m.named_parameters():
+            if ".codebook_" in name:
+                p.copy_(torch.randn(p.shape, generator=gen))
     gen = torch.Generator().manual_seed(seed + 1)
     with torch.no_grad():
         for name, p in m.named_parameters():
@@ -4472,6 +4511,526 @@ def mesh_phase() -> dict:
             "wall_s": wall}
 
 
+# ---- training: the RNNoise, DeepFilterNet and DAC trainers (plain PyTorch) ----
+
+# card against CPU, float32 on both, one fixed batch: the loss (relative) and each
+# leaf's gradient (relative L2); the RNNoise batch starts with the quiet lead-in of
+# tests/test_torch_rnnoise_train.py (frame 0's pitch follows FFT roundoff otherwise)
+TRAINER_LOSS_REL, TRAINER_GRAD_REL = 1e-4, 1e-3
+RN_LEAD, RN_FADE = 960, 480
+RN_SNR_GAIN_DB = 5.0          # tests/test_rnnoise_training.py's bar (the JAX record: +7.2)
+# DAC: the rvq_only step's decay made visible (lr 1e-2, weight decay 0.1: 1e-3 of each
+# weight a step; the trainer's 1.5e-4 x 1e-5 is below a float32 ulp), encoder and
+# decoder card against CPU, relative L2; the gate's SNR card against CPU, dB
+DAC_DECAY_LR, DAC_DECAY_WD, DAC_DECAY_REL = 1e-2, 0.1, 1e-5
+# DAC's losses (float32, seeded weights) card against CPU: the loss, relative, and each
+# sub-model's gradients, relative L2 (on the CPU, 1e-7 of input noise moves them by up to
+# 2e-5 and 1e-5)
+DAC_LOSS_REL, DAC_GRAD_REL = 1e-4, 1e-3
+DAC_GATE_SNR_DB = 0.5
+# tests/test_dac_distilled.py's record of the shipped codecs (the JAX package)
+DAC_GATE_RECORD = {"44khz": (8.01, 4.41), "24khz": (11.23, 8.18), "16khz": (13.12, 10.66)}
+
+
+def package_digest() -> str:
+    """SHA-256 over every file under ``egregora_tpu/`` (names and bytes)."""
+    import hashlib
+    from pathlib import Path
+    root = Path(__file__).resolve().parent
+    h = hashlib.sha256()
+    for p in sorted((root / "egregora_tpu").rglob("*")):
+        if p.is_file() and "__pycache__" not in p.parts:
+            h.update(str(p.relative_to(root)).encode())
+            h.update(p.read_bytes())
+    return h.hexdigest()
+
+
+def leaf_rel(card: list, cpu: list) -> list:
+    """Relative L2 of each gradient, card against CPU (a missing gradient
+    counts as zeros)."""
+    out = []
+    for a, b in zip(card, cpu):
+        if a is None and b is None:
+            out.append(0.0)
+            continue
+        a = b.new_zeros(b.shape) if a is None else a.double().cpu()
+        b = a.new_zeros(a.shape) if b is None else b.double()
+        out.append(float((a.double() - b).norm() / max(float(b.norm()), 1e-30)))
+    return out
+
+
+def zero_or_missing(grads: list, names: list) -> list:
+    """The leaves whose gradient is missing or all zero."""
+    return [n for n, g in zip(names, grads) if g is None or not bool(g.any())]
+
+
+def tree_grads(loss, params: dict, batch, device: str):
+    """(loss, [gradient of each leaf], leaf names) of ``loss(params on
+    device, *batch on device)``."""
+    import torch
+
+    from egregora_tpu_torch.models.rnnoise.train import leaves, trainable
+    from egregora_tpu_torch.ops.fir import exact_f32
+    from egregora_tpu_torch.utils.weights import sorted_leaves
+    tp = trainable(params, device)
+    with exact_f32():                  # the trainers' step: forward and backward in float32
+        lv = loss(tp, *(torch.as_tensor(a).to(device) for a in batch))
+        grads = torch.autograd.grad(lv, leaves(tp), allow_unused=True)
+    names = ["/".join(p) for p, _ in sorted_leaves(params)]
+    return float(lv.detach()), [None if g is None else g.detach().cpu() for g in grads], names
+
+
+def trainer_check(label: str, card, cpu, frozen: tuple = ()) -> dict:
+    """Card against CPU of one (loss, grads, names): within the limits, and
+    every leaf with a nonzero gradient but those named under a ``frozen``
+    prefix (the rvq warm-up's zeroed encoder and decoder)."""
+    (lc, gc, names), (lh, gh, _) = card, cpu
+    rels = leaf_rel(gc, gh)
+    worst = max(zip(rels, names))
+    holes = [n for n in zero_or_missing(gc, names) if not n.startswith(frozen or ("\0",))]
+    r = {"loss_rel": abs(lc - lh) / abs(lh), "grad_rel_worst": worst[0],
+         "grad_rel_worst_leaf": worst[1], "leaves": len(names), "without_gradient": holes}
+    r["ok"] = (r["loss_rel"] <= TRAINER_LOSS_REL and not holes and math.isfinite(lc)
+               and all(x <= TRAINER_GRAD_REL for x in rels))
+    log(f"{label}: loss {lc:.6f} (CPU {lh:.6f}, rel {r['loss_rel']:.2e}); {len(names)} leaves, "
+        f"worst gradient rel {worst[0]:.2e} ({worst[1]}); without a gradient: "
+        f"{holes or 'none'} {'ok' if r['ok'] else 'FAIL'}")
+    return r
+
+
+def rn_lead_in(x):
+    """``x [B, T]`` with a quiet (1e-6 noise) lead-in and a raised-cosine fade."""
+    import numpy as np
+    i = np.arange(x.shape[-1])
+    env = 0.5 - 0.5 * np.cos(np.pi * np.clip((i - RN_LEAD) / RN_FADE, 0.0, 1.0))
+    return (x * env + 1e-6 * np.random.default_rng(9).standard_normal(x.shape)).astype(np.float32)
+
+
+def timed_steps(make_batch, step, n: int) -> dict:
+    """``n`` steps of ``step(*batch)``, each on ``make_batch(i) -> (host
+    draws, card synthesis)``: the host's draw time, the card's synthesis and
+    the step apart (warm: the steps after the first), peak memory."""
+    import torch
+    torch.cuda.reset_peak_memory_stats()
+    draws, synth, steps = [], [], []
+    for i in range(n):
+        t0 = time.perf_counter()
+        d = make_batch[0](i)
+        draws.append(time.perf_counter() - t0)
+        batch, s = synced_wall(lambda: make_batch[1](d))
+        synth.append(s)
+        _, s = synced_wall(lambda: step(*batch))
+        steps.append(s)
+    warm = lambda xs: sum(xs[1:]) / max(len(xs) - 1, 1)      # noqa: E731
+    return {"draws_s": warm(draws), "synth_card_s": warm(synth), "step_s_warm": warm(steps),
+            "step_s_cold": steps[0], "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+
+
+def rnnoise_train_phase(card: str) -> dict:
+    """The RNNoise trainer on the card: ``train_device(steps=3)`` and
+    ``train(steps=3)`` at their defaults from ``init_params(0)``; warm steps at
+    ``train_device``'s defaults (16 x 50 frames) with the host's draws and the
+    card's synthesis apart; one fixed batch (lead-in) card against CPU, loss
+    and every leaf's gradient, every leaf with one, beside the planted fault
+    of the GRU carries detached every frame; the shipped weights' SNR gain on
+    ``synth_batch(default_rng(4242), 4, 40)``."""
+    import numpy as np
+    import torch
+
+    from egregora_tpu_torch.models.flashsr import prng
+    from egregora_tpu_torch.models.optim import AdamChain
+    from egregora_tpu_torch.models.rnnoise import model as R
+    from egregora_tpu_torch.models.rnnoise import train as rtr
+    from egregora_tpu_torch.utils.weights import sorted_leaves
+
+    reset_counts()
+    out = {}
+    for name, fn in (("train_device", rtr.train_device), ("train", rtr.train)):
+        torch.cuda.reset_peak_memory_stats()
+        tree, wall = synced_wall(lambda: fn(steps=3, log_every=0))
+        finite = all(np.isfinite(v).all() for _, v in sorted_leaves(tree))
+        out[name] = {"wall_s": wall, "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+                     "finite": finite}
+        if not finite:
+            raise RuntimeError(f"rnnoise {name}: non-finite weights after 3 steps")
+    params = rtr.trainable(R.init_params(0), "cuda")
+    step = rtr.make_step(rtr.loss_fn, params, AdamChain(rtr.leaves(params), 3e-3, 4, 0.05))
+    base = prng.prng_key(1)
+    out["steps"] = timed_steps((lambda i: rtr.synth_draws(prng.fold_in(base, i), 16, 50),
+                                lambda d: rtr.synth_from_draws(d, 50, "cuda")), step, 4)
+    s = out["steps"]
+    log(f"rnnoise train_device at 16 x 50 frames on {card}: warm step {s['step_s_warm']:.4f} s "
+        f"(cold {s['step_s_cold']:.3f}); host draws {s['draws_s']:.4f} s, synthesis on the card "
+        f"{s['synth_card_s']:.4f} s; peak {s['peak_gib']:.3f} GiB; train_device(steps=3) "
+        f"{out['train_device']['wall_s']:.2f} s, train(steps=3) {out['train']['wall_s']:.2f} s")
+
+    noisy, clean, vad = rtr.synth_batch(np.random.default_rng(7), 16, 50)
+    batch = (rn_lead_in(noisy), rn_lead_in(clean), vad)
+    init = R.init_params(0)
+    cpu = tree_grads(rtr.loss_fn, init, batch, "cpu")
+    out["card_vs_cpu"] = trainer_check("rnnoise loss_fn, card vs CPU", tree_grads(
+        rtr.loss_fn, init, batch, "cuda"), cpu)
+    real = R._gru_update
+    R._gru_update = lambda h, xw, rec: real(h.detach(), xw, rec)
+    try:
+        planted = trainer_check("rnnoise loss_fn, planted: GRU carries detached",
+                                tree_grads(rtr.loss_fn, init, batch, "cuda"), cpu)
+    finally:
+        R._gru_update = real
+    out["planted_detached_carry"] = planted["grad_rel_worst"]
+    if not out["card_vs_cpu"]["ok"] or planted["ok"]:
+        raise RuntimeError("rnnoise train: card vs CPU failed or the planted fault passed")
+
+    shipped = rtr.load_pretrained()
+    noisy, clean, _ = rtr.synth_batch(np.random.default_rng(4242), 4, 40)
+    clean = rtr.filtered_target(torch.from_numpy(clean)).numpy()
+    with torch.no_grad():
+        den, vads = R.denoise(shipped, torch.from_numpy(noisy).cuda())
+    den, vads = den.cpu().numpy(), vads.cpu().numpy()
+    f = R.FRAME
+    snr = lambda ref, sig: 10 * np.log10(np.sum(ref ** 2) / (np.sum((ref - sig) ** 2) + 1e-12))  # noqa
+    before = float(np.mean([snr(clean[i][f:-f], noisy[i][f:-f]) for i in range(4)]))
+    after = float(np.mean([snr(clean[i][f:-f], den[i][2 * f:]) for i in range(4)]))
+    out["shipped_snr_gain_db"] = after - before
+    ok = after - before > RN_SNR_GAIN_DB and 0.05 < float(vads.mean()) < 0.95
+    log(f"rnnoise shipped weights on {card}: SNR {before:+.2f} -> {after:+.2f} dB (gain "
+        f"{after - before:+.2f} dB, bar +{RN_SNR_GAIN_DB}; the JAX record +7.2), VAD mean "
+        f"{float(vads.mean()):.3f} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise RuntimeError("rnnoise train: the shipped weights miss the SNR bar")
+    no_launches("rnnoise train")
+    return out
+
+
+def dfn_no_grad_gru(kernel, recurrent, bias, xs):
+    """Planted fault: the GRU as it ran before, weights copied into an
+    ``nn.GRU`` under ``no_grad`` (no gradient to the GRU or before it)."""
+    import torch
+
+    from egregora_tpu_torch.models.deepfilternet.model import _cudnn_gate_order
+    gru = torch.nn.GRU(kernel.shape[0], recurrent.shape[0], batch_first=True,
+                       device="meta").to_empty(device=xs.device)
+    with torch.no_grad():
+        gru.weight_ih_l0.copy_(_cudnn_gate_order(kernel).T)
+        gru.weight_hh_l0.copy_(_cudnn_gate_order(recurrent).T)
+        gru.bias_ih_l0.copy_(_cudnn_gate_order(bias))
+        gru.bias_hh_l0.zero_()
+        return gru(xs)[0]
+
+
+def dfn_train_phase(card: str) -> dict:
+    """The DeepFilterNet trainer on the card, per variant: ``train_device(
+    steps=3)`` at its defaults (4 x 50 frames) from ``init_params(0)``; warm
+    steps with the host's draws and the card's synthesis apart; one fixed
+    batch card against CPU, loss and every leaf's gradient (the GRUs' and the
+    encoder's included), beside the planted fault of the GRU run under
+    ``no_grad`` as it was, which must leave them without one."""
+    import numpy as np
+    import torch
+
+    from egregora_tpu_torch.models.deepfilternet import model as D
+    from egregora_tpu_torch.models.deepfilternet import train as dtr
+    from egregora_tpu_torch.models.flashsr import prng
+    from egregora_tpu_torch.models.optim import AdamChain
+    from egregora_tpu_torch.models.rnnoise import train as rtr
+    from egregora_tpu_torch.utils.weights import sorted_leaves
+
+    reset_counts()
+    out = {}
+    noisy, clean, _ = rtr.synth_batch(np.random.default_rng(8), 4, 50)
+    for variant in DFN_VARIANTS:
+        cfg = D.DFNConfig.for_variant(variant)
+        torch.cuda.reset_peak_memory_stats()
+        tree, wall = synced_wall(lambda: dtr.train_device(steps=3, log_every=0, cfg=cfg))
+        if not all(np.isfinite(v).all() for _, v in sorted_leaves(tree)):
+            raise RuntimeError(f"dfn {variant}: non-finite weights after 3 steps")
+        r = {"train_device_wall_s": wall,
+             "train_device_peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+        params = rtr.trainable(D.init_params(0, cfg), "cuda")
+        step = rtr.make_step(dtr.loss_fn, params, AdamChain(rtr.leaves(params), 1e-3, 4, 0.05))
+        base = prng.prng_key(1)
+        r["steps"] = timed_steps((lambda i: rtr.synth_draws(prng.fold_in(base, i), 4, 50),
+                                  lambda d: rtr.synth_from_draws(d, 50, "cuda")[:2]), step, 4)
+        s = r["steps"]
+        log(f"dfn {variant} train_device at 4 x 50 frames on {card}: warm step "
+            f"{s['step_s_warm']:.4f} s (cold {s['step_s_cold']:.3f}); host draws "
+            f"{s['draws_s']:.4f} s, synthesis on the card {s['synth_card_s']:.4f} s; peak "
+            f"{s['peak_gib']:.3f} GiB; train_device(steps=3) {wall:.2f} s")
+        init = D.init_params(0, cfg)
+        cpu = tree_grads(dtr.loss_fn, init, (noisy, clean), "cpu")
+        r["card_vs_cpu"] = trainer_check(f"dfn {variant} loss_fn, card vs CPU",
+                                         tree_grads(dtr.loss_fn, init, (noisy, clean), "cuda"), cpu)
+        real = D._torch_gru
+        D._torch_gru = dfn_no_grad_gru
+        try:
+            planted = trainer_check(f"dfn {variant} loss_fn, planted: the no_grad GRU",
+                                    tree_grads(dtr.loss_fn, init, (noisy, clean), "cuda"), cpu)
+        finally:
+            D._torch_gru = real
+        holes = planted["without_gradient"]
+        r["planted_without_gradient"] = len(holes)
+        caught = (not planted["ok"] and any("gru" in h for h in holes)
+                  and any(h.startswith("enc/") for h in holes))
+        if not r["card_vs_cpu"]["ok"] or not caught:
+            raise RuntimeError(f"dfn {variant} train: card vs CPU failed or the planted fault "
+                               f"was not caught ({holes})")
+        out[variant] = r
+    no_launches("dfn train")
+    return out
+
+
+def skip_none(opt):
+    """Planted fault: ``torch.optim``'s rule in an ``AdamChain`` (a parameter
+    whose gradient is ``None`` skips the step, decay and moments included)."""
+    step = opt.step
+
+    def skipping(grads):
+        keep = [i for i, g in enumerate(grads) if g is not None]
+        full = opt.params, opt.mu, opt.nu
+        opt.params, opt.mu, opt.nu = ([x[i] for i in keep] for x in full)
+        try:
+            step([grads[i] for i in keep])
+        finally:
+            opt.params, opt.mu, opt.nu = full
+
+    opt.step = skipping
+    return opt
+
+
+def dac_check(label: str, card, cpu, frozen: tuple) -> dict:
+    """Card against CPU of one DAC loss: the loss (relative), each
+    sub-model's gradients (relative L2 over all its leaves: a single leaf,
+    such as the output conv's one bias, can sum to near zero), the share of
+    RVQ codes that agree (a code at a near-tie flips with the matmul's
+    summation order and moves that frame's quantized path), every leaf with
+    a gradient but the ``frozen`` ones."""
+    import torch
+    (lc, gc, names, codes_c), (lh, gh, _, codes_h) = card, cpu
+    r = {"loss_rel": abs(lc - lh) / abs(lh), "sub_model_rel": {},
+         "without_gradient": [n for n in zero_or_missing(gc, names) if not n.startswith(frozen)]}
+    for sub in ("encoder.", "decoder.", "rvq."):
+        keys = [i for i, n in enumerate(names) if n.startswith(sub) and not n.startswith(frozen)
+                and gh[i] is not None]
+        if keys:
+            a = torch.cat([gc[i].double().flatten() for i in keys])
+            b = torch.cat([gh[i].double().flatten() for i in keys])
+            r["sub_model_rel"][sub[:-1]] = float((a - b).norm() / b.norm())
+    r["codes_agree"] = (None if codes_c is None else
+                        float((codes_c == codes_h).double().mean()))
+    r["ok"] = (r["loss_rel"] <= DAC_LOSS_REL and not r["without_gradient"]
+               and all(v <= DAC_GRAD_REL for v in r["sub_model_rel"].values()))
+    log(f"{label}: loss {lc:.6f} (CPU {lh:.6f}, rel {r['loss_rel']:.2e}); gradients rel "
+        + ", ".join(f"{k} {v:.2e}" for k, v in r["sub_model_rel"].items())
+        + f"; codes agreeing {r['codes_agree']}; without a gradient: "
+        f"{r['without_gradient'] or 'none'} {'ok' if r['ok'] else 'FAIL'}")
+    return r
+
+
+def dac_grads(model, loss, wav, rvq_only: bool = False):
+    """(loss, [gradient of each parameter], names, codes or None) of one DAC
+    loss (the rvq warm-up's mask where ``rvq_only``)."""
+    import torch
+
+    from egregora_tpu_torch.models.dac import train as dtr
+    from egregora_tpu_torch.ops.fir import exact_f32
+    params = list(model.parameters())
+    with exact_f32():
+        out = loss(model, wav)
+        lv = out[0] if isinstance(out, tuple) else out
+        grads = list(torch.autograd.grad(lv, params, allow_unused=True))
+    if rvq_only:
+        grads = dtr._zero_outside_rvq(model, grads)
+    names = [n for n, _ in model.named_parameters()]
+    codes = out[1][0].cpu() if isinstance(out, tuple) else None
+    return (float(lv.detach()), [None if g is None else g.detach().cpu() for g in grads], names,
+            codes)
+
+
+def dac_train_phase(card: str) -> dict:
+    """The DAC trainer on the card: ``train(distilled_config("44khz"),
+    steps=10, batch=8, length=16384)`` (bf16: ae 5 steps, proj 1, vq 4, with
+    the held-out evaluations) and ``finetune("44khz", steps=2)`` from the
+    shipped codec; warm EMA steps at that size with the host's draws and the
+    card's synthesis apart; the distilled 44 kHz geometry in float32 with
+    seeded weights card against CPU on one batch: ``ae_loss_fn``, ``proj_loss_fn`` (rvq only) and
+    ``ema_loss_fn`` with their gradients, and one ``ema_codebook_update``
+    from one key; one rvq-only step with the decay made visible, encoder and
+    decoder card against CPU, beside the planted fault of ``None``
+    gradients skipped as ``torch.optim`` skips them; ``gate_metrics`` of the
+    three shipped codecs, card against CPU."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from egregora_tpu_torch.models.dac import model as M
+    from egregora_tpu_torch.models.dac import train as dtr
+    from egregora_tpu_torch.models.flashsr import distill, prng
+    from egregora_tpu_torch.models.optim import AdamChain
+    from egregora_tpu_torch.ops.fir import exact_f32
+    from egregora_tpu_torch.utils.weights import sorted_leaves
+
+    reset_counts()
+    out = {}
+    torch.cuda.reset_peak_memory_stats()
+    (model, tree), wall = synced_wall(lambda: dtr.train(
+        dtr.distilled_config("44khz"), steps=10, batch=8, length=16384, log_every=100))
+    out["train"] = {"wall_s": wall, "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+                    "params_m": sum(p.numel() for p in model.parameters()) / 1e6}
+    if not all(np.isfinite(v).all() for _, v in sorted_leaves(tree)):
+        raise RuntimeError("dac train: non-finite weights after 10 steps")
+    opt = dtr.make_optimizer(model, 1.5e-4, 4)
+    ema = [dtr.init_ema_state(model.cfg, model)]
+    kb = prng.prng_key(3)
+
+    def ema_step(hr, kr):
+        with exact_f32():
+            lv, (codes, r_stack) = dtr.ema_loss_fn(model, hr)
+            dtr._grad_step(model, opt, lv, False)
+        ema[0] = dtr.ema_codebook_update(model.cfg, model, ema[0], codes, r_stack, kr)
+
+    keys = [prng.split(prng.fold_in(kb, i)) for i in range(4)]
+    out["steps"] = timed_steps(
+        (lambda i: (distill.synth_draws(keys[i][0], 8, 16384), keys[i][1]),
+         lambda d: (distill.synth_from_draws(d[0], 16384, 44100, device="cuda")[1], d[1])),
+        ema_step, 4)
+    _, ft_wall = synced_wall(lambda: dtr.finetune("44khz", steps=2, log_every=100))
+    out["finetune_wall_s"] = ft_wall
+    s = out["steps"]
+    log(f"dac train(distilled 44khz, {out['train']['params_m']:.2f}M parameters, bf16, steps=10, "
+        f"batch 8 x 16384) on {card}: {wall:.2f} s with its three held-out evaluations, peak "
+        f"{out['train']['peak_gib']:.3f} GiB; a warm vq step (gradient + EMA) "
+        f"{s['step_s_warm']:.4f} s (cold {s['step_s_cold']:.3f}), host draws {s['draws_s']:.4f} s, "
+        f"synthesis on the card {s['synth_card_s']:.4f} s, peak {s['peak_gib']:.3f} GiB; "
+        f"finetune(44khz, steps=2) {ft_wall:.2f} s")
+
+    # the distilled 44 kHz geometry in float32 with seeded_dac_tree's weights
+    # (every layer live, where an init's zero output conv leaves the decoder
+    # without a gradient; unit-normal codebooks far from any near-tie): the
+    # shipped codec's losses are so ill-conditioned that 1e-7 of input noise
+    # moves their gradients by up to 4% on the CPU itself
+    cfg32 = dataclasses.replace(dtr.distilled_config("44khz"), dtype=torch.float32)
+    _, wav = distill.synth_pair_batch(prng.prng_key(21), 2, 16384, sr=44100, device="cpu")
+    base = M.DACModel(cfg32).load_jax(seeded_dac_tree(cfg32, 3))
+    models = {"cpu": base, "cuda": M.DACModel(cfg32).to("cuda")}
+    models["cuda"].load_state_dict(base.state_dict())
+    checks = {}
+    # each loss's leaves without a gradient by design: the quantizer outside
+    # the autoencoder's loss, the encoder and decoder in the rvq warm-up (zeroed),
+    # the codebooks where no codebook term is in the loss (EMA moves them)
+    for name, loss, rvq_only, frozen in (
+            ("ae_loss_fn", dtr.ae_loss_fn, False, ("rvq.",)),
+            ("proj_loss_fn", dtr.proj_loss_fn, True, ("encoder.", "decoder.", "rvq.codebook_")),
+            ("ema_loss_fn", dtr.ema_loss_fn, False, ("rvq.codebook_",))):
+        got = [dac_grads(models[d], loss, wav.to(d), rvq_only) for d in ("cuda", "cpu")]
+        checks[name] = dac_check(f"dac {name} (float32), card vs CPU", *got, frozen=frozen)
+    with torch.no_grad():
+        _, (codes, r_stack) = dtr.ema_loss_fn(base, wav)
+    stats = dtr.init_ema_state(cfg32, base)
+    stats["counts"][:, ::5] = 0.01                           # dead rows: restarted
+    books = {}
+    for d in ("cuda", "cpu"):
+        m = M.DACModel(cfg32).to(d)
+        m.load_state_dict(base.state_dict())
+        dtr.ema_codebook_update(cfg32, m, {k: v.to(d) for k, v in stats.items()}, codes.to(d),
+                                r_stack.to(d), prng.prng_key(5))
+        books[d] = torch.cat([b.detach().cpu().flatten() for b in dtr._books(m)])
+    ema_d = float((books["cuda"] - books["cpu"]).abs().max())
+    checks["ema_codebook_update_max_abs"] = ema_d
+    log(f"dac ema_codebook_update from one key, card vs CPU: books max |d| {ema_d:.2e}")
+
+    def rvq_only_step(device: str, fault: bool):
+        """The encoder and decoder after one rvq-only step from ``base``."""
+        m = M.DACModel(cfg32).to(device)
+        m.load_state_dict(base.state_dict())
+        real = dtr.make_optimizer, dtr._zero_outside_rvq
+
+        def make(mm, lr, steps):
+            opt = AdamChain(mm.parameters(), DAC_DECAY_LR, steps, 0.1, clip=1.0,
+                            weight_decay=DAC_DECAY_WD)
+            return skip_none(opt) if fault else opt
+
+        dtr.make_optimizer = make
+        if fault:
+            dtr._zero_outside_rvq = lambda mm, grads: grads
+        try:
+            dtr._run_phase(m, "proj", dtr.proj_loss_fn, 1, 2, 16384, DAC_DECAY_LR,
+                           prng.prng_key(8), 1, 0, use_ema=True, rvq_only=True)
+        finally:
+            dtr.make_optimizer, dtr._zero_outside_rvq = real
+        return torch.cat([p.detach().cpu().flatten() for n, p in m.named_parameters()
+                          if n.startswith(("encoder.", "decoder."))])
+
+    ref = rvq_only_step("cpu", False)
+    start = torch.cat([p.detach().flatten() for n, p in base.named_parameters()
+                       if n.startswith(("encoder.", "decoder."))])
+    decay = {"cpu_norm_ratio": float(ref.norm() / start.norm())}
+    for label, fault in (("as trained", False), ("planted: None gradients skipped", True)):
+        decay[label] = float((rvq_only_step("cuda", fault) - ref).norm() / ref.norm())
+        log(f"dac rvq-only step (lr {DAC_DECAY_LR}, weight decay {DAC_DECAY_WD}), {label}: "
+            f"encoder and decoder card vs CPU rel {decay[label]:.2e} (limit {DAC_DECAY_REL})")
+    decay_ok = (decay["as trained"] <= DAC_DECAY_REL < decay["planted: None gradients skipped"]
+                and decay["cpu_norm_ratio"] < 1.0)
+    out["rvq_only_decay"] = decay
+
+    gates = {}
+    for mt in ("44khz", "24khz", "16khz"):
+        g_card = dtr.gate_metrics(dtr.shipped_model(mt, "cuda"))
+        g_cpu = dtr.gate_metrics(dtr.shipped_model(mt, "cpu"))
+        ok = (abs(g_card["mean_snr"] - g_cpu["mean_snr"]) <= DAC_GATE_SNR_DB
+              and abs(g_card["worst_snr"] - g_cpu["worst_snr"]) <= DAC_GATE_SNR_DB)
+        gates[mt] = {"card": g_card, "cpu": g_cpu, "ok": ok}
+        rec = DAC_GATE_RECORD[mt]
+        log(f"dac gate {mt} (bf16) on {card}: mean SNR {g_card['mean_snr']:+.2f} / worst "
+            f"{g_card['worst_snr']:+.2f} dB, mean LSD {g_card['mean_lsd']:.2f} dB; CPU "
+            f"{g_cpu['mean_snr']:+.2f} / {g_cpu['worst_snr']:+.2f} dB, {g_cpu['mean_lsd']:.2f} dB; "
+            f"the JAX test's record {rec[0]:+.2f} / {rec[1]:+.2f} dB {'ok' if ok else 'FAIL'}")
+    out.update(checks=checks, gates=gates)
+    bad = [k for k, v in checks.items() if isinstance(v, dict) and not v["ok"]]
+    if bad or ema_d > 1e-4 or not decay_ok or not all(g["ok"] for g in gates.values()):
+        raise RuntimeError(f"dac train: failed {bad}, ema {ema_d:.2e}, decay {decay}, gates "
+                           f"{ {k: g['ok'] for k, g in gates.items()} }")
+    no_launches("dac train")
+    return out
+
+
+def trainers_phase(card: str) -> dict:
+    """Phases 26-28 in a temporary ``EGREGORA_TPU_WEIGHTS``, with the JAX
+    package's files hashed before and after (equal)."""
+    import os
+    import shutil
+    import tempfile
+    from pathlib import Path
+    before = package_digest()
+    prev = os.environ.get("EGREGORA_TPU_WEIGHTS")
+    tmp = tempfile.mkdtemp(prefix="egregora_train_")
+    os.environ["EGREGORA_TPU_WEIGHTS"] = tmp
+    try:
+        t0 = time.perf_counter()
+        out = {"rnnoise": rnnoise_train_phase(card)}
+        out["rnnoise"]["phase_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out["deepfilternet"] = dfn_train_phase(card)
+        out["deepfilternet"]["phase_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out["dac"] = dac_train_phase(card)
+        out["dac"]["phase_s"] = time.perf_counter() - t0
+        written = sorted(str(p.relative_to(tmp)) for p in Path(tmp).rglob("*") if p.is_file())
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        if prev is None:
+            os.environ.pop("EGREGORA_TPU_WEIGHTS", None)
+        else:
+            os.environ["EGREGORA_TPU_WEIGHTS"] = prev
+    after = package_digest()
+    log(f"trainers: phases {out['rnnoise']['phase_s']:.1f} / {out['deepfilternet']['phase_s']:.1f}"
+        f" / {out['dac']['phase_s']:.1f} s; files written under the temporary weights dir: "
+        f"{written or 'none'}; egregora_tpu/ sha256 {before[:16]} before, {after[:16]} after")
+    if after != before:
+        raise RuntimeError("trainers: a file under egregora_tpu/ changed")
+    return out
+
+
 
 def main() -> int:
     import torch
@@ -4531,6 +5090,7 @@ def main() -> int:
     resumed = checkpoint_phase()
     evaluated = evaluate_phase()
     meshed = mesh_phase()
+    trainers = trainers_phase(card)
 
     attn_counts = collections.Counter(pipe["counts"])
     attn_paths = {"full config (seeded weights)": pipe["launches"]}
@@ -4640,6 +5200,15 @@ def main() -> int:
          "checkpoint": resumed, "evaluate": evaluated,
          "mesh": {"one_process": meshed["one_process"], "wall_s": meshed["wall_s"],
                   "ranks": meshed["ranks"]}}, default=str))
+    log(f"trainers on {card}: " + json.dumps(
+        {"rnnoise": {k: trainers["rnnoise"][k] for k in ("train_device", "train", "steps",
+                                                          "shipped_snr_gain_db", "phase_s")},
+         "deepfilternet": {v: {k: trainers["deepfilternet"][v][k] for k in (
+             "train_device_wall_s", "train_device_peak_gib", "steps")} for v in DFN_VARIANTS},
+         "dac": {k: trainers["dac"][k] for k in ("train", "steps", "finetune_wall_s",
+                                                  "rvq_only_decay", "phase_s")},
+         "dac_gate": {mt: {"card": g["card"], "cpu": g["cpu"]}
+                      for mt, g in trainers["dac"]["gates"].items()}}, default=str))
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
     log(card)
     print(json.dumps({"kernels": kernels}), flush=True)

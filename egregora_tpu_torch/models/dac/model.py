@@ -31,20 +31,29 @@ key for key.
 checkpoint at ``utils.weights.weights_dir() / f"dac_{type}.npz"`` (the
 JAX package's ``save_params`` layout) first, then the JAX package's
 shipped compact codec (``train.load_pretrained``), else a seeded random
-init with a warning.  The random init draws from a torch generator, not
-flax's PRNG: the shipped weights make it unreachable in practice.
+init with a warning.  ``DACModel.init_params(seed)`` is flax's init of the
+JAX package's modules, draw for draw (``flax_init``), so a from-scratch
+training run starts from the JAX package's weights.
+
+The quantizer has the JAX package's training mode (``with_losses``,
+``collect_stage_data``: the commitment and codebook terms, the
+straight-through estimator, the per-stage residuals); ``encode`` and
+``decode`` are inference (no gradient), and a trainer calls the three
+modules directly (``train.py``).
 """
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 from typing import Any, Dict, Sequence, Tuple
 
+import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
 from ...ops.fir import exact_f32
-from ..flashsr.layers import Conv1d, ConvTranspose1d, Dense, seeded_init_
+from ..flashsr.layers import Conv1d, ConvTranspose1d, Dense
 
 
 @dataclasses.dataclass(frozen=True)
@@ -185,7 +194,7 @@ class DACDecoder(nn.Module):
 
 
 class ResidualVQ(nn.Module):
-    """Residual vector quantization with projected codebooks (inference)."""
+    """Residual vector quantization with projected codebooks."""
 
     def __init__(self, cfg: DACConfig):
         super().__init__()
@@ -197,20 +206,44 @@ class ResidualVQ(nn.Module):
                 torch.empty(c.codebook_size, c.codebook_dim)))
         self.n_codebooks = c.n_codebooks
 
-    def forward(self, z: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        """``[B, T, D] -> (z_q [B, T, D], codes [B, n_q, T])``."""
-        residual, z_q, codes = z, torch.zeros_like(z), []
+    def forward(self, z: torch.Tensor, with_losses: bool = False,
+                collect_stage_data: bool = False) -> Tuple[torch.Tensor, ...]:
+        """``[B, T, D] -> (z_q [B, T, D], codes [B, n_q, T])``.
+
+        ``with_losses`` (training) adds ``(commit, codebook)``: per stage
+        ``mean((r - sg(q_r))^2)`` and ``mean((sg(r) - q_r)^2)`` in the
+        projected space, each over ``sg(mean(r^2)) + 1e-6``, and passes
+        ``q_r`` on straight through (``r + sg(q_r - r)``), so the
+        decoder's gradient reaches ``proj_in`` and the encoder;
+        ``collect_stage_data`` adds ``r_stack [n_q, B, T, d]``, the
+        per-stage projected residuals (detached) that the EMA codebook
+        update reads."""
+        residual, z_q, codes, r_stages = z, torch.zeros_like(z), [], []
+        commit = codebook_loss = 0.0
         for i in range(self.n_codebooks):
             book = getattr(self, f"codebook_{i}")
             r = getattr(self, f"proj_in_{i}")(residual)                 # [B, T, d]
             d2 = (r.square().sum(-1, keepdim=True) - (2.0 * r) @ book.T
                   + book.square().sum(-1))                              # [B, T, K]
             idx = d2.argmin(-1)
-            q = getattr(self, f"proj_out_{i}")(book[idx])
+            q_r = book[idx]
+            if collect_stage_data:
+                r_stages.append(r.detach())
+            if with_losses:
+                denom = r.square().mean().detach() + 1e-6
+                commit = commit + (r - q_r.detach()).square().mean() / denom
+                codebook_loss = codebook_loss + (r.detach() - q_r).square().mean() / denom
+                q_r = r + (q_r - r).detach()
+            q = getattr(self, f"proj_out_{i}")(q_r)
             z_q = z_q + q
             residual = residual - q
             codes.append(idx)
-        return z_q, torch.stack(codes, 1)
+        out = (z_q, torch.stack(codes, 1))
+        if with_losses:
+            out += (commit, codebook_loss)
+        if with_losses and collect_stage_data:
+            out += (torch.stack(r_stages, 0),)
+        return out
 
 
 class DACModel(nn.Module):
@@ -227,19 +260,16 @@ class DACModel(nn.Module):
         self.weight_source = "random"
 
     def init_params(self, seed: int = 0) -> "DACModel":
-        """Seeded random weights in place (flax's initializers' kinds:
-        lecun-normal kernels, zero biases, unit alphas, unit-normal
-        codebooks, the decoder's last conv zero), from a torch generator."""
-        gen = torch.Generator().manual_seed(int(seed))
-        seeded_init_(self, gen)
-        with torch.no_grad():
-            for name, p in self.named_parameters():
-                if name.endswith("alpha"):
-                    p.fill_(1.0)
-                elif ".codebook_" in name:
-                    p.copy_(torch.randn(p.shape, generator=gen).to(p.device))
-            self.decoder.Conv_1.weight.zero_()
-        return self
+        """Seeded weights in place: the JAX package's ``init_params(seed)``
+        (flax's ``init`` of the three modules from ``split(PRNGKey(seed),
+        3)``), draw for draw (``flax_init``)."""
+        from ..flashsr.prng import prng_key, split
+        names = ("encoder", "decoder", "rvq")
+        tree = {name: flax_init(getattr(self, name), key)
+                for name, key in zip(names, split(prng_key(seed), 3))}
+        out_conv = tree["decoder"]["params"]["Conv_1"]     # flax's zero-initialised output conv
+        out_conv["kernel"] = np.zeros_like(out_conv["kernel"])
+        return self.load_jax(tree)
 
     def load_jax(self, flax_params: Dict[str, Any]) -> "DACModel":
         """Load the JAX package's parameter tree (``{"encoder", "decoder",
@@ -270,6 +300,54 @@ class DACModel(nn.Module):
         """``[C, T/hop, D] -> [C, T]`` float32, on the model's device."""
         with exact_f32():
             return self.decoder(z.float().to(self.device).transpose(1, 2))
+
+
+def _scope_key(root: np.ndarray, path: Tuple[str, ...], counter: int) -> np.ndarray:
+    """flax's key for the ``counter``-th ``make_rng("params")`` of the scope
+    at ``path`` under the root key: ``fold_in(root, first 4 bytes of
+    SHA-1(path names, then the counter as big-endian bytes))``
+    (``flax.core.scope.LazyRng`` / ``_fold_in_static``, no separators)."""
+    from ..flashsr.prng import fold_in
+    m = hashlib.sha1()
+    for x in path:
+        m.update(x.encode("utf-8"))
+    m.update(counter.to_bytes((counter.bit_length() + 7) // 8, byteorder="big"))
+    return fold_in(root, int.from_bytes(m.digest()[:4], byteorder="big"))
+
+
+def _lecun_normal(key: np.ndarray, shape: Tuple[int, ...]) -> np.ndarray:
+    """flax's default kernel init, ``variance_scaling(1, "fan_in",
+    "truncated_normal")``: fan-in over every axis but the last."""
+    from ..flashsr.prng import truncated_normal
+    fan_in = int(np.prod(shape[:-1]))
+    std = np.sqrt(np.float32(1.0 / fan_in)) / np.float32(0.87962566103423978)
+    return truncated_normal(key, shape) * np.float32(std)
+
+
+def flax_init(module: nn.Module, key: np.ndarray) -> Dict[str, Any]:
+    """``{"params": ...}``: what flax's ``init(key, ...)`` of ``module``'s
+    counterpart draws.  Each scope numbers its ``make_rng`` calls from 1 in
+    the order its parameters are created (a conv's or dense's kernel 1,
+    bias 2; the quantizer's ``codebook_i`` i + 1), so a leaf's key depends
+    on its path alone: lecun-normal kernels, zero biases, unit alphas and
+    ``normal(1.0)`` codebooks."""
+    from ..flashsr.prng import normal_from_key
+    from ...utils.weights import flax_tree, sorted_leaves, unflatten
+
+    flat = {}
+    for path, spec in sorted_leaves(flax_tree(module)["params"]):
+        *scope, leaf = path
+        shape = tuple(spec.shape)
+        if leaf == "bias":
+            val = np.zeros(shape, np.float32)
+        elif leaf == "alpha":
+            val = np.ones(shape, np.float32)
+        elif leaf.startswith("codebook_"):
+            val = normal_from_key(_scope_key(key, tuple(scope), int(leaf[9:]) + 1), shape)
+        else:
+            val = _lecun_normal(_scope_key(key, tuple(scope), 1), shape)
+        flat["/".join(path)] = val
+    return {"params": unflatten(flat)}
 
 
 def dac_params_from_jax(cfg: DACConfig, flax_params: Dict[str, Any]

@@ -30,11 +30,12 @@ The same topology and arithmetic, on tensors of any device, in float32:
 
 The JAX package's ``vmap`` over channels is one batch dimension here.
 Its GRUs (gate order z, r, n, no recurrent bias) run as one
-``torch.nn.GRU`` call each, cuDNN's on the card: that computes the same
-function with the gate blocks in torch's (r, z, n) order and a zero
-recurrent bias, and DFN2's eight grouped GRUs are one GRU with
-block-diagonal weights.  Convolutions and GRUs run in full float32
-(``ops.fir.exact_f32``), not TF32.
+``torch.nn.GRU`` recurrence each (``torch._VF.gru``, cuDNN's on the card)
+on the parameters themselves, so a training step differentiates through
+it: that computes the same function with the gate blocks in torch's (r,
+z, n) order and a zero recurrent bias, and DFN2's eight grouped GRUs are
+one GRU with block-diagonal weights.  Convolutions and GRUs run in full
+float32 (``ops.fir.exact_f32``), not TF32.
 
 Parameters are a nested dict of numpy arrays or tensors in the JAX
 package's layout (``init_params``, ``train.load_pretrained``, or an
@@ -45,6 +46,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import warnings
 from typing import Dict, Tuple
 
 import numpy as np
@@ -234,17 +236,22 @@ def _cudnn_gate_order(w: torch.Tensor) -> torch.Tensor:
 def _torch_gru(kernel: torch.Tensor, recurrent: torch.Tensor, bias: torch.Tensor,
                xs: torch.Tensor) -> torch.Tensor:
     """A GRU over time, ``[B, T, I] -> [B, T, U]`` from a zero state, as one
-    ``torch.nn.GRU`` call (cuDNN on the card) with weights ``kernel [I,
-    3U]``, ``recurrent [U, 3U]`` and ``bias [3U]`` in the (z, r, n) layout;
-    ``n = tanh(xn + r * (h @ W_hn))`` (zero recurrent bias)."""
-    gru = torch.nn.GRU(kernel.shape[0], recurrent.shape[0], batch_first=True,
-                       device="meta").to_empty(device=xs.device)
-    with torch.no_grad():
-        gru.weight_ih_l0.copy_(_cudnn_gate_order(kernel).T)
-        gru.weight_hh_l0.copy_(_cudnn_gate_order(recurrent).T)
-        gru.bias_ih_l0.copy_(_cudnn_gate_order(bias))
-        gru.bias_hh_l0.zero_()
-        return gru(xs)[0]
+    ``torch.nn.GRU`` recurrence (cuDNN on the card) with weights ``kernel
+    [I, 3U]``, ``recurrent [U, 3U]`` and ``bias [3U]`` in the (z, r, n)
+    layout; ``n = tanh(xn + r * (h @ W_hn))`` (zero recurrent bias).  The
+    call takes the reordered weights as they are, so autograd records it:
+    the weights and ``xs`` get their gradients through it."""
+    u = recurrent.shape[0]
+    flat = [_cudnn_gate_order(kernel).T.contiguous(), _cudnn_gate_order(recurrent).T.contiguous(),
+            _cudnn_gate_order(bias), bias.new_zeros(3 * u)]
+    h0 = xs.new_zeros(1, xs.shape[0], u)
+    with warnings.catch_warnings():
+        # the weights are not one flat cuDNN buffer: cuDNN copies them a call
+        warnings.filterwarnings("ignore", message="RNN module weights are not part")
+        # (input, h0, weights, biases, layers, dropout, train, bidirectional,
+        # batch_first): training mode, as a new nn.GRU runs, so that the
+        # recurrence can be differentiated
+        return torch._VF.gru(xs, h0, flat, True, 1, 0.0, True, False, True)[0]
 
 
 def _gru_scan(p: Dict, xs: torch.Tensor) -> torch.Tensor:

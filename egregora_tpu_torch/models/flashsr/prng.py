@@ -132,3 +132,57 @@ def bernoulli(key: np.ndarray, p: float, shape=()) -> np.ndarray:
     """``jax.random.bernoulli(key, p, shape)``: a float32 uniform draw on
     ``[0, 1)`` below ``p``."""
     return uniform(key, tuple(shape), 0.0, 1.0) < np.float32(p)
+
+
+def randint(key: np.ndarray, shape, minval: int, maxval: int) -> np.ndarray:
+    """``jax.random.randint(key, shape, minval, maxval)`` (int32): two
+    32-bit draws from ``split(key)``, ``(hi % span * (2**32 % span) + lo %
+    span) % span`` in uint32 arithmetic, plus ``minval``."""
+    k1, k2 = split(key)
+    hi, lo = random_bits(k1, shape), random_bits(k2, shape)
+    span = np.uint32(max(int(maxval) - int(minval), 1))
+    with np.errstate(over="ignore"):
+        mult = np.uint32(2 ** 16) % span
+        mult = np.uint32(mult * mult) % span
+        off = ((hi % span) * mult + lo % span) % span
+    return (np.int64(minval) + off.astype(np.int64)).astype(np.int32)
+
+
+def permutation(key: np.ndarray, n: int) -> np.ndarray:
+    """``jax.random.permutation(key, n)``: ``arange(n)`` sorted by fresh
+    32-bit keys, ``ceil(3 ln n / ln(2**32 - 1))`` rounds of ``split``."""
+    x = np.arange(int(n), dtype=np.int32)
+    rounds = int(np.ceil(3 * np.log(max(1, int(n))) / np.log(np.iinfo(np.uint32).max)))
+    for _ in range(rounds):
+        key, sub = split(key)
+        x = x[np.argsort(random_bits(sub, x.shape), kind="stable")]
+    return x
+
+
+def choice(key: np.ndarray, n: int, shape, replace: bool = True) -> np.ndarray:
+    """``jax.random.choice(key, n, shape, replace)`` of an integer ``n``
+    (uniform): ``randint`` with replacement, else the first draws of
+    ``permutation``."""
+    count = int(np.prod(shape, dtype=np.int64))
+    if replace:
+        return randint(key, shape, 0, n)
+    if count > n:
+        raise ValueError(f"choice: {count} draws without replacement from {n}")
+    return permutation(key, n)[:count].reshape(shape)
+
+
+# float32 erf(-sqrt 2) and erf(sqrt 2) as XLA computes them: the uniform
+# bounds of a normal truncated to (-2, 2)
+_ERF_LO = np.array(3212073496, np.uint32).view(np.float32)
+_ERF_HI = np.array(1064589848, np.uint32).view(np.float32)
+
+
+def truncated_normal(key: np.ndarray, shape) -> np.ndarray:
+    """``jax.random.truncated_normal(key, -2, 2, shape, float32)``:
+    ``sqrt(2) erfinv(u)`` of a uniform ``u`` on ``[erf(-sqrt 2), erf(sqrt
+    2))``, clipped into the open interval."""
+    u = uniform(key, tuple(shape), _ERF_LO, _ERF_HI)
+    out = np.float32(np.sqrt(2)) * erfinv_f32(u)
+    lo = np.nextafter(np.float32(-2.0), np.float32(np.inf))
+    hi = np.nextafter(np.float32(2.0), np.float32(-np.inf))
+    return np.clip(out, lo, hi).astype(np.float32)

@@ -699,3 +699,91 @@ def test_process_mesh_matches_one_device(card, monkeypatch):
     want = pipe.process(audio, mesh=None, wire="f32", max_batch=2, pad_to_multiple=2).numpy()
     two = pipe.process(audio, mesh=ChunkMesh(("cuda:0", "cuda:0")), wire="f32").numpy()
     assert np.linalg.norm(two - want) / np.linalg.norm(want) <= chip_smoke.MESH_PROCESS_LIMIT
+
+
+# ---- the RNNoise, DeepFilterNet and DAC trainers ----
+
+@pytest.mark.parametrize("variant", ["DeepFilterNet2", "DeepFilterNet3"])
+def test_dfn_cudnn_gru_gradient_matches_a_step_loop(card, variant):
+    """One cuDNN GRU recurrence (``_torch_gru`` / DFN2's grouped form) on the
+    card: outputs and the gradients of its weights and input against a
+    step loop of plain operations, max |d| 1e-4 of the largest."""
+    import numpy as np
+
+    from egregora_tpu_torch.models.deepfilternet import model as D
+    from egregora_tpu_torch.models.rnnoise.train import trainable
+    from egregora_tpu_torch.ops.fir import exact_f32
+    params = trainable(D.init_params(0, D.DFNConfig.for_variant(variant)), "cuda")
+    p = params["df_dec"]["gru"]
+    x = torch.randn(3, 40, 256, generator=torch.Generator().manual_seed(2)).cuda().requires_grad_()
+    w = torch.linspace(-1, 1, 3 * 40 * 256, device="cuda").reshape(3, 40, 256)
+
+    def loop(k, r, b, xs):
+        u = r.shape[0]
+        h, out = xs.new_zeros(xs.shape[0], u), []
+        for t in range(xs.shape[1]):
+            xw, hw = xs[:, t] @ k + b, h @ r
+            z, rr = torch.sigmoid(xw[:, :u] + hw[:, :u]), torch.sigmoid(xw[:, u:2 * u] + hw[:, u:2 * u])
+            h = (1 - z) * torch.tanh(xw[:, 2 * u:] + rr * hw[:, 2 * u:]) + z * h
+            out.append(h)
+        return torch.stack(out, 1)
+
+    leaves = [p["kernel"], p["recurrent"], p["bias"], x]
+    with exact_f32():
+        got = D._torch_gru(p["kernel"], p["recurrent"], p["bias"], x)
+        g1 = torch.autograd.grad((got * w).sum(), leaves)
+        ref = loop(p["kernel"], p["recurrent"], p["bias"], x)
+        g2 = torch.autograd.grad((ref * w).sum(), leaves)
+    for a, b in zip((got,) + g1, (ref,) + g2):
+        assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())
+    seq = D._sequence_model(params, x[..., :256])
+    assert seq.requires_grad and np.isfinite(seq.detach().cpu().numpy()).all()
+
+
+def test_trainers_gradients_match_cpu(card):
+    """Each trainer's loss and gradient on the card against the CPU (float32,
+    ``chip_smoke.TRAINER_*`` limits), every leaf with a gradient."""
+    import numpy as np
+
+    from egregora_tpu_torch.models.deepfilternet import model as D
+    from egregora_tpu_torch.models.deepfilternet import train as dtr
+    from egregora_tpu_torch.models.rnnoise import model as R
+    from egregora_tpu_torch.models.rnnoise import train as rtr
+    noisy, clean, vad = rtr.synth_batch(np.random.default_rng(3), 4, 30)
+    batch = (chip_smoke.rn_lead_in(noisy), chip_smoke.rn_lead_in(clean), vad)
+    cases = [("rnnoise", rtr.loss_fn, R.init_params(1), batch)]
+    cases += [(v, dtr.loss_fn, D.init_params(1, D.DFNConfig.for_variant(v)), (noisy, clean))
+              for v in ("DeepFilterNet2", "DeepFilterNet3")]
+    for label, loss, params, b in cases:
+        r = chip_smoke.trainer_check(label, chip_smoke.tree_grads(loss, params, b, "cuda"),
+                                     chip_smoke.tree_grads(loss, params, b, "cpu"))
+        assert r["ok"], (label, r)
+
+
+def test_dac_rvq_only_step_decays_encoder_and_decoder(card, monkeypatch):
+    """One rvq-only step on the card (a decay large enough to show in
+    float32): every encoder and decoder weight shrinks by the decay alone,
+    as on the CPU; the quantizer moves."""
+    import dataclasses
+
+    from egregora_tpu_torch.models.dac import model as M
+    from egregora_tpu_torch.models.dac import train as dtr
+    from egregora_tpu_torch.models.flashsr import prng
+    from egregora_tpu_torch.models.optim import AdamChain
+    cfg = dataclasses.replace(dtr.distilled_config("16khz"), dtype=torch.float32)
+    monkeypatch.setattr(dtr, "make_optimizer", lambda m, lr, steps: AdamChain(
+        m.parameters(), 1e-2, steps, 0.1, clip=1.0, weight_decay=0.1))
+    models = {}
+    for dev in ("cuda", "cpu"):
+        m = M.DACModel(cfg).init_params(2).to(dev)
+        before = {n: p.detach().clone() for n, p in m.named_parameters()}
+        dtr._run_phase(m, "proj", dtr.proj_loss_fn, 1, 2, 4096, 1e-2, prng.prng_key(4), 1, 0,
+                       use_ema=True, rvq_only=True)
+        for n, p in m.named_parameters():
+            if n.startswith(("encoder.", "decoder.")):
+                assert torch.allclose(p.detach(), before[n] * (1 - 1e-2 * 0.1), rtol=1e-6, atol=0), n
+        assert not torch.equal(m.rvq.proj_in_0.weight.detach(), before["rvq.proj_in_0.weight"])
+        models[dev] = m
+    for (n, a), (_, b) in zip(models["cuda"].named_parameters(), models["cpu"].named_parameters()):
+        if n.startswith(("encoder.", "decoder.")):
+            assert torch.allclose(a.detach().cpu(), b.detach(), rtol=1e-6, atol=0), n

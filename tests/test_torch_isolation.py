@@ -1,5 +1,5 @@
 """The PyTorch port stands alone: no module of ``egregora_tpu_torch``,
-and not ``chip_smoke.py``, imports JAX, flax or the JAX package (the
+and not ``chip_smoke.py``, imports JAX, flax, optax or the JAX package (the
 machine with the card has none of them), and ``chip_smoke.py`` refuses
 to run without a CUDA card."""
 import os
@@ -15,12 +15,12 @@ import importlib, importlib.abc, pkgutil, sys
 
 class Block(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path=None, target=None):
-        if name.split(".")[0] in ("jax", "jaxlib", "flax", "egregora_tpu"):
+        if name.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "egregora_tpu"):
             raise ImportError("blocked: " + name)
         return None
 
 for name in list(sys.modules):
-    if name.split(".")[0] in ("jax", "jaxlib", "flax", "egregora_tpu"):
+    if name.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "egregora_tpu"):
         del sys.modules[name]
 sys.meta_path.insert(0, Block())
 import egregora_tpu_torch
@@ -91,7 +91,8 @@ def test_port_imports_without_jax():
             "egregora_tpu_torch.models.deepfilternet.train",
             "egregora_tpu_torch.models.dac.model", "egregora_tpu_torch.models.dac.train",
             "egregora_tpu_torch.models.flashsr.train", "egregora_tpu_torch.models.flashsr.prng",
-            "egregora_tpu_torch.parallel.mesh", "egregora_tpu_torch.parallel.multihost"} <= names
+            "egregora_tpu_torch.parallel.mesh", "egregora_tpu_torch.parallel.multihost",
+            "egregora_tpu_torch.models.optim"} <= names
     assert "unavailable" not in r.stdout      # the registry merged every node module
 
 

@@ -173,18 +173,27 @@ Phases, one line each on standard output:
    against float32 on the CPU (loss and each sub-model's gradient,
    relative, ``TRAIN_LOSS_LIMIT`` / ``TRAIN_GRAD_LIMITS``); the full config
    at batch 2 (hop 480, 256 mels) with ``attn_rows`` counted by shape in
-   the step; ``distill(steps=3)`` at its defaults into a temporary
-   directory; step time, the host's draws (data and noise), the card's
+   the step; ``distill(steps=3)`` at its defaults, written where the
+   trainer writes by default in a weights root of its own; step time, the host's draws (data and noise), the card's
    synthesis time and peak memory of each;
 21. the attention gradient (``attn_grad_phase``) at every training shape:
    the ``AttnRows`` backward against autograd through ``attn_rows_plain`` in
    float32 (dq, dk, dv relative L2 ``ATTN_GRAD_LIMIT``), beside the planted
    fault ``dS = P * dP`` (row term dropped), with its time and SDPA's
    backward at the same shape;
-22. ``distill_vocoder`` (``vocoder_distill_phase``) for 4 steps from the
-   shipped ``pretrained.npz``'s frozen VAE/UNet with the shipped istft
-   head's geometry, into a temporary directory, the frozen StudentUNet's
-   ``attn_rows`` counted;
+22. ``distill_vocoder`` (``vocoder_distill_phase``) for 4 steps at its
+   defaults in the same weights root: from the served HiFi-GAN trio's
+   frozen VAE/UNet, which is phase 20's, with the shipped istft head's
+   geometry, the frozen StudentUNet's ``attn_rows`` counted;
+22b. the trained trios served (``served_trained_phase``): the trio phase
+   20 distilled and the one phase 22 distilled, both at the trainers'
+   default paths in a weights root of their own, served by the upscaler
+   node through the resolver (``served_trio``: "distilled" and
+   "distilled-istft" from the trained files) on each ``NODE_PATHS`` path:
+   the launches counted (attn_rows, and the fused or rows MRF kernels),
+   the output equal to a pipeline built straight from the trained file
+   (``SERVED_SAME_ABS``; planted fault: the shipped file served), each
+   launch against its plain version on the inputs the path gave it;
 23. a checkpoint (``checkpoint_phase``) written at step 2 and read back
    exactly (weights, moments, count), then step 3 resumed against the run
    that went on (each parameter within ``RESUME_LR_SHARE`` of the lr);
@@ -224,13 +233,23 @@ Phases, one line each on standard output:
    (``DAC_DECAY_REL``), beside the planted fault of ``None`` gradients
    skipped as ``torch.optim`` skips them; ``gate_metrics`` of the three
    shipped codecs on the card against the CPU (``DAC_GATE_SNR_DB``),
-   printed beside the JAX test's record.  Phases 26-28 run in a temporary
-   ``EGREGORA_TPU_WEIGHTS``, launch no kernel, and hash every file under
-   ``egregora_tpu/`` before and after (equal);
-29. a JSON line ``{"kernels": [...]}`` of all six kernels, whose times
-   are the per-shape times of phases 2, 4 and 5 times the launches that
-   phases 7, 9, 10, 11, 12, 16, 19, 20 and 22 counted, and, last,
-   ``{"ok": true, ...}``.
+   printed beside the JAX test's record;
+28b. two guarded fine-tunes of the 44 kHz codec in a row
+   (``dac_guarded_phase``): the gate before and after, the decision
+   (``should_ship``) and the file written, which ``build_dac`` then serves
+   ("trained"); the second run (at an lr that wrecks the codec) judged
+   against what the first left served and writing nothing; planted fault:
+   a ``_guarded_ship`` that writes whatever the gate says.  Phases 26-28b
+   run in a temporary ``EGREGORA_TPU_WEIGHTS``, launch no kernel, and hash
+   every file under ``egregora_tpu/`` before and after (equal);
+29. the kernels' ``FLOP_LOG`` sums (``ops.attn_rows``, which
+   ``ops.attn_flash`` shares, ``ops.mrf_rows``, ``ops.conv_edge``) over
+   phases 2 and 5 and each path of 22b, each equal to the FLOPs this
+   script reckons for the launches counted in the same span
+   (``flop_check``); a JSON line ``{"kernels": [...]}`` of all six kernels,
+   whose times are the per-shape times of phases 2, 4 and 5 times the
+   launches that phases 7, 9, 10, 11, 12, 16, 19, 20, 22 and 22b counted,
+   and, last, ``{"ok": true, ...}``.
 
 Any failure exits non-zero and prints no ``"ok"`` line.  With no CUDA
 device it exits non-zero at once.
@@ -240,8 +259,10 @@ from __future__ import annotations
 import collections
 import json
 import math
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -1168,7 +1189,9 @@ def reference_phase() -> None:
 
 
 def reset_counts() -> None:
-    """Every kernel's launch counts to 0."""
+    """Every kernel's launch counts to 0, and the kernels' FLOP logs
+    (``FLOP_LOG`` of ``ops.attn_rows``, which ``ops.attn_flash`` shares,
+    ``ops.mrf_rows`` and ``ops.conv_edge``) emptied."""
     from egregora_tpu_torch.ops import attn_flash as af
     from egregora_tpu_torch.ops import attn_rows as ar
     from egregora_tpu_torch.ops import conv_edge as ce
@@ -1179,6 +1202,8 @@ def reset_counts() -> None:
         mod.launches = 0
         mod.launches_by_shape.clear()
     ce.launches_by_route.clear()
+    for mod in (ar, mr, ce):
+        mod.FLOP_LOG.clear()
 
 
 def read_counts() -> dict:
@@ -1196,6 +1221,69 @@ def read_counts() -> dict:
             "iir_lowpass": dict(il.launches_by_shape),
             "flash_online": dict(af.launches_by_shape),
             "conv3x3_out1": dict(ce.launches_by_shape)}
+
+
+def flop_check(phase: str, counts: dict) -> dict:
+    """The FLOP logs' sums since ``reset_counts`` against this script's
+    own FLOPs for the launches ``counts`` (``read_counts()``) holds since
+    the same reset: attention ``4 BH N^2 D`` (attn_rows and flash_online,
+    one log), ``mrf_flops`` a block (three launches, one a branch),
+    ``18 B F M C`` a K3 launch.  Every call of a wrapper on the card
+    launches its kernel, so they must be equal (to float rounding)."""
+    from egregora_tpu_torch.ops import attn_rows as ar
+    from egregora_tpu_torch.ops import conv_edge as ce
+    from egregora_tpu_torch.ops import mrf_rows as mr
+    got = {"attn_rows": float(sum(ar.FLOP_LOG)), "mrf_rows": float(sum(mr.FLOP_LOG)),
+           "conv3x3_out1": float(sum(ce.FLOP_LOG))}
+    want = {"attn_rows": sum(4.0 * bh * n * n * d * k for kernel in ("attn_rows", "flash_online")
+                             for (bh, n, d), k in counts[kernel].items()),
+            "mrf_rows": sum(k / len(MRF_KERNELS) * mrf_flops(c, t, b)
+                            for (b, c, t), k in counts["mrf_rows"].items()),
+            "conv3x3_out1": sum(18.0 * b * f * m * c * k
+                                for (b, f, m, c), k in counts["conv3x3_out1"].items())}
+    ok = all(abs(got[k] - want[k]) <= 1e-9 * max(want[k], 1.0) for k in got)
+    log(f"FLOP_LOG {phase}: " + "; ".join(f"{k} {got[k]:.6e} (reckoned {want[k]:.6e})"
+                                          for k in got) + (" equal" if ok else " DIFFERENT"))
+    if not ok:
+        raise RuntimeError(f"{phase}: the FLOP logs {got} differ from the launches' FLOPs {want}")
+    return {"flop_log": got, "reckoned": want}
+
+
+def flop_checked(phase: str, fn):
+    """``fn()`` between ``reset_counts`` and ``flop_check``; (its result,
+    the check)."""
+    reset_counts()
+    out = fn()
+    return out, flop_check(phase, read_counts())
+
+
+class weights_root:
+    """``EGREGORA_TPU_WEIGHTS`` set to ``root`` for the span and restored
+    after, with the upscaler node's cached pipeline dropped at both edges
+    (the cache, like the JAX node's, outlives a change of weights)."""
+
+    def __init__(self, root):
+        self.root = str(root)
+
+    def __enter__(self):
+        import os
+
+        from egregora_tpu_torch.nodes import super_resolution
+        self.prev = os.environ.get("EGREGORA_TPU_WEIGHTS")
+        os.environ["EGREGORA_TPU_WEIGHTS"] = self.root
+        super_resolution.EgregoraAudioSuperResolution._PIPE = None
+        return self
+
+    def __exit__(self, *exc):
+        import os
+
+        from egregora_tpu_torch.nodes import super_resolution
+        if self.prev is None:
+            os.environ.pop("EGREGORA_TPU_WEIGHTS", None)
+        else:
+            os.environ["EGREGORA_TPU_WEIGHTS"] = self.prev
+        super_resolution.EgregoraAudioSuperResolution._PIPE = None
+        return False
 
 
 def set_env(**values) -> None:
@@ -4111,13 +4199,12 @@ def train_run(label: str, cfg, batch: int, seed_key: int, steps: int, lr: float)
     return out
 
 
-def train_phase(card: str) -> dict:
+def train_phase(card: str, root: str) -> dict:
     """The distilled config at distill()'s defaults and the full config, on
     the card: falling loss, a gradient on every parameter (planted fault: the
-    detached attention), card against CPU, the trainer entry point."""
-    import tempfile
-    from pathlib import Path
-
+    detached attention), card against CPU, the trainer entry point (into
+    ``root`` as ``EGREGORA_TPU_WEIGHTS``, where ``served_trained_phase``
+    serves it)."""
     import torch
 
     from egregora_tpu_torch.models.flashsr import distill, pipeline as P
@@ -4182,14 +4269,15 @@ def train_phase(card: str) -> dict:
     res["full"] = full
     del full_mods
     torch.cuda.empty_cache()
-    # the trainer's entry point: distill() at its defaults for a few steps
-    with tempfile.TemporaryDirectory() as d:
+    # the trainer's entry point: distill() at its defaults for a few steps,
+    # written where the trainer writes by default
+    with weights_root(root):
         reset_counts()
         t0 = time.perf_counter()
-        m = distill.distill(steps=3, log_every=1, out_path=Path(d) / "pretrained.npz")
+        m = distill.distill(steps=3, log_every=1)
         wall = time.perf_counter() - t0
         counts = read_counts()["attn_rows"]
-        back = distill.load_pretrained_with_cfg(Path(d) / "pretrained.npz")
+        back = distill.load_pretrained_with_cfg(distill.weights_dir() / distill.PRETRAINED.name)
         if back is None or back[0] != distill.distilled_config():
             raise RuntimeError("distill(): the written trio does not load back")
     log(f"distill(steps=3) at its defaults: {wall:.1f} s with evaluate() of 4 chunks; "
@@ -4269,20 +4357,23 @@ def planted_backward(q, k, v, do, block: int = 256):
     return dq, dk, dv
 
 
-def vocoder_distill_phase() -> dict:
-    """distill_vocoder from the shipped pretrained.npz's frozen VAE/UNet with
-    the shipped istft head's geometry (hidden 256, depth 6, phase_cond,
-    exciter), a few steps, into a temporary directory."""
-    import tempfile
-    from pathlib import Path
-
+def vocoder_distill_phase(root: str) -> dict:
+    """distill_vocoder at its default paths in ``root`` (as
+    ``EGREGORA_TPU_WEIGHTS``): from the served HiFi-GAN trio's frozen
+    VAE/UNet, which is the trio phase 20 distilled there, with the shipped
+    istft head's geometry (hidden 256, depth 6, phase_cond, exciter), a few
+    steps, written where the trainer writes by default."""
     from egregora_tpu_torch.models.flashsr import distill
-    with tempfile.TemporaryDirectory() as d:
-        out = Path(d) / "pretrained_istft.npz"
+    with weights_root(root):
+        src = distill.served_trio(distill.PRETRAINED)
+        if src != distill.weights_dir() / distill.PRETRAINED.name:
+            raise RuntimeError(f"distill_vocoder: the served HiFi-GAN trio is {src}, not the "
+                               "one distill() wrote")
+        out = distill.weights_dir() / distill.PRETRAINED_ISTFT.name
         reset_counts()
         t0 = time.perf_counter()
         m = distill.distill_vocoder(steps=4, hidden=256, depth=6, phase_cond=True,
-                                    exciter=True, out_path=out)
+                                    exciter=True)
         wall = time.perf_counter() - t0
         counts = read_counts()["attn_rows"]
         back = distill.load_pretrained_with_cfg(out)
@@ -4292,10 +4383,159 @@ def vocoder_distill_phase() -> dict:
         raise RuntimeError(f"distill_vocoder: non-finite metrics {m}")
     if not counts:
         raise RuntimeError("distill_vocoder: the frozen StudentUNet launched no attn_rows")
-    log(f"distill_vocoder(steps=4, hidden 256, depth 6, phase_cond, exciter): {wall:.1f} s "
+    log(f"distill_vocoder(steps=4, hidden 256, depth 6, phase_cond, exciter) from {src}: "
+        f"{wall:.1f} s "
         f"with evaluate(); losses {m['loss_first']:.4f} -> {m['loss_last']:.4f}, LSD "
         f"{m['lsd_model']:.2f} dB, SI-SDR {m['sisdr_model']:.2f} dB; attn_rows {counts}")
     return {"wall_s": wall, "metrics": m, "attn_counts": counts}
+
+
+# the node's output against a pipeline built straight from the trained
+# file, max |d| (the same weights and code on the same card: equal; a node
+# that serves another file reads ~1e-1)
+SERVED_SAME_ABS = 1e-6
+
+
+def record_calls(module, name: str, calls: list):
+    """``module.name`` wrapped to keep the arguments of every call (the
+    kernels' inputs on a node path); returns the original."""
+    real = getattr(module, name)
+
+    def recording(*args):
+        calls.append(args)
+        return real(*args)
+
+    setattr(module, name, recording)
+    return real
+
+
+def served_kernel_checks(label: str, calls: dict) -> list:
+    """Each kernel launch recorded on a node path against its plain version
+    on the same inputs (launches made here are not counted: the path's
+    counts are read before)."""
+    import torch
+
+    from egregora_tpu_torch.ops import attn_rows as ar
+    from egregora_tpu_torch.ops import mrf_fused as mf
+    from egregora_tpu_torch.ops import mrf_rows as mr
+
+    rows = []
+    for q, k, v in calls["attn_rows"]:
+        ok, rel, err, limit = bf16_agreement(ar.attn_rows(q, k, v), ar.attn_rows_plain(q, k, v))
+        rows.append({"kernel": "attn_rows", "shape": list(q.shape), "ok": ok, "rel_l2": rel,
+                     "max_abs_err": err, "max_abs_limit": limit})
+    for x, w, b, kernels, dils in calls["mrf_fused_cm"]:
+        ok, rel, err, edge, limit = mrf_agreement(mf.mrf_fused_cm(x, w, b, kernels, dils),
+                                                  mf.mrf_fused_cm_plain(x, w, b, kernels, dils))
+        rows.append({"kernel": "mrf_fused_cm", "shape": list(x.shape), "ok": ok, "rel_l2": rel,
+                     "max_abs_err": max(err, edge), "max_abs_limit": limit})
+    for x, w, b, kernels, dils in calls["mrf_rows"]:
+        branches = mf.branch_weights(w, x.shape[-1], kernels, len(dils))
+        plain = sum(mr.mrf_branch_rows_plain(x, wb, b[i], dils)
+                    for i, wb in enumerate(branches)) / len(kernels)
+        got = mr.mrf_rows(x, w, b, kernels, dils)
+        ok, rel, err, edge, limit = mrf_agreement(got.transpose(1, 2), plain.transpose(1, 2))
+        rows.append({"kernel": "mrf_rows", "shape": list(x.shape), "ok": ok, "rel_l2": rel,
+                     "max_abs_err": max(err, edge), "max_abs_limit": limit})
+    torch.cuda.synchronize()
+    for r in rows:
+        log(f"served {label}: {r['kernel']} {r['shape']} against its plain version rel L2 "
+            f"{r['rel_l2']:.3e}, max|d| {r['max_abs_err']:.3e} (limit {r['max_abs_limit']:.3e}) "
+            f"{'ok' if r['ok'] else 'FAIL'}")
+    return rows
+
+
+def served_trained_phase(card: str, root: str) -> dict:
+    """Phase 22b: the trios phases 20 and 22 distilled on the card into
+    ``root`` (as ``EGREGORA_TPU_WEIGHTS``), served by the upscaler node
+    through the resolver on the seeded 12 s input, one-shot, on each path
+    of ``NODE_PATHS``: the trained HiFi-GAN trio ("distilled") with the
+    fused and the rows MRF kernels, the trained istft trio
+    ("distilled-istft") with its one attention.  Each path's launches
+    counted (and its FLOP logs held to them), its output held to a pipeline
+    built straight from the trained file (``SERVED_SAME_ABS``), beside the
+    planted fault of a resolver that reads only the shipped file (the
+    port before this phase existed), and each launch held to its plain
+    version on the inputs the path gave it."""
+    from pathlib import Path
+
+    import numpy as np
+    import torch
+
+    from egregora_tpu_torch.models.flashsr import distill
+    from egregora_tpu_torch.models.flashsr import pipeline as P
+    from egregora_tpu_torch.models.flashsr import vocoder as V
+    from egregora_tpu_torch.nodes import super_resolution
+    from egregora_tpu_torch.nodes.base import to_buffer
+    from egregora_tpu_torch.ops import attention
+
+    node_cls = super_resolution.NODE_CLASS_MAPPINGS["EgregoraAudioUpscaler"]
+    sr_in, sr_out = 16000, 48000
+    audio = {"waveform": torch.from_numpy(test_signal(SECONDS, sr_in, seed=0)[None]),
+             "sample_rate": sr_in}
+    results, failures = {}, []
+    with weights_root(root):
+        for label, variant, switches, per_item in NODE_PATHS:
+            name = "pretrained.npz" if variant == "hifigan" else "pretrained_istft.npz"
+            want = "distilled" if variant == "hifigan" else "distilled-istft"
+            label = "trained " + label
+            path = distill.served_trio(distill.SHIPPED_DIR / name)
+            if path != Path(root) / "flashsr" / name:
+                raise RuntimeError(f"{label}: the resolver serves {path}, not the trained file")
+            cfg, sd = distill.load_pretrained_with_cfg(path)
+            set_env(EGREGORA_FLASHSR_VARIANT=variant, **switches)
+            node_cls._PIPE = None
+            node = node_cls()
+            pipe = node._pipeline()
+            state = {n: m.state_dict() for n, m in pipe.modules.by_name().items()}
+            same = pipe.cfg == cfg and all(
+                torch.equal(v, sd[n][k].to(v.device, v.dtype)) for n in state
+                for k, v in state[n].items())
+            if pipe.weight_source != want or pipe.device.type != "cuda" or not same:
+                raise RuntimeError(f"{label}: the node serves {pipe.weight_source} on "
+                                   f"{pipe.device} (the trained file's weights: {same})")
+            calls = {"attn_rows": [], "mrf_fused_cm": [], "mrf_rows": []}
+            reals = [(attention, "attn_rows", record_calls(attention, "attn_rows",
+                                                           calls["attn_rows"]))]
+            reals += [(V, k, record_calls(V, k, calls[k])) for k in ("mrf_fused_cm", "mrf_rows")]
+            reset_counts()
+            try:
+                (out,) = node.run(audio, lowpass_input=False, output_sr=str(sr_out))
+                torch.cuda.synchronize()
+            finally:
+                for mod, k, real in reals:
+                    setattr(mod, k, real)
+            counts = read_counts()
+            flops = flop_check(label, counts)
+            expect = expected_counts(per_item, BATCH, 1)
+            if counts != expect:
+                raise RuntimeError(f"{label}: launches {counts}, expected {expect}")
+            got = out["waveform"].numpy()[0]
+            direct = P.FlashSRPipeline(cfg, params=sd, device="cuda")
+            ref = direct.process(to_buffer(audio), lowpass_input=False, output_sr=sr_out).numpy()
+            shipped_cfg, shipped_sd = distill.load_pretrained_with_cfg(distill.SHIPPED_DIR / name)
+            wrong = P.FlashSRPipeline(shipped_cfg, params=shipped_sd, device="cuda").process(
+                to_buffer(audio), lowpass_input=False, output_sr=sr_out).numpy()
+            err = float(np.abs(got - ref).max())
+            bad = float(np.abs(wrong - ref).max())
+            kernels = served_kernel_checks(label, calls)
+            log(f"served {label} ({want} from {path}): one-shot launches {counts}; node vs the "
+                f"trained file's pipeline max|d| {err:.3e} (limit {SERVED_SAME_ABS:g}) "
+                f"{'ok' if err <= SERVED_SAME_ABS else 'FAIL'}; planted fault (the shipped "
+                f"file served) {bad:.3e} {'rejected' if bad > SERVED_SAME_ABS else 'NOT REJECTED'}")
+            if not (got.shape == ref.shape and np.isfinite(got).all() and err <= SERVED_SAME_ABS):
+                failures.append(f"{label}: the node's output is {err} from the trained file's")
+            if not bad > SERVED_SAME_ABS:
+                failures.append(f"{label}: the served-file limit does not reject the shipped file")
+            failures += [f"{label}: {r['kernel']} {r['shape']} disagrees with its plain version"
+                         for r in kernels if not r["ok"]]
+            results[label] = {"counts": counts, "flops": flops, "max_abs_vs_trained_file": err,
+                              "planted_max_abs": bad, "kernels": kernels}
+            del direct
+    set_env(EGREGORA_FLASHSR_VARIANT=None, EGREGORA_FUSED_VOCODER=None, EGREGORA_MRF_PATH=None)
+    if failures:
+        raise RuntimeError("; ".join(failures))
+    return results
 
 
 def checkpoint_phase() -> dict:
@@ -4994,6 +5234,145 @@ def dac_train_phase(card: str) -> dict:
     return out
 
 
+# the guarded DAC runs (``dac_guarded_phase``): a few fine-tune steps at
+# the JAX CLI's fine-tune lr, then a run at an lr that wrecks the codec
+# (Adam moves every weight by ~lr a step), which must not ship
+DAC_GUARD_STEPS, DAC_GUARD_LR, DAC_GUARD_BAD_LR = 4, 5e-5, 1e-2
+# a gate read on the shipped float16 file against the same codec's gate
+# read in float32 before it was written, dB (and LSD dB): the float16
+# round trip of the weights; an unshipped incumbent reads the same file
+DAC_GUARD_F16_DB = 0.1
+
+
+def file_digest(path) -> str:
+    """SHA-256 of a file's bytes, or "absent"."""
+    import hashlib
+    from pathlib import Path
+    p = Path(path)
+    return hashlib.sha256(p.read_bytes()).hexdigest() if p.exists() else "absent"
+
+
+def always_ship(model_type: str, before: dict, model, out=None) -> bool:
+    """A planted fault of ``_guarded_ship``: the candidate is written
+    whatever the gate says."""
+    from egregora_tpu_torch.models.dac import train as dtr
+    after = dtr.gate_metrics(model)
+    print(f"[dac-guarded:{model_type}] AFTER  gate: {after}", flush=True)
+    dtr.save_pretrained(model, dtr.output_path(model_type, out), cfg=model.cfg)
+    return True
+
+
+def dac_guarded_phase(card: str) -> dict:
+    """Phase 28b, in the trainers' temporary ``EGREGORA_TPU_WEIGHTS``: two
+    guarded fine-tunes of the 44 kHz codec in a row on the card.  The first
+    (``DAC_GUARD_STEPS`` steps at ``DAC_GUARD_LR``) is judged against the
+    shipped codec and writes ``output_path`` exactly where ``should_ship``
+    says so; ``build_dac`` then serves what it wrote ("trained"), or still
+    the shipped codec.  The second (2 steps at ``DAC_GUARD_BAD_LR``) is
+    judged against what the first left served (its "before" within
+    ``DAC_GUARD_F16_DB`` of the first's "after" where the first shipped, of
+    its "before" where not) and must write nothing.  The planted fault, a
+    ``_guarded_ship`` that writes whatever the gate says, must be caught by
+    the same checks on the second run."""
+    from egregora_tpu_torch.models.dac import model as M
+    from egregora_tpu_torch.models.dac import train as dtr
+    from egregora_tpu_torch.nodes.enhance_extras import Egregora_DAC_Encode
+
+    mt = "44khz"
+    path = dtr.output_path(mt)
+    before_pkg = package_digest()
+    gates = []
+    real_gate, real_ship = dtr.gate_metrics, dtr._guarded_ship
+
+    def recording(model):
+        gates.append(real_gate(model))
+        return gates[-1]
+
+    def guarded(steps: int, lr: float):
+        gates.clear()
+        shipped, wall = synced_wall(lambda: dtr.guarded_finetune(
+            mt, steps=steps, batch=8, length=16384, lr=lr, seed=10, scan_size=1))
+        return shipped, wall, list(gates)
+
+    def served():
+        M._CACHE.pop(mt, None)
+        Egregora_DAC_Encode._MODELS.pop(mt, None)
+        return M.build_dac(mt)[0]
+
+    def near(a: dict, b: dict) -> float:
+        return max(abs(a[k] - b[k]) for k in ("mean_snr", "worst_snr", "mean_lsd"))
+
+    def second_run_faults(shipped: bool, gate_before: dict, digest: str, ref: dict) -> list:
+        out = []
+        if shipped:
+            out.append("the second run shipped a wrecked codec")
+        if file_digest(path) != digest:
+            out.append(f"the second run wrote {path}")
+        if near(gate_before, ref) > DAC_GUARD_F16_DB:
+            out.append(f"the second run's incumbent reads {gate_before}, not {ref}")
+        return out
+
+    dtr.gate_metrics = recording
+    try:
+        if served().weight_source != "shipped":
+            raise RuntimeError("dac guarded: a trained codec is served before any guarded run")
+        ship1, wall1, (before1, after1) = guarded(DAC_GUARD_STEPS, DAC_GUARD_LR)
+        faults = []
+        if ship1 != dtr.should_ship(before1, after1) or path.exists() != ship1:
+            faults.append(f"the first run's decision {ship1} and file ({path.exists()}) disagree "
+                          f"with should_ship {dtr.should_ship(before1, after1)}")
+        model = served()
+        want = "trained" if ship1 else "shipped"
+        if model.weight_source != want:
+            faults.append(f"build_dac serves {model.weight_source}, not {want}")
+        if ship1 and not same_tree(dtr.params_tree(model), dtr.load_pretrained(mt, path)[1]):
+            faults.append("build_dac's codec is not the file the first run wrote")
+        digest = file_digest(path)
+        ref = after1 if ship1 else before1
+        ship2, wall2, (before2, after2) = guarded(2, DAC_GUARD_BAD_LR)
+        faults += second_run_faults(ship2, before2, digest, ref)
+        kept = file_digest(path) == digest
+        dtr._guarded_ship = always_ship
+        try:
+            bad_ship, _, (bad_before, bad_after) = guarded(2, DAC_GUARD_BAD_LR)
+        finally:
+            dtr._guarded_ship = real_ship
+        caught = second_run_faults(bad_ship, bad_before, digest, ref)
+    finally:
+        dtr.gate_metrics = real_gate
+        M._CACHE.pop(mt, None)
+        Egregora_DAC_Encode._MODELS.pop(mt, None)
+    after_pkg = package_digest()
+
+    def fmt(g):
+        return f"{g['mean_snr']:+.3f} / {g['worst_snr']:+.3f} dB, LSD {g['mean_lsd']:.3f} dB"
+
+    log(f"dac guarded run 1 (44khz, {DAC_GUARD_STEPS} steps at lr {DAC_GUARD_LR:g}, batch 8 x "
+        f"16384) on {card}: gate before {fmt(before1)}, after {fmt(after1)}; "
+        f"{'SHIPPED' if ship1 else 'not shipped'} in {wall1:.2f} s; build_dac serves "
+        f"{model.weight_source} ({path if ship1 else 'the shipped file'})")
+    log(f"dac guarded run 2 (2 steps at lr {DAC_GUARD_BAD_LR:g}): gate before {fmt(before2)} "
+        f"(run 1's {'after' if ship1 else 'before'} {fmt(ref)}: max |d| {near(before2, ref):.2e}, "
+        f"limit {DAC_GUARD_F16_DB:g}), after {fmt(after2)}; "
+        f"{'SHIPPED' if ship2 else 'not shipped'} in {wall2:.2f} s; {path.name} "
+        f"{('still absent' if digest == 'absent' else 'unchanged') if kept else 'CHANGED'}"
+        f"; planted fault "
+        f"(_guarded_ship writes whatever the gate says): "
+        f"{'rejected: ' + '; '.join(caught) if caught else 'NOT REJECTED'}; egregora_tpu/ "
+        f"sha256 {before_pkg[:16]} before, {after_pkg[:16]} after")
+    if not caught:
+        faults.append("the guarded-run checks do not reject the always-ship fault")
+    if after_pkg != before_pkg:
+        faults.append("a file under egregora_tpu/ changed")
+    if faults:
+        raise RuntimeError("dac guarded: " + "; ".join(faults))
+    no_launches("dac guarded")
+    return {"run1": {"before": before1, "after": after1, "shipped": ship1, "wall_s": wall1,
+                     "served": model.weight_source},
+            "run2": {"before": before2, "after": after2, "shipped": ship2, "wall_s": wall2},
+            "planted_caught": caught}
+
+
 def trainers_phase(card: str) -> dict:
     """Phases 26-28 in a temporary ``EGREGORA_TPU_WEIGHTS``, with the JAX
     package's files hashed before and after (equal)."""
@@ -5015,6 +5394,9 @@ def trainers_phase(card: str) -> dict:
         t0 = time.perf_counter()
         out["dac"] = dac_train_phase(card)
         out["dac"]["phase_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out["dac_guarded"] = dac_guarded_phase(card)
+        out["dac_guarded"]["phase_s"] = time.perf_counter() - t0
         written = sorted(str(p.relative_to(tmp)) for p in Path(tmp).rglob("*") if p.is_file())
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -5024,7 +5406,8 @@ def trainers_phase(card: str) -> dict:
             os.environ["EGREGORA_TPU_WEIGHTS"] = prev
     after = package_digest()
     log(f"trainers: phases {out['rnnoise']['phase_s']:.1f} / {out['deepfilternet']['phase_s']:.1f}"
-        f" / {out['dac']['phase_s']:.1f} s; files written under the temporary weights dir: "
+        f" / {out['dac']['phase_s']:.1f} / {out['dac_guarded']['phase_s']:.1f} s; files written "
+        f"under the temporary weights dir: "
         f"{written or 'none'}; egregora_tpu/ sha256 {before[:16]} before, {after[:16]} after")
     if after != before:
         raise RuntimeError("trainers: a file under egregora_tpu/ changed")
@@ -5064,11 +5447,12 @@ def main() -> int:
     ptxas = ptxas_report()
     mrf_ptxas = mrf_ptxas_report()
     edge_ptxas = edge_ptxas_report()
-    attn_rows_ = attention_phase()
-    mrf_rows_ = mrf_phase()
+    flops = {}
+    attn_rows_, flops["attention"] = flop_checked("attention phase", attention_phase)
+    mrf_rows_, flops["mrf"] = flop_checked("mrf phase", mrf_phase)
     repair = repair_phase()
     k4_rows = k4_phase()
-    edge = edge_kernels_phase()
+    edge, flops["edge kernels"] = flop_checked("edge kernels phase", edge_kernels_phase)
     reference_phase()
     nodes = node_phase()
     served_reference_phase()
@@ -5081,12 +5465,19 @@ def main() -> int:
     dfn = dfn_phase(card)
     dac = dac_phase(card)
     entry = entry_phase(card)
-    trained = train_phase(card)
-    train_attn = collections.Counter()
-    for key in ("distilled", "full"):
-        train_attn.update(trained[key]["attn_counts_all"])
-    attn_grads = attn_grad_phase(set(train_attn))
-    voc_distill = vocoder_distill_phase()
+    # phases 20 and 22 write where the trainers write by default, in a
+    # weights root of their own, which 22b serves through the node
+    trained_root = tempfile.mkdtemp(prefix="egregora_trained_")
+    try:
+        trained = train_phase(card, trained_root)
+        train_attn = collections.Counter()
+        for key in ("distilled", "full"):
+            train_attn.update(trained[key]["attn_counts_all"])
+        attn_grads = attn_grad_phase(set(train_attn))
+        voc_distill = vocoder_distill_phase(trained_root)
+        served = served_trained_phase(card, trained_root)
+    finally:
+        shutil.rmtree(trained_root, ignore_errors=True)
     resumed = checkpoint_phase()
     evaluated = evaluate_phase()
     meshed = mesh_phase()
@@ -5117,6 +5508,12 @@ def main() -> int:
     for label, counts in trainer_attn.items():
         attn_counts.update(counts)
         attn_paths[label] = sum(counts.values())
+    served_fused, served_rows = collections.Counter(), collections.Counter()
+    for label, r in served.items():
+        attn_counts.update(r["counts"]["attn_rows"])
+        attn_paths[f"served: {label}"] = sum(r["counts"]["attn_rows"].values())
+        served_fused.update(r["counts"]["mrf_fused_cm"])
+        served_rows.update(r["counts"]["mrf_rows"])
     gen = torch.Generator().manual_seed(1)
     heads = SERVED_ATTN[0]          # the istft trio's one attention block
     measured = {(r["bh"], r["n"], r["d"]) for r in attn_rows_}
@@ -5145,14 +5542,16 @@ def main() -> int:
     k1b_counts = labs["attn_flash_lab"]["counts"]["flash_online"]
     k3_counts = labs["edge_conv_lab"]["counts"]["conv3x3_out1"]
     kernels = [attn_entry(attn_rows_, dict(attn_counts), attn_paths),
-               mrf_entry("mrf_fused_cm", mrf_rows_, dict(fused + entry_fused),
+               mrf_entry("mrf_fused_cm", mrf_rows_, dict(fused + entry_fused + served_fused),
                          {"HiFi-GAN trio, fused MRF": sum(fused.values()) - sum(conv_fused.values()),
                           "converted trio, fused MRF": sum(conv_fused.values()),
-                          **entry_fused_paths}),
-               mrf_entry("mrf_rows", mrf_rows_, dict(rows + entry_rows),
+                          **entry_fused_paths,
+                          "served: trained HiFi-GAN trio, fused MRF": sum(served_fused.values())}),
+               mrf_entry("mrf_rows", mrf_rows_, dict(rows + entry_rows + served_rows),
                          {"HiFi-GAN trio, rows MRF": sum(rows.values()) - sum(conv_rows.values()),
                           "converted trio, rows MRF": sum(conv_rows.values()),
-                          **entry_rows_paths}),
+                          **entry_rows_paths,
+                          "served: trained HiFi-GAN trio, rows MRF": sum(served_rows.values())}),
                iir_entry(k4_rows, dict(k4_counts), k4_paths),
                edge_entry("flash_online", edge["flash_online"], k1b_counts,
                           {"attn_flash_lab": sum(k1b_counts.values())}),
@@ -5208,7 +5607,17 @@ def main() -> int:
          "dac": {k: trainers["dac"][k] for k in ("train", "steps", "finetune_wall_s",
                                                   "rvq_only_decay", "phase_s")},
          "dac_gate": {mt: {"card": g["card"], "cpu": g["cpu"]}
-                      for mt, g in trainers["dac"]["gates"].items()}}, default=str))
+                      for mt, g in trainers["dac"]["gates"].items()},
+         "dac_guarded": {k: trainers["dac_guarded"][k] for k in ("run1", "run2", "phase_s")}},
+        default=str))
+    log(f"served trained trios on {card}: " + json.dumps(
+        {label: {k: r[k] for k in ("max_abs_vs_trained_file", "planted_max_abs")}
+         for label, r in served.items()}))
+    for label, r in served.items():
+        flops[label] = r["flops"]
+    log("FLOP_LOG against the launches' FLOPs: " + json.dumps(
+        {phase: {k: [f["flop_log"][k], f["reckoned"][k]] for k in f["flop_log"]}
+         for phase, f in flops.items()}))
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
     log(card)
     print(json.dumps({"kernels": kernels}), flush=True)

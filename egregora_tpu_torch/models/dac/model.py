@@ -29,9 +29,10 @@ key for key.
 
 ``build_dac`` resolves weights per model type, cached: a converted
 checkpoint at ``utils.weights.weights_dir() / f"dac_{type}.npz"`` (the
-JAX package's ``save_params`` layout) first, then the JAX package's
-shipped compact codec (``train.load_pretrained``), else a seeded random
-init with a warning.  ``DACModel.init_params(seed)`` is flax's init of the
+JAX package's ``save_params`` layout) first, then the codec a guarded run
+of the port shipped (``train.output_path``), then the JAX package's
+shipped compact codec (``train.load_pretrained`` serves those two), else a
+seeded random init with a warning.  ``DACModel.init_params(seed)`` is flax's init of the
 JAX package's modules, draw for draw (``flax_init``), so a from-scratch
 training run starts from the JAX package's weights.
 
@@ -373,13 +374,15 @@ _CACHE: Dict[str, Tuple[DACModel, int]] = {}
 
 def build_dac(model_type: str = "44khz", seed: int = 0) -> Tuple[DACModel, int]:
     """(model on the CPU, sample rate) per model type, cached: a converted
-    checkpoint at ``weights_dir() / f"dac_{model_type}.npz"`` first, then
-    the shipped compact codec, else seeded random weights with a warning."""
+    checkpoint at ``weights_dir() / f"dac_{model_type}.npz"`` first
+    ("converted"), then the trained codec at ``train.output_path``
+    ("trained"), then the shipped compact codec ("shipped"), else seeded
+    random weights with a warning ("random")."""
     if model_type not in MODEL_TYPES:
         raise ValueError(f"unknown DAC model_type {model_type!r}")
     if model_type not in _CACHE:
         from ...utils.weights import load_params, weights_dir
-        from .train import load_pretrained
+        from .train import PRETRAINED, load_pretrained, served_path
 
         cfg = MODEL_TYPES[model_type]
         cache = weights_dir() / f"dac_{model_type}.npz"
@@ -387,11 +390,13 @@ def build_dac(model_type: str = "44khz", seed: int = 0) -> Tuple[DACModel, int]:
             model = DACModel(cfg).load_jax(load_params(cache))
             model.weight_source = "converted"
         else:
-            shipped = load_pretrained(model_type)
-            if shipped is not None:        # in-repo distilled compact codec
+            served = served_path(model_type)
+            shipped = load_pretrained(model_type, served)
+            if shipped is not None:        # the trained, else the in-repo, compact codec
                 cfg, tree = shipped
                 model = DACModel(cfg).load_jax(tree)
-                model.weight_source = "shipped"
+                model.weight_source = ("shipped" if served == PRETRAINED[model_type]
+                                       else "trained")
             else:
                 print(f"[egregora] WARNING: no DAC weights for {model_type!r} (no "
                       f"converted checkpoint at {cache} and no shipped distilled "

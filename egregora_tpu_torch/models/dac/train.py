@@ -36,11 +36,15 @@ worst roundtrip SNR, mean LSD) moves toward ``TARGETS``
 (``should_ship``).
 
 The JAX package ships its codecs as
-``egregora_tpu/models/dac/pretrained_{44,24,16}khz.npz``: ``load_pretrained``
-reads them in place.  This trainer writes its candidates and mid-run
-checkpoints (``.ckpt.npz``) under ``weights_dir() / "dac"`` (or
-``--out``), never into the JAX package; ``load_pretrained(model_type,
-path)`` reads such a file.
+``egregora_tpu/models/dac/pretrained_{44,24,16}khz.npz``.  This trainer
+writes its candidates and mid-run checkpoints (``.ckpt.npz``) under
+``weights_dir() / "dac"`` (or ``--out``), never into the JAX package.
+``load_pretrained(model_type)`` serves ``served_path(model_type)``: the
+codec a guarded run shipped to ``output_path`` where there is one, else
+the shipped file in place.  So ``build_dac``, ``finetune`` and the next
+guarded run's incumbent read what the last guarded run shipped, as in the
+JAX package, whose guarded runs overwrite the shipped file;
+``load_pretrained(model_type, path)`` reads any such file.
 
     python -m egregora_tpu_torch.models.dac.train [--model-type 44khz]
         [--steps 2000 --batch 8 --length 16384 --lr 3e-4 --seed 0 --scan 1]
@@ -431,6 +435,13 @@ def output_path(model_type: str, out: Optional[Path] = None) -> Path:
     return weights_dir() / "dac" / f"pretrained_{model_type}.npz"
 
 
+def served_path(model_type: str, out: Optional[Path] = None) -> Path:
+    """The codec served for ``model_type``: ``output_path(model_type, out)``
+    where a guarded run shipped one, else the shipped file."""
+    from ...utils.weights import served_file
+    return served_file(output_path(model_type, out), PRETRAINED[model_type])
+
+
 def params_tree(model: DACModel) -> Dict:
     """The codec's parameters as the JAX package's tree (numpy)."""
     from ...utils.weights import flax_tree
@@ -475,10 +486,11 @@ def train(cfg: DACConfig = None, steps: int = 2000, batch: int = 8, length: int 
     return model, params_tree(model)
 
 
-def shipped_model(model_type: str, device="cuda") -> DACModel:
-    """The shipped codec of ``model_type`` as a float32-parameter
-    ``DACModel`` on ``device`` (its geometry from the file)."""
-    shipped = load_pretrained(model_type)
+def shipped_model(model_type: str, device="cuda", out: Optional[Path] = None) -> DACModel:
+    """The served codec of ``model_type`` (``served_path(model_type,
+    out)``) as a float32-parameter ``DACModel`` on ``device`` (its geometry
+    from the file)."""
+    shipped = load_pretrained(model_type, served_path(model_type, out))
     if shipped is None:
         raise FileNotFoundError(f"no shipped weights for {model_type}")
     cfg, tree = shipped
@@ -489,12 +501,13 @@ def finetune(model_type: str = "44khz", steps: int = 6000, batch: int = 8,
              length: int = 16384, lr: float = 5e-5, seed: int = 10, scan_size: int = 1,
              log_every: int = 100, stft_w: float = 0.25, lsd_w: float = 0.0,
              stft_w_end: float = 0.0, device="cuda", out: Optional[Path] = None):
-    """The VQ phase continued from the shipped codec with a fresh low-lr
-    optimizer and EMA state from the loaded codebooks; checkpoints to
-    ``output_path(model_type, out)``'s ``.ckpt.npz`` sibling.  Returns
-    ``(model, params)``."""
-    model = shipped_model(model_type, device)
-    print(f"[dac-finetune:{model_type}] resuming from {PRETRAINED[model_type]}", flush=True)
+    """The VQ phase continued from the served codec (``served_path(
+    model_type, out)``) with a fresh low-lr optimizer and EMA state from the
+    loaded codebooks; checkpoints to ``output_path(model_type, out)``'s
+    ``.ckpt.npz`` sibling.  Returns ``(model, params)``."""
+    model = shipped_model(model_type, device, out)
+    print(f"[dac-finetune:{model_type}] resuming from {served_path(model_type, out)}",
+          flush=True)
     ev = make_eval_snr(model, length=min(length, model.cfg.sample_rate))
     ckpt = output_path(model_type, out).with_suffix(".ckpt.npz")
     _run_phase(model, "ft", functools.partial(ema_loss_fn, lsd_w=lsd_w), steps, batch, length,
@@ -589,9 +602,10 @@ def guarded_finetune(model_type: str, steps: int, batch: int, length: int, lr: f
                      seed: int, scan_size: int, stft_w: float = 0.25, lsd_w: float = 0.0,
                      stft_w_end: float = 0.0, device="cuda", out: Optional[Path] = None
                      ) -> bool:
-    """Fine-tune the shipped codec; write the candidate only where the
-    four-draw gate improves (``should_ship``).  True where it was written."""
-    before = gate_metrics(shipped_model(model_type, device))
+    """Fine-tune the served codec; write the candidate to ``output_path``
+    only where the four-draw gate improves on it (``should_ship``).  True
+    where it was written."""
+    before = gate_metrics(shipped_model(model_type, device, out))
     print(f"[dac-guarded:{model_type}] BEFORE gate: {before}", flush=True)
     model, _ = finetune(model_type=model_type, steps=steps, batch=batch, length=length, lr=lr,
                         seed=seed, scan_size=scan_size, stft_w=stft_w, lsd_w=lsd_w,
@@ -605,11 +619,11 @@ def guarded_retrain(model_type: str, steps: int, batch: int, length: int, lr: fl
                     stft_w: float = 0.25, lsd_w: float = 0.0, stft_w_end: float = 0.0,
                     device="cuda", out: Optional[Path] = None) -> bool:
     """A from-scratch retrain at an (optionally) widened geometry, written
-    only where the gate improves on the shipped codec (always where there
+    only where the gate improves on the served codec (always where there
     is none).  True where it was written."""
     before = None
-    if load_pretrained(model_type) is not None:
-        before = gate_metrics(shipped_model(model_type, device))
+    if load_pretrained(model_type, served_path(model_type, out)) is not None:
+        before = gate_metrics(shipped_model(model_type, device, out))
         print(f"[dac-guarded:{model_type}] BEFORE gate: {before}", flush=True)
     cfg = distilled_config(model_type)
     if encoder_dim:
@@ -656,13 +670,14 @@ def save_pretrained(params, path: Path, cfg: DACConfig = None) -> None:
 
 
 def load_pretrained(model_type: str = "44khz", path: Optional[Path] = None):
-    """(config, parameter tree of float32 numpy arrays) of the shipped
-    compact codec (or of the file at ``path``), or None where it is
-    missing."""
+    """(config, parameter tree of float32 numpy arrays) of the served
+    compact codec (``served_path``; or of the file at ``path``), or None
+    where it is missing."""
     from ...utils.weights import unflatten
 
-    path = PRETRAINED.get(model_type) if path is None else Path(path)
-    if path is None or not path.exists():
+    if path is None and model_type in PRETRAINED:
+        path = served_path(model_type)
+    if path is None or not Path(path).exists():
         return None
     with np.load(path) as z:
         files = list(z.files)

@@ -16,9 +16,10 @@ on numpy ``synth_batch`` batches.  The variant's topology comes from
 ``DFNConfig.for_variant``: DFN2's grouped GRU, DFN3's squeezed GRU.
 
 The JAX package ships one weight set a variant in
-``egregora_tpu/models/deepfilternet/``; ``load_pretrained`` reads them in
-place.  This trainer writes under ``weights_dir() / "deepfilternet"`` (or
-``--out``), never into the JAX package.
+``egregora_tpu/models/deepfilternet/``.  This trainer writes under
+``weights_dir() / "deepfilternet"`` (or ``--out``), never into the JAX
+package; ``load_pretrained`` (and so the node) serves that file where it
+exists (``served_path``), else the shipped one in place.
 
     python -m egregora_tpu_torch.models.deepfilternet.train
         [--variant DeepFilterNet2|DeepFilterNet3] [--steps 1500] [--batch 4]
@@ -107,10 +108,17 @@ def pretrained_path(variant: str = "DeepFilterNet2") -> Path:
     return SHIPPED_DIR / name
 
 
+def served_path(variant: str = "DeepFilterNet2") -> Path:
+    """The weights the node serves for ``variant``: ``output_path(variant)``
+    where the trainer wrote it, else the shipped file."""
+    from ...utils.weights import served_file
+    return served_file(output_path(variant), pretrained_path(variant))
+
+
 def load_pretrained(variant: str = "DeepFilterNet2") -> Dict | None:
-    """The variant's shipped weights as a nested dict of numpy arrays, or
-    None where the file is missing."""
-    p = pretrained_path(variant)
+    """The variant's served weights (``served_path``) as a nested dict of
+    numpy arrays, or None where the file is missing."""
+    p = served_path(variant)
     if not p.exists():
         return None
     from ...utils.weights import load_params

@@ -12,6 +12,9 @@ waveforms are synthesised on the card, and the JAX key schedule
 (``fold_in`` a step, then ``split``), so the same flags draw the same
 data.  Output goes to ``weights_dir()`` unless ``out_path`` says
 otherwise; nothing is ever written into the JAX package's shipped files.
+What a trainer writes there is what the resolver serves next
+(``served_trio``), so that training and serving form one loop as in the
+JAX package, whose trainers overwrite the shipped files themselves.
 
 Reference checkpoints: the three ``.pth`` files of upstream FlashSR
 (``vae.pth``, ``student_ldm.pth``, ``sr_vocoder.pth``) in
@@ -27,9 +30,10 @@ resolver makes one first-use download attempt (``utils.fetch``; off under
 Shipped trios: the JAX package ships two distilled trios as data files, ``pretrained_istft.npz`` (the
 served default: phase-conditioned exciter ``SpectralVocoder``) and
 ``pretrained.npz`` (the HiFi-GAN ``SRVocoder``).  The port reads them in
-place, by path, from the checkout: flat ``/``-joined flax keys, float16
-values cast to float32, and a ``__config__`` JSON entry with the
-geometry.  ``utils.weights.params_from_jax`` maps them onto the port's
+place, by path, from the checkout, unless a trainer of the port wrote
+a trio of the same name under ``weights_dir()``: flat ``/``-joined flax
+keys, float16 values cast to float32, and a ``__config__`` JSON entry with
+the geometry.  ``utils.weights.params_from_jax`` maps them onto the port's
 modules, key for key.
 """
 from __future__ import annotations
@@ -47,7 +51,7 @@ from ...utils.fetch import (FLASHSR_FILES as CONVERTED_FILES, FETCHED, auto_fetc
                             fetched_files, missing_flashsr_files)
 from ...utils.weights import (convert_state_dict, flax_tree, load_params,
                               load_torch_state_dict, params_from_jax, save_params,
-                              unflatten)
+                              served_file, unflatten)
 from . import prng
 from .geometry import infer_flashsr_config
 from .mel import log_mel
@@ -133,6 +137,13 @@ def load_pretrained_with_cfg(path: Path = PRETRAINED
     return cfg, params_from_jax(cfg, tree)
 
 
+def load_pretrained(path: Optional[Path] = None) -> Optional[StateDicts]:
+    """The state dicts of the trio at ``path`` (default: the served
+    HiFi-GAN trio, ``served_trio(PRETRAINED)``), or None if it is absent."""
+    out = load_pretrained_with_cfg(served_trio(PRETRAINED) if path is None else path)
+    return None if out is None else out[1]
+
+
 def weights_dir() -> Path:
     """The converted-checkpoint root the JAX package reads:
     ``EGREGORA_TPU_WEIGHTS``, else ``~/.cache/egregora_tpu/weights``;
@@ -140,6 +151,13 @@ def weights_dir() -> Path:
     env = os.environ.get("EGREGORA_TPU_WEIGHTS")
     root = Path(env) if env else Path.home() / ".cache" / "egregora_tpu" / "weights"
     return root / "flashsr"
+
+
+def served_trio(shipped: Path) -> Path:
+    """The trio file the resolver serves for a shipped trio: the copy the
+    port's trainer wrote under ``weights_dir()`` (same name) where it
+    exists, else the shipped file."""
+    return served_file(weights_dir() / Path(shipped).name, shipped)
 
 
 def convert_flashsr_trio(cfg: FlashSRConfig, sds: Dict[str, Dict[str, np.ndarray]],
@@ -150,9 +168,11 @@ def convert_flashsr_trio(cfg: FlashSRConfig, sds: Dict[str, Dict[str, np.ndarray
     ``SIDECAR`` geometry."""
     with torch.device("meta"):
         mods = FlashSRModules(cfg)
+    # a StudentUNet config (no upstream layout) matches by suffix and shape
     maps = {"vae": audioldm_vae_name_map(cfg.vae),
             "sr_vocoder": hifigan_name_map(cfg.vocoder),
-            "student_ldm": ldm_unet_name_map(cfg.unet)}
+            "student_ldm": (ldm_unet_name_map(cfg.unet) if isinstance(cfg.unet, LDMUNetConfig)
+                            else None)}
     converted = {name: convert_state_dict(sds[name], flax_tree(m), name_map=maps[name])
                  for name, m in mods.by_name().items()}
     save_params(converted, d / CACHE)
@@ -208,30 +228,33 @@ def load_converted_flashsr(ckpt_dir: Optional[Path] = None
 
 
 def resolve_flashsr(seed: int = 0) -> Tuple[FlashSRConfig, Optional[StateDicts], str]:
-    """``(config, state dicts, source)`` for the node, in the JAX
-    resolver's order:
+    """``(config, state dicts, source)`` for the node and the CLI, in the
+    JAX resolver's order:
 
     1. converted reference checkpoints (the cache ``flashsr_params.npz``
        or all three ``.pth`` files in ``weights_dir()``, after one
        first-use download attempt; "converted");
-    2. the shipped istft trio ``pretrained_istft.npz`` ("distilled-istft"),
+    2. the istft trio ``pretrained_istft.npz`` ("distilled-istft"),
        unless ``EGREGORA_FLASHSR_VARIANT=hifigan``;
-    3. the shipped HiFi-GAN trio ``pretrained.npz`` ("distilled");
+    3. the HiFi-GAN trio ``pretrained.npz`` ("distilled");
     4. the full config with no weights ("random": the pipeline draws
-       them from ``seed``)."""
+       them from ``seed``).
+
+    Each trio is ``served_trio``'s: the one the port's trainers wrote under
+    ``weights_dir()``, else the shipped one."""
     converted = load_converted_flashsr()
     if converted is not None:
         return converted[0], converted[1], "converted"
     variant = os.environ.get("EGREGORA_FLASHSR_VARIANT", "").strip().lower()
     if variant != "hifigan":
-        shipped = load_pretrained_with_cfg(PRETRAINED_ISTFT)
+        shipped = load_pretrained_with_cfg(served_trio(PRETRAINED_ISTFT))
         if shipped is not None:
             return shipped[0], shipped[1], "distilled-istft"
         if variant in ("istft", "vocos"):
             print(f"[egregora_tpu_torch] FlashSR: EGREGORA_FLASHSR_VARIANT={variant!r} "
                   f"but no {PRETRAINED_ISTFT.name} shipped; falling back to the "
                   "HiFi-GAN trio")
-    shipped = load_pretrained_with_cfg(PRETRAINED)
+    shipped = load_pretrained_with_cfg(served_trio(PRETRAINED))
     if shipped is not None:
         return shipped[0], shipped[1], "distilled"
     print("[egregora_tpu_torch] FlashSR: no checkpoints and no shipped distilled "
@@ -584,20 +607,23 @@ def distill(steps: int = 3000, batch: int = 8, frames: int = 128, lr: float = 2e
     of ``scan_size`` steps on ``split`` of it, one mean loss logged a
     group) and write ``out_path`` (float16 npz + ``.json`` metrics).
     ``out_path`` defaults to ``weights_dir() / "pretrained.npz"``, never
-    the shipped file; ``resume`` continues from the weights there (a
-    fresh optimizer)."""
+    the shipped file; ``resume`` continues (with a fresh optimizer) from
+    the weights at an explicit ``out_path``, else from the served HiFi-GAN
+    trio (``served_trio(PRETRAINED)``), as the JAX default, whose
+    ``out_path`` is the served file."""
     from .train import make_optimizer
     dev = _device(device)
+    src = Path(out_path) if out_path is not None else served_trio(PRETRAINED)
     out_path = Path(out_path) if out_path is not None else weights_dir() / PRETRAINED.name
     length = 480 * frames
     if resume:
-        shipped = load_pretrained_with_cfg(out_path)
+        shipped = load_pretrained_with_cfg(src)
         if shipped is None:
-            raise FileNotFoundError(f"--resume: no weights at {out_path}")
+            raise FileNotFoundError(f"--resume: no weights at {src}")
         cfg, sds = shipped
         modules = FlashSRModules(cfg)
         modules.load_state_dicts(sds)
-        print(f"[distill] resuming from {out_path}", flush=True)
+        print(f"[distill] resuming from {src}", flush=True)
     else:
         cfg = cfg or distilled_config()
         modules = FlashSRModules(cfg)
@@ -633,19 +659,24 @@ def distill(steps: int = 3000, batch: int = 8, frames: int = 128, lr: float = 2e
 
 
 def distill_vocoder(steps: int = 20000, batch: int = 8, frames: int = 128, lr: float = 2e-4,
-                    seed: int = 0, src_path: Path = PRETRAINED,
+                    seed: int = 0, src_path: Optional[Path] = None,
                     out_path: Optional[Path] = None, scan_size: int = 1,
                     ckpt_every: int = 0, hidden: int = 256, depth: int = 6,
                     resume: bool = False, sisdr_w: float = 0.0, phase_cond: bool = False,
                     exciter: bool = False, device="cuda") -> dict:
     """Train an iSTFT-head ``SpectralVocoder`` against the frozen VAE/UNet
-    of the trio at ``src_path`` (the JAX ``distill_vocoder``: key schedule
+    of the trio at ``src_path`` (default: the served HiFi-GAN trio,
+    ``served_trio(PRETRAINED)``; the JAX ``distill_vocoder``: key schedule
     ``fold_in(PRNGKey(seed + 11), i)`` then ``split(key, scan_size)``,
     data at ``EVAL_COHERENT_P``) and write the whole trio to ``out_path``
     (default ``weights_dir() / "pretrained_istft.npz"``, never the shipped
-    file).  The frozen modules run under ``no_grad``."""
+    file; ``resume`` reads an explicit ``out_path``, else the served istft
+    trio).  The frozen modules run under ``no_grad``."""
     from .train import make_optimizer
     dev = _device(device)
+    src_path = served_trio(PRETRAINED) if src_path is None else Path(src_path)
+    prev_path = (Path(out_path) if out_path is not None
+                 else served_trio(PRETRAINED_ISTFT))
     out_path = (Path(out_path) if out_path is not None
                 else weights_dir() / PRETRAINED_ISTFT.name)
     shipped = load_pretrained_with_cfg(src_path)
@@ -653,13 +684,13 @@ def distill_vocoder(steps: int = 20000, batch: int = 8, frames: int = 128, lr: f
         raise FileNotFoundError(f"distill_vocoder: no shipped trio at {src_path}")
     cfg0, sds0 = shipped
     if resume:
-        prev = load_pretrained_with_cfg(out_path)
+        prev = load_pretrained_with_cfg(prev_path)
         if prev is None:
-            raise FileNotFoundError(f"--resume: no weights at {out_path}")
+            raise FileNotFoundError(f"--resume: no weights at {prev_path}")
         cfg, prev_sds = prev
         modules = FlashSRModules(cfg)
         modules.vocoder.load_state_dict(prev_sds["sr_vocoder"], strict=True)
-        print(f"[distill-voc] resuming from {out_path}", flush=True)
+        print(f"[distill-voc] resuming from {prev_path}", flush=True)
     else:
         cfg = dataclasses.replace(cfg0, vocoder=VocoderConfig(
             kind="istft", hidden=hidden, depth=depth, phase_cond=phase_cond, exciter=exciter))
@@ -715,8 +746,8 @@ def main(argv=None) -> None:
                     help="save + eval every N steps (long runs)")
     ap.add_argument("--cpu", action="store_true", help="train on the CPU, not the card")
     ap.add_argument("--resume", action="store_true",
-                    help="continue from the weights at --out (fresh optimizer; pair "
-                         "with a lower --lr)")
+                    help="continue from the weights at --out, else from the served "
+                         "trio (fresh optimizer; pair with a lower --lr)")
     ap.add_argument("--vocoder-only", action="store_true",
                     help="train an iSTFT-head SpectralVocoder against the frozen shipped "
                          "VAE/UNet")

@@ -40,7 +40,7 @@ from ...parallel.mesh import chunk_parallel, make_chunk_mesh, replicate, resolve
 from ...parallel.multihost import all_gather_rows, local_batch_slice, world
 from . import prng
 from .ldm_unet import LDMUNet, LDMUNetConfig
-from .mel import (HOP, SAMPLE_RATE, _reflect_pad, envelope_gain, log_mel,
+from .mel import (HOP, N_MELS, SAMPLE_RATE, _reflect_pad, envelope_gain, log_mel,  # noqa: F401
                   mel_band_peaks, mel_envelope_match, mel_filterbank)
 from .unet import StudentUNet, UNetConfig
 from .vae import MelVAE, VAEConfig

@@ -19,9 +19,11 @@ training device.  Both step ``optax.chain(clip_by_global_norm(1),
 adam(cosine_decay_schedule(lr, steps, 0.05)))`` (``models.optim``).
 
 The JAX package ships its weights as
-``egregora_tpu/models/rnnoise/pretrained.npz``; ``load_pretrained`` reads
-that file in place.  This trainer writes under ``weights_dir() /
-"rnnoise"`` (or ``--out``), never into the JAX package.
+``egregora_tpu/models/rnnoise/pretrained.npz``.  This trainer writes under
+``weights_dir() / "rnnoise"`` (or ``--out``), never into the JAX package;
+``load_pretrained`` (and so the node) serves that file where it exists
+(``served_path``), else the shipped one in place, so that what the
+trainer writes is what the node serves next, as in the JAX package.
 
     python -m egregora_tpu_torch.models.rnnoise.train [--steps 4000]
         [--batch 16] [--cpu] [--out PATH]
@@ -284,10 +286,17 @@ def pretrained_path() -> Path:
     return SHIPPED
 
 
+def served_path() -> Path:
+    """The weights the node serves: ``output_path()`` where the trainer
+    wrote it, else the shipped file."""
+    from ...utils.weights import served_file
+    return served_file(output_path(), pretrained_path())
+
+
 def load_pretrained() -> Dict | None:
-    """The shipped weights as a nested dict of numpy arrays, or None
-    where the file is missing."""
-    p = pretrained_path()
+    """The served weights (``served_path``) as a nested dict of numpy
+    arrays, or None where the file is missing."""
+    p = served_path()
     if not p.exists():
         return None
     from ...utils.weights import load_params

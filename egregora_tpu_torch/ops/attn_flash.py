@@ -34,6 +34,7 @@ import torch
 import torch.nn.functional as F
 
 from ..utils import cuda_build
+from .attn_rows import FLOP_LOG      # one FLOP log with attn_rows, as in the JAX package
 
 KERNEL_D = (32, 64, 128, 256, 512)     # head sizes csrc/attn_online.cu is built for
 # (block_q options, block_k options) built for each D: bf16 runs 64 q
@@ -111,6 +112,8 @@ def flash_online_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def flash_online(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  block_q: int = 512, block_k: int = 1024) -> torch.Tensor:
     """Exact attention ``[BH, N, D]`` (scale ``D**-0.5``), k-blocked."""
+    if q.dim() >= 2:
+        FLOP_LOG.append(4 * q.shape[:-2].numel() * q.shape[-2] ** 2 * q.shape[-1])
     if q.device.type == "cpu":
         return flash_online_plain(q, k, v, block_q, block_k)
     if q.device.type != "cuda":

@@ -46,6 +46,12 @@ ENTRIES = {torch.bfloat16: "attn_rows_bf16", torch.float32: "attn_rows_f32"}
 # counted where the kernel launches and nowhere else
 launches = 0
 launches_by_shape: collections.Counter = collections.Counter()
+# the FLOPs of every call of the public function, appended whatever the
+# route (kernel or plain): an operator-level count sees none of a hand
+# kernel's work, as XLA's cost analysis sees none of a Pallas call's
+# (the JAX ``attn_pallas.FLOP_LOG``: ``4 * BH * N * N * D`` a call, one
+# list with ``attn_flash.flash_online``; the backward logs nothing)
+FLOP_LOG: list = []
 
 _FNS: dict = {}
 
@@ -131,6 +137,8 @@ class AttnRows(torch.autograd.Function):
 def attn_rows(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """Exact attention ``[BH, N, D]`` (scale ``D**-0.5``), through
     ``AttnRows`` where autograd records."""
+    if q.dim() >= 2:
+        FLOP_LOG.append(4 * q.shape[:-2].numel() * q.shape[-2] ** 2 * q.shape[-1])
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
         return AttnRows.apply(q, k, v)
     return _attn_rows(q, k, v)

@@ -89,6 +89,11 @@ F32_PLAN = Plan(0, CC_COLS, ROW_STEP, 256, 10 * 34 * 36 * 4 + 9 * 32 * 4, 0)
 launches = 0
 launches_by_shape: collections.Counter = collections.Counter()
 launches_by_route: collections.Counter = collections.Counter()
+# the FLOPs of every call of the public function, appended whatever the
+# route (kernel or plain): an operator-level count sees none of a hand
+# kernel's work, as XLA's cost analysis sees none of a Pallas call's
+# (the JAX ``conv_edge.FLOP_LOG``: ``2 * 9 * B * F * M * C`` a call)
+FLOP_LOG: list = []
 
 _FNS: dict = {}
 _SMS: dict = {}
@@ -204,6 +209,9 @@ def tap_partials_model(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor
 def conv3x3_out1(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor,
                  f_tile: int = 64) -> torch.Tensor:
     """``[B, F, M, C] x [3, 3, C, 1] -> [B, F, M, 1]`` float32 ('SAME')."""
+    if x.dim() == 4:
+        b, f, m, c = x.shape
+        FLOP_LOG.append(2 * 9 * b * f * m * c)
     if x.device.type == "cpu":
         return conv3x3_out1_plain(x, kernel, bias)
     if x.device.type != "cuda":

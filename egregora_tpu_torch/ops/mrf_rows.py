@@ -20,15 +20,27 @@ from typing import Sequence
 import torch
 
 from ..utils import cuda_build
-from .mrf_fused import (branch_plain, branch_weights, check_operands, check_tile,
-                        kernel_operands, workspace)
+from .mrf_fused import (branch_halo, branch_plain, branch_weights, check_operands,
+                        check_tile, kernel_operands, workspace)
 
 # kernel launches since the last reset, in all and by shape (b, t, c);
 # counted where the kernel launches and nowhere else
 launches = 0
 launches_by_shape: collections.Counter = collections.Counter()
+# the FLOPs of every call of the public function, appended whatever the
+# route (kernel or plain): an operator-level count sees none of a hand
+# kernel's work, as XLA's cost analysis sees none of a Pallas call's
+# (the JAX ``mrf_rows.FLOP_LOG``: ``4 * B * T * k * C * C * n_dil`` a
+# ``mrf_branch_rows`` call; ``mrf_rows`` adds nothing of its own)
+FLOP_LOG: list = []
 
 _FN = None
+
+
+def branch_span(k: int, dils: Sequence[int]) -> int:
+    """Halo needed on each side for one branch's full chain (the JAX
+    package's name of ``mrf_fused.branch_halo``)."""
+    return branch_halo(k, dils)
 
 
 def mrf_branch_rows_plain(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
@@ -59,6 +71,9 @@ def mrf_branch_rows(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
                     dilations: Sequence[int] = (1, 3, 5)) -> torch.Tensor:
     """One MRF branch fused: ``[B, T, C] -> [B, T, C]``; ``w [n_dil, 2, k,
     C, C]`` (kernel size k from its shape), ``bias [n_dil, 2, C]``."""
+    if x.dim() == 3 and w.dim() == 5:
+        b, t, c = x.shape
+        FLOP_LOG.append(4 * b * t * w.shape[2] * c * c * len(dilations))
     if x.device.type == "cpu":
         return mrf_branch_rows_plain(x, w, bias, dilations)
     if x.device.type != "cuda":

@@ -1,8 +1,9 @@
 """ctypes bindings of the repo's native audio codec (``native/``).
 
-Counterpart of ``egregora_tpu/utils/native.py`` for what ``utils.wavio``
-reads and writes: ``read_wav``, ``read_flac``, ``write_wav`` (16-bit PCM
-or 32-bit float) and ``write_flac`` (16-bit).  The library is built from
+Counterpart of ``egregora_tpu/utils/native.py``: what ``utils.wavio``
+reads and writes (``read_wav``, ``read_flac``, ``write_wav``, 16-bit PCM
+or 32-bit float, and ``write_flac``, 16-bit), and ``read_wav_batch``, the
+library's threaded decode of many WAVs.  The library is built from
 ``native/wavcodec.cc`` and ``native/flaccodec.cc`` with g++ at first use
 into the port's build directory, ``egregora_tpu_torch/_build/`` (never
 under ``native/``), keyed by a hash of the sources and flags.  Where
@@ -16,7 +17,7 @@ import hashlib
 import os
 import subprocess
 from pathlib import Path
-from typing import Optional, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -85,6 +86,11 @@ def load() -> Optional[ctypes.CDLL]:
     lib.wc_write.restype = ctypes.c_int
     lib.wc_write.argtypes = [ctypes.c_char_p, ctypes.POINTER(ctypes.c_float),
                              ctypes.c_int, ctypes.c_long, ctypes.c_int, ctypes.c_int]
+    lib.wc_read_batch.restype = None
+    lib.wc_read_batch.argtypes = [ctypes.POINTER(ctypes.c_char_p), ctypes.c_int,
+                                  ctypes.POINTER(ctypes.POINTER(ctypes.c_float)),
+                                  ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_long),
+                                  ctypes.POINTER(ctypes.c_int), ctypes.c_int]
     if hasattr(lib, "fc_read"):
         lib.fc_read.restype = ctypes.c_int
         lib.fc_read.argtypes = read_args
@@ -122,6 +128,36 @@ def read_wav(path: str) -> Tuple[np.ndarray, int]:
     """A WAV through the native codec -> ([C, S] float32, sr); raises
     RuntimeError where it cannot (the caller falls back)."""
     return _read(path, "wc")
+
+
+def read_wav_batch(paths: Sequence[str], n_threads: int = 0
+                   ) -> List[Optional[Tuple[np.ndarray, int]]]:
+    """Many WAVs decoded by the library's threads (``wc_read_batch``;
+    ``n_threads`` 0: one a core) -> ``[([C, S] float32, sr) or None]``, in
+    ``paths``' order, None where a file could not be read.  Each buffer the
+    library allocated is copied, then freed, every one of them even where
+    a copy fails."""
+    lib = load()
+    if lib is None:
+        raise RuntimeError("native wavcodec unavailable")
+    n = len(paths)
+    c_paths = (ctypes.c_char_p * n)(*[str(p).encode() for p in paths])
+    datas = (ctypes.POINTER(ctypes.c_float) * n)()
+    chans, frames, srs = (ctypes.c_int * n)(), (ctypes.c_long * n)(), (ctypes.c_int * n)()
+    lib.wc_read_batch(c_paths, n, datas, chans, frames, srs, int(n_threads))
+    out: List[Optional[Tuple[np.ndarray, int]]] = []
+    try:
+        for i in range(n):
+            if not datas[i]:
+                out.append(None)
+                continue
+            arr = np.ctypeslib.as_array(datas[i], shape=(chans[i] * frames[i],)).copy()
+            out.append((arr.reshape(chans[i], frames[i]), srs[i]))
+    finally:
+        for i in range(n):
+            if datas[i]:
+                lib.wc_free(datas[i])
+    return out
 
 
 def read_flac(path: str) -> Tuple[np.ndarray, int]:

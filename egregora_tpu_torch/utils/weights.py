@@ -31,7 +31,16 @@ shapes from the port's own modules, inverting the mapping above), and
 ``params_from_jax`` carries the result onto the port.  ``save_params``
 and ``load_params`` keep converted trees in the JAX package's flat npz
 format, so a cache either package writes, the other reads; converted
-files live under ``weights_dir()``.
+files live under ``weights_dir()``.  ``ensure_flashsr_weights`` is the JAX
+package's explicit-config loader (cache, then the ``.pth`` trio, then a
+seeded init; never a download).
+
+Trained files: every trainer of the port writes under ``weights_dir()``
+and never into the JAX package, and every loader reads
+``served_file(trained, shipped)``: the trainer's default output where it
+exists, else the JAX package's shipped file in place, so that what a
+trainer writes is what its node serves next, as in the JAX package,
+whose trainers overwrite the one file their loaders read.
 """
 from __future__ import annotations
 
@@ -44,6 +53,8 @@ import torch
 
 from ..models.flashsr.layers import ConvTranspose1d, DenseGeneral, GroupNorm, LayerNorm
 from ..models.flashsr.pipeline import FlashSRConfig, FlashSRModules
+# the JAX package keeps these here; the port's fetch layer owns them
+from .fetch import FLASHSR_FILES, HF_DATASET, missing_flashsr_files  # noqa: F401
 
 
 def weights_dir() -> Path:
@@ -54,6 +65,13 @@ def weights_dir() -> Path:
     d = Path(env) if env else Path.home() / ".cache" / "egregora_tpu" / "weights"
     d.mkdir(parents=True, exist_ok=True)
     return d
+
+
+def served_file(trained: Path, shipped: Path) -> Path:
+    """The weight file a loader serves: ``trained`` (a trainer's default
+    output under ``weights_dir()``) where it exists, else ``shipped`` (the
+    JAX package's file, read in place)."""
+    return Path(trained) if Path(trained).exists() else Path(shipped)
 
 
 def _leaves(tree: Any, prefix: Tuple[str, ...] = ()) -> Iterator[Tuple[Tuple[str, ...], Any]]:
@@ -350,3 +368,39 @@ def convert_state_dict(torch_sd: Dict[str, np.ndarray], target_tree: Any,
             + "\nLikely a geometry mismatch: check the inferred config "
             "(models/flashsr/geometry.py) or give an explicit name_map.")
     return unflatten(out)
+
+
+# ---- the JAX package's FlashSR entry points of this module ---------------
+
+def ensure_flashsr_weights(modules: FlashSRModules, seed: int = 0,
+                           ckpt_dir: Optional[Path] = None) -> Dict[str, Dict[str, torch.Tensor]]:
+    """State dicts for ``modules``' explicit config, in the JAX
+    ``ensure_flashsr_weights``'s order: the converted cache
+    ``flashsr_params.npz`` in ``ckpt_dir`` (default ``weights_dir() /
+    "flashsr"``), else the three ``.pth`` files converted for that config
+    (and cached with its sidecar), else ``init_params(seed)`` with the JAX
+    package's report of what is missing.  It never downloads;
+    ``load_converted_flashsr`` infers the geometry instead."""
+    from ..models.flashsr.distill import CACHE, convert_flashsr_trio
+    d = Path(ckpt_dir) if ckpt_dir is not None else weights_dir() / "flashsr"
+    d.mkdir(parents=True, exist_ok=True)
+    cfg = modules.cfg
+    if (d / CACHE).exists():
+        return params_from_jax(cfg, load_params(d / CACHE))
+    missing = missing_flashsr_files(d)
+    if not missing:
+        sds = {name: load_torch_state_dict(d / f"{name}.pth") for name in FlashSRModules.NAMES}
+        return params_from_jax(cfg, convert_flashsr_trio(cfg, sds, d))
+    print(f"[egregora_tpu_torch] FlashSR weights not found in {d} (missing: "
+          f"{', '.join(missing)}; HF dataset {HF_DATASET}). Using seeded random init.")
+    fresh = FlashSRModules(cfg)
+    fresh.init_params(seed)
+    return {name: m.state_dict() for name, m in fresh.by_name().items()}
+
+
+def load_converted_flashsr(seed: int = 0, ckpt_dir: Optional[Path] = None):
+    """``models.flashsr.distill.load_converted_flashsr`` under the JAX
+    package's name and signature (its ``seed`` seeded only the
+    conversion's target tree, whose values are all overwritten)."""
+    from ..models.flashsr.distill import load_converted_flashsr as load
+    return load(ckpt_dir)

@@ -8,8 +8,9 @@ Phases, one line each on standard output:
 
 1. the card's name and power limit (``nvidia-smi``); the builds of the
    five sources under ``egregora_tpu_torch/csrc/`` (``attn_rows``,
-   ``mrf``, ``iir_lowpass``, ``attn_online``, ``conv_edge``), one
-   ``nvcc`` each, at once; for each instantiation of the bf16 attention
+   ``mrf``, ``iir_lowpass``, ``attn_online``, ``conv_edge``;
+   ``utils.cuda_build.SOURCES``), one ``nvcc`` each, at once, through the
+   bootstrap's build step (``install.build_native``); for each instantiation of the bf16 attention
    core (``attn_core.cuh``) and of the bf16 MRF core (``mrf_core.cuh``),
    its registers, spills and stack from ``ptxas -v`` and its block (the
    library's layout query, held to the wrappers' plan); the same for K3's
@@ -164,6 +165,24 @@ Phases, one line each on standard output:
    with its ``timing_summary()``; one ``flashsr`` under
    ``utils.profiling.trace`` must leave a trace that names the attn_rows
    kernel; each subcommand's warm wall time beside the card;
+19b. the bootstrap (``bootstrap_phase``): ``python -m
+   egregora_tpu_torch.install --offline`` in a subprocess, warm (the
+   libraries of phase 1 load at once), in a temporary weights root: exit
+   0, the card line, capability (9, 0), every source's library present,
+   the shipped weight rows as the files on disk, the five warmups "ok",
+   ``[install] done`` last; three planted faults (a source that does not
+   exist; nvcc unreachable through ``CUDA_HOME``, ``PATH`` and the default
+   path; no card visible), each of which must exit non-zero, name its
+   cause and print neither a warmup line nor ``[install] done``; then the
+   warmups in this process with K4's launches counted (4 at [1, 4800]);
+19c. the full-chain example (``example_phase``,
+   ``examples.full_chain``) on seeded speech-like 16 kHz stereo WAVs (a
+   50 ms lead-in, no gap): on 6 s, the card against the same function on
+   the CPU (96 kHz output relative L2 ``EXAMPLE_WAVE_REL``; each printed
+   metric within ``EXAMPLE_KEY_LIMITS``; the printed JSON has the JAX
+   example's keys); on 120 s, cold, then warm with each stage timed and
+   ``attn_rows`` and K4 counted (K4 4 at [2, 11 520 000]); ``main``
+   through a WAV round trip (96 kHz, 2 x 11 520 000, finite);
 20. training (``train_phase``), bf16 on the card: the distilled
    config at ``distill()``'s defaults (batch 8 x 61 440 samples) from
    ``init_params(0)``, five AdamW steps on one fixed batch, whose loss must
@@ -248,7 +267,7 @@ Phases, one line each on standard output:
    script reckons for the launches counted in the same span
    (``flop_check``); a JSON line ``{"kernels": [...]}`` of all six kernels,
    whose times are the per-shape times of phases 2, 4 and 5 times the
-   launches that phases 7, 9, 10, 11, 12, 16, 19, 20, 22 and 22b counted,
+   launches that phases 7, 9, 10, 11, 12, 16, 19, 19b, 19c, 20, 22 and 22b counted,
    and, last, ``{"ok": true, ...}``.
 
 Any failure exits non-zero and prints no ``"ok"`` line.  With no CUDA
@@ -264,7 +283,7 @@ import subprocess
 import sys
 import tempfile
 import time
-from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
 H100_BF16_FLOPS = 989e12     # dense bf16 tensor-core peak, H100 SXM
 H100_F32_FLOPS = 67e12       # float32 outside the tensor cores, H100 SXM
@@ -318,27 +337,13 @@ BEFORE_MS = {
 }
 
 
-# egregora_tpu_torch/csrc/<name>.cu
-SOURCES = ("attn_rows", "mrf", "iir_lowpass", "attn_online", "conv_edge")
-
-
-def timed_build(name: str) -> float:
-    """Seconds to build ``csrc/<name>.cu`` (nvcc)."""
-    from egregora_tpu_torch.utils import cuda_build
-    t = time.perf_counter()
-    cuda_build.build(name)
-    return time.perf_counter() - t
-
-
 def log(msg: str) -> None:
     print(msg, flush=True)
 
 
 def card_line() -> str:
-    r = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                        "--format=csv,noheader"], capture_output=True,
-                       text=True, timeout=60, check=True)
-    return r.stdout.strip().splitlines()[0]
+    from egregora_tpu_torch.utils.device import card_line as line
+    return line()
 
 
 def graph_ms(fn, reps: int) -> float:
@@ -1814,7 +1819,9 @@ K4_SHAPES = [((2, 14_400_000), K48, "300 s of 48 kHz stereo (the meter)"),
              ((2, 2_880_000), K48, "60 s of 48 kHz stereo (gain match, null test)"),
              ((1, 100), K48, "shorter than a tile"),
              ((3, 32_769), K48, "a ragged tile edge"),
-             ((1, 4_194_304), 0.9999, "a pole near 1")]
+             ((1, 4_194_304), 0.9999, "a pole near 1"),
+             ((2, 11_520_000), K96, "120 s of 96 kHz stereo (the full-chain example's meter)"),
+             ((1, 4_800), K48, "100 ms of 48 kHz (the bootstrap's loudness warmup)")]
 
 
 def dropped_carry(x, k):
@@ -4060,6 +4067,239 @@ def entry_launches(entry: dict, kernel: str) -> tuple:
     return total, by_path
 
 
+# ---- the bootstrap (egregora_tpu_torch.install) and the full-chain example ----
+
+BOOTSTRAP_TIMEOUT = 600.0    # seconds: a cold bootstrap builds every source first
+WARMUPS = ("loudness", "spectral enhance", "rnnoise", "deepfilternet", "dac")
+# planted faults of the bootstrap, each run as a user would meet it: (label,
+# code run before install.main, environment, what the output must name)
+BOOTSTRAP_FAULTS = [
+    ("a source that does not exist",
+     "cuda_build.SOURCES = cuda_build.SOURCES + ('no_such_kernel',)", {},
+     "no CUDA source 'no_such_kernel'"),
+    ("nvcc unreachable (CUDA_HOME, PATH and the default path broken)",
+     "cuda_build.NVCC_DEFAULT = '/nonexistent/bin/nvcc'", {"CUDA_HOME": "/nonexistent"},
+     "[deps] nvcc: MISSING"),
+    ("no card visible", "", {"CUDA_VISIBLE_DEVICES": ""}, "No CUDA device detected"),
+]
+BOOTSTRAP_FAULT_CODE = """import sys
+from egregora_tpu_torch import install
+from egregora_tpu_torch.utils import cuda_build
+{patch}
+sys.exit(install.main(['--offline']))
+"""
+# the example on 6 s of 16 kHz stereo, card against the same function on the
+# CPU: the 96 kHz output's relative L2 (the node paths' limit: FlashSR runs
+# bf16 on the card), and the printed metrics: loudness keys (LU / dB) at what
+# that wave limit allows (20 log10(1.05) = 0.42 dB), the true peak (a maximum,
+# not an energy) 1 dB, SI-SDR 0.25 dB, LSD 2 dB (~95 dB here: the output's high
+# band over the input's empty one; the JAX example and the port read 0.4-0.6 dB
+# apart on the CPU).  The first run read 2.1e-3, loudness 0.001, true peak 0.006,
+# SI-SDR 0.003 and LSD 0.39-0.41
+EXAMPLE_CHECK_SECONDS, EXAMPLE_WAVE_REL = 6.0, 5e-2
+EXAMPLE_KEY_LIMITS = {"lufs_integrated": 0.45, "lufs_momentary": 0.45, "lufs_short_term": 0.45,
+                      "lra": 0.45, "true_peak_dbfs": 1.0, "si_sdr_db": 0.25,
+                      "lsd_mean_db": 2.0, "lsd_p95_db": 2.0}
+EXAMPLE_KEYS = tuple(EXAMPLE_KEY_LIMITS) + ("wall_s", "realtime_factor")
+
+
+def bootstrap_env(**extra) -> dict:
+    """The environment of a bootstrap subprocess: this one's, offline, the
+    checkout importable, plus ``extra``."""
+    import os
+    env = dict(os.environ, EGREGORA_TPU_OFFLINE="1", **extra)
+    here = str(Path(__file__).resolve().parent)
+    env["PYTHONPATH"] = os.pathsep.join([here] + [p for p in (env.get("PYTHONPATH"),) if p])
+    return env
+
+
+def run_bootstrap(argv: list, env: dict) -> tuple:
+    """(exit code, standard output, standard error, wall s) of a
+    subprocess from the checkout's root."""
+    t = time.perf_counter()
+    r = subprocess.run([sys.executable] + argv, cwd=Path(__file__).resolve().parent, env=env,
+                       capture_output=True, text=True, timeout=BOOTSTRAP_TIMEOUT)
+    return r.returncode, r.stdout, r.stderr, time.perf_counter() - t
+
+
+def shipped_weight_rows() -> dict:
+    """The bootstrap's ``[weights] shipped ...`` rows as the files on disk
+    give them (the shipped files; no trained file is served here)."""
+    from egregora_tpu_torch.models.dac import train as dac_train
+    from egregora_tpu_torch.models.deepfilternet import train as dfn_train
+    from egregora_tpu_torch.models.flashsr import distill
+    from egregora_tpu_torch.models.rnnoise import train as rn_train
+    files = {"FlashSR distilled trio": distill.PRETRAINED, "RNNoise": rn_train.pretrained_path(),
+             "DeepFilterNet2": dfn_train.pretrained_path("DeepFilterNet2"),
+             "DeepFilterNet3": dfn_train.pretrained_path("DeepFilterNet3")}
+    files.update({f"DAC {t}": p for t, p in sorted(dac_train.PRETRAINED.items())})
+    return {name: f"[weights] shipped {name}: {'present' if p.exists() else 'MISSING'}"
+            for name, p in files.items()}
+
+
+def bootstrap_phase(card: str) -> dict:
+    """``python -m egregora_tpu_torch.install --offline`` in a subprocess
+    after the build step (so warm: every library loads at once), in a
+    temporary weights root: exit 0, the card line and capability (9, 0),
+    every source's library in ``_build/``, the weight rows equal to the
+    files on disk, every warmup "ok", ``[install] done`` last.  Then the
+    planted faults (``BOOTSTRAP_FAULTS``), each of which must exit non-zero,
+    name its cause and never print ``[install] done`` or a warmup line.
+    Last, the warmups in this process on the card, their kernel launches
+    counted (K4 in the loudness meter)."""
+    import os
+
+    import torch
+
+    from egregora_tpu_torch import install
+    from egregora_tpu_torch.utils import cuda_build
+    tmp = tempfile.mkdtemp(prefix="egregora_bootstrap_")
+    try:
+        rc, out, err, wall = run_bootstrap(["-m", "egregora_tpu_torch.install", "--offline"],
+                                           bootstrap_env(EGREGORA_TPU_WEIGHTS=tmp))
+        faults = []
+        for label, patch, extra, cause in BOOTSTRAP_FAULTS:
+            env = bootstrap_env(EGREGORA_TPU_WEIGHTS=tmp, **extra)
+            if "CUDA_HOME" in extra:       # no directory with an nvcc left on PATH
+                env["PATH"] = os.pathsep.join(
+                    d for d in env.get("PATH", "").split(os.pathsep)
+                    if not os.path.exists(os.path.join(d, "nvcc")))
+            f_rc, f_out, f_err, f_wall = run_bootstrap(
+                ["-c", BOOTSTRAP_FAULT_CODE.format(patch=patch)], env)
+            text = f_out + f_err
+            faults.append({"fault": label, "rc": f_rc, "wall_s": f_wall,
+                           "names_cause": cause in text,
+                           "done_printed": "[install] done" in f_out,
+                           "warmed": "[warmup]" in f_out,
+                           "last": (f_out.strip().splitlines() or [""])[-1]})
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    lines = out.splitlines()
+    rows = shipped_weight_rows()
+    built = {n: cuda_build.library_path(n).exists() for n in cuda_build.SOURCES}
+    problems = [what for what, bad in (
+        (f"exit code {rc}", rc != 0),
+        ("no card line", f"[deps] card: {card}" not in lines),
+        ("capability not (9, 0)", "[deps] compute capability: (9, 0) (sm_90a)" not in lines),
+        (f"libraries missing: {[n for n, b in built.items() if not b]}", not all(built.values())),
+        (f"weight rows differ from the files: {rows}",
+         any(r not in lines for r in rows.values()) or any("MISSING" in r for r in rows.values())),
+        ("a warmup not ok", any(f"[warmup] {w}: ok" not in lines for w in WARMUPS)),
+        ("no [install] done last", not lines or lines[-1] != "[install] done")) if bad]
+    for f in faults:
+        if f["rc"] == 0 or not f["names_cause"] or f["done_printed"] or f["warmed"]:
+            problems.append(f"planted fault not caught: {f}")
+    native = [ln for ln in lines if ln.startswith("[native] CUDA kernels")]
+    log(f"bootstrap (python -m egregora_tpu_torch.install --offline) on {card}: exit {rc} in "
+        f"{wall:.1f} s warm (every library built already); {native[0] if native else 'no build line'}; "
+        f"capability (9, 0), {len(rows)} shipped weight rows as on disk, warmups "
+        f"{', '.join(WARMUPS)} ok; planted faults: " + "; ".join(
+            f"{f['fault']}: exit {f['rc']} in {f['wall_s']:.1f} s, "
+            f"{'names its cause' if f['names_cause'] else 'DOES NOT NAME ITS CAUSE'}, "
+            f"last line {f['last']!r}" for f in faults)
+        + (" ok" if not problems else " FAIL"))
+    if problems:
+        raise RuntimeError(f"bootstrap: {problems}\n{out}\n{err[-4000:]}")
+    reset_counts()
+    warm_s = synced_wall(lambda: install.warmups(torch.device("cuda")))[1]
+    counts = read_counts()
+    others = {k: v for k, v in counts.items() if k != "iir_lowpass" and v}
+    log(f"bootstrap warmups in this process on {card}: {warm_s:.3f} s; launches "
+        f"{ {k: v for k, v in counts.items() if v} }")
+    if counts["iir_lowpass"] != {(1, 4800): 4} or others:
+        raise RuntimeError(f"bootstrap warmups: launches {counts} (K4 expected 4 at (1, 4800))")
+    return {"wall_s": wall, "faults": faults, "warmups_s": warm_s, "counts": counts}
+
+
+def example_phase(card: str) -> dict:
+    """The full-chain example (``examples.full_chain``) on seeded
+    speech-like 16 kHz stereo (a 50 ms lead-in, no gap): on 6 s, the card
+    against the same function on the CPU (``EXAMPLE_WAVE_REL``,
+    ``EXAMPLE_KEY_LIMITS``); on 120 s (the chain phase's length), cold,
+    then warm with each stage timed and its ``attn_rows`` and K4 launches
+    counted; then ``main`` through a real WAV round trip (the file's rate,
+    length and finiteness)."""
+    import contextlib
+    import io
+
+    import numpy as np
+    import torch
+
+    from egregora_tpu_torch.examples import full_chain as fc
+    from egregora_tpu_torch.utils.wavio import read_audio, write_audio
+
+    set_env(EGREGORA_FLASHSR_VARIANT=None, EGREGORA_FUSED_VOCODER=None, EGREGORA_MRF_PATH=None,
+            EGREGORA_ATTN_PATH=None)
+
+    def run(x, device):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            out, metrics, stages = fc.full_chain(x, 16000, device)
+        text = buf.getvalue()
+        printed = json.loads(text[text.index("{"): text.rindex("}") + 1])
+        if tuple(sorted(printed)) != tuple(sorted(EXAMPLE_KEYS)) or printed != metrics:
+            raise RuntimeError(f"example: printed {printed}, returned {metrics}")
+        return out, metrics, stages, text
+
+    tmp = tempfile.mkdtemp(prefix="egregora_example_")
+    try:
+        files = {}
+        for name, secs, seed in (("short", EXAMPLE_CHECK_SECONDS, 17), ("long", CHAIN_SECONDS, 18)):
+            files[name] = str(Path(tmp) / f"{name}.wav")
+            write_audio(files[name], speech_signal(secs, 16000, 2, seed, gaps=()), 16000)
+        xs, _ = read_audio(files["short"])
+        card_out, card_m, _, _ = run(xs, "cuda")
+        cpu_out, cpu_m, _, _ = run(xs, "cpu")
+        rel = rel_l2(card_out.cpu(), cpu_out)
+        diffs = {k: abs(card_m[k] - cpu_m[k]) for k in EXAMPLE_KEY_LIMITS}
+        check_ok = (rel <= EXAMPLE_WAVE_REL and card_out.shape == cpu_out.shape
+                    and all(diffs[k] <= lim for k, lim in EXAMPLE_KEY_LIMITS.items()))
+        log(f"full-chain example, {EXAMPLE_CHECK_SECONDS:.0f} s 16 kHz stereo, card vs CPU: 96 kHz "
+            f"output {tuple(card_out.shape)} rel L2 {rel:.3e} (limit {EXAMPLE_WAVE_REL:g}); "
+            + ", ".join(f"{k} {card_m[k]:.3f} vs {cpu_m[k]:.3f} (|d| {diffs[k]:.3f}, limit "
+                        f"{EXAMPLE_KEY_LIMITS[k]:g})" for k in EXAMPLE_KEY_LIMITS)
+            + (" ok" if check_ok else " FAIL"))
+        if not check_ok:
+            raise RuntimeError(f"example: card vs CPU rel {rel}, metric gaps {diffs}")
+        del card_out, cpu_out
+
+        xl, _ = read_audio(files["long"])
+        cold = synced_wall(lambda: run(xl, "cuda"))[1]
+        reset_counts()
+        (out, metrics, stages, text), wall = synced_wall(lambda: run(xl, "cuda"))
+        counts = read_counts()
+        n96 = int(96000 * CHAIN_SECONDS)
+        finite = bool(torch.isfinite(out).all()) and all(math.isfinite(metrics[k])
+                                                         for k in EXAMPLE_KEY_LIMITS)
+        shape = tuple(out.shape)
+        del out
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            _, main_wall = synced_wall(lambda: fc.main(files["long"], str(Path(tmp) / "out.wav")))
+        y, sr = read_audio(str(Path(tmp) / "out.wav"))
+        printed = buf.getvalue().splitlines()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    others = {k: v for k, v in counts.items() if k not in ("attn_rows", "iir_lowpass") and v}
+    k4_expect = {(2, n96): 4}
+    ok = (shape == (2, n96) and finite and counts["attn_rows"] and not others
+          and counts["iir_lowpass"] == k4_expect and sr == 96000 and y.shape == (2, n96)
+          and bool(np.isfinite(y).all()) and printed[0].startswith("[load] 120.0s @16000 (2 ch)")
+          and printed[-1].startswith("[save]"))
+    device_line = next((ln for ln in text.splitlines() if ln.startswith("[device]")), "")
+    log(f"full-chain example, {CHAIN_SECONDS:.0f} s 16 kHz stereo -> RNNoise (adaptive mix) -> "
+        f"FlashSR 48 kHz (max_batch 8) -> Fat Llama 50 -> 96 kHz -> loudness, LSD/SI-SDR on "
+        f"{card}: cold {cold:.3f} s, warm {wall:.3f} s (RTF {CHAIN_SECONDS / wall:.1f}x); stages "
+        + ", ".join(f"{k} {v:.3f} s" for k, v in stages.items())
+        + f"; {device_line}; out {shape}, finite {finite}; metrics {metrics}; launches "
+        f"{ {k: v for k, v in counts.items() if v} }; main() through WAVs {main_wall:.3f} s, "
+        f"file {y.shape} @ {sr} Hz " + ("ok" if ok else "FAIL"))
+    if not ok:
+        raise RuntimeError(f"example: out {shape}, finite {finite}, launches {counts} (K4 "
+                           f"expected {k4_expect}), file {y.shape} @ {sr}, printed {printed[:2]}")
+    return {"check": {"rel_l2": rel, "metric_gaps": diffs}, "cold_s": cold, "warm_s": wall,
+            "rtf": CHAIN_SECONDS / wall, "stages": stages, "metrics": metrics,
+            "main_wall_s": main_wall, "counts": counts}
 
 
 # ---- training: the FlashSR trainers, the attention gradient, the mesh ----
@@ -5438,10 +5678,12 @@ def main() -> int:
     # the plain versions' float32 convs and matmuls in full float32
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    # the bootstrap's build step (one nvcc a source, together): on a fresh
+    # checkout, the cold build as a user's first bootstrap meets it
+    from egregora_tpu_torch import install
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(SOURCES)) as ex:      # one nvcc a source, together
-        built = list(ex.map(timed_build, SOURCES))
-    log(f"build: {', '.join(f'{n} in {s:.1f} s' for n, s in zip(SOURCES, built))} "
+    built = install.build_native(torch.device("cuda"), card)
+    log(f"build: {', '.join(f'{n} in {s:.1f} s' for n, s in built.items())} "
         f"(nvcc, sm_90a, in parallel: {time.perf_counter() - t0:.1f} s)")
 
     ptxas = ptxas_report()
@@ -5465,6 +5707,8 @@ def main() -> int:
     dfn = dfn_phase(card)
     dac = dac_phase(card)
     entry = entry_phase(card)
+    bootstrap = bootstrap_phase(card)
+    example = example_phase(card)
     # phases 20 and 22 write where the trainers write by default, in a
     # weights root of their own, which 22b serves through the node
     trained_root = tempfile.mkdtemp(prefix="egregora_trained_")
@@ -5501,6 +5745,9 @@ def main() -> int:
     entry_attn, entry_attn_paths = entry_launches(entry, "attn_rows")
     attn_counts.update(entry_attn)
     attn_paths.update(entry_attn_paths)
+    example_attn = example["counts"]["attn_rows"]
+    attn_counts.update(example_attn)
+    attn_paths["full-chain example"] = sum(example_attn.values())
     trainer_attn = {"train: distilled config, fixed batch": trained["distilled"]["attn_counts_all"],
                     "train: full config, fixed batch": trained["full"]["attn_counts_all"],
                     "train: distill() entry": trained["distill_entry"]["attn_counts"],
@@ -5518,7 +5765,8 @@ def main() -> int:
     heads = SERVED_ATTN[0]          # the istft trio's one attention block
     measured = {(r["bh"], r["n"], r["d"]) for r in attn_rows_}
     attn_rows_ += [attn_shape_row(bh // heads, heads, n, d, gen)
-                   for bh, n, d in set(chain_attn) | set(entry_attn) if (bh, n, d) not in measured]
+                   for bh, n, d in set(chain_attn) | set(entry_attn) | set(example_attn)
+                   if (bh, n, d) not in measured]
     measured = {(r["bh"], r["n"], r["d"]) for r in attn_rows_}
     train_shapes = set().union(*(set(c) for c in trainer_attn.values()))
     attn_rows_ += [attn_shape_row(bh, 1, n, d, gen) for bh, n, d in sorted(train_shapes)
@@ -5529,16 +5777,19 @@ def main() -> int:
     entry_k4, entry_k4_paths = entry_launches(entry, "iir_lowpass")
     k4_counts.update(entry_k4)
     k4_paths.update(entry_k4_paths)
+    for label, r in (("full-chain example", example), ("bootstrap warmups", bootstrap)):
+        k4_counts.update(r["counts"]["iir_lowpass"])
+        k4_paths[label] = sum(r["counts"]["iir_lowpass"].values())
     entry_fused, entry_fused_paths = entry_launches(entry, "mrf_fused_cm")
     entry_rows, entry_rows_paths = entry_launches(entry, "mrf_rows")
     k4_measured = {(r["c"], r["n"]) for r in k4_rows}
     mrf_measured = {(r["entry"], r["b"], r["c"], r["t"]) for r in mrf_rows_}
-    unmeasured = ([("iir_lowpass",) + s for s in entry_k4 if s not in k4_measured]
+    unmeasured = ([("iir_lowpass",) + s for s in k4_counts if s not in k4_measured]
                   + [("mrf_fused_cm",) + s for s in entry_fused
                      if ("mrf_fused_cm",) + s not in mrf_measured]
                   + [("mrf_rows",) + s for s in entry_rows if ("mrf_rows",) + s not in mrf_measured])
     if unmeasured:
-        raise RuntimeError(f"entry phase: launches at shapes no kernel phase measured: {unmeasured}")
+        raise RuntimeError(f"launches at shapes no kernel phase measured: {unmeasured}")
     k1b_counts = labs["attn_flash_lab"]["counts"]["flash_online"]
     k3_counts = labs["edge_conv_lab"]["counts"]["conv3x3_out1"]
     kernels = [attn_entry(attn_rows_, dict(attn_counts), attn_paths),
@@ -5591,6 +5842,10 @@ def main() -> int:
         {"warm_wall_s": entry["walls"], "flashsr_breakdown_s": entry["flashsr_breakdown_s"],
          "trace": entry["trace"],
          "workflow_timing_summary": entry["workflow"]["timing_summary"]}))
+    log(f"bootstrap and full-chain example on {card}: " + json.dumps(
+        {"bootstrap_warm_wall_s": bootstrap["wall_s"], "warmups_in_process_s": bootstrap["warmups_s"],
+         "planted": {f["fault"]: f["rc"] for f in bootstrap["faults"]},
+         "example": {k: v for k, v in example.items() if k != "counts"}}))
     log(f"training on {card}: " + json.dumps(
         {"distilled": {k: v for k, v in trained["distilled"].items() if k != "attn_counts_all"},
          "full": {k: v for k, v in trained["full"].items() if k != "attn_counts_all"},

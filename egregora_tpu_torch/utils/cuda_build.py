@@ -14,6 +14,9 @@ moves into place: there is no lock file, and a build that is cut off
 leaves no half-written library.  ``ptxas -v``'s report (registers, shared
 memory and spills of each kernel) is kept beside the library as
 ``_build/<name>-<hash>.log``.
+
+``SOURCES`` lists every source; ``build_all`` builds them at once, one
+``nvcc`` each (what the bootstrap and ``chip_smoke.py`` run).
 """
 from __future__ import annotations
 
@@ -23,8 +26,10 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Optional, Sequence
 
 PKG = Path(__file__).resolve().parents[1]
 CSRC = PKG / "csrc"
@@ -32,13 +37,19 @@ BUILD_DIR = PKG / "_build"
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
+# every csrc/<name>.cu, each one library
+SOURCES = ("attn_rows", "mrf", "iir_lowpass", "attn_online", "conv_edge")
+NVCC_DEFAULT = "/usr/local/cuda/bin/nvcc"
+
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
 
 def nvcc() -> str:
+    """``$CUDA_HOME/bin/nvcc``, else ``nvcc`` on ``PATH``, else
+    ``NVCC_DEFAULT``; raises where none exists."""
     home = os.environ.get("CUDA_HOME")
     for cand in (home and os.path.join(home, "bin", "nvcc"), shutil.which("nvcc"),
-                 "/usr/local/cuda/bin/nvcc"):
+                 NVCC_DEFAULT):
         if cand and os.path.isfile(cand):
             return cand
     raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
@@ -64,12 +75,15 @@ def build_log(name: str) -> str:
 def build(name: str, timeout: float = 600.0) -> Path:
     """Compile ``csrc/<name>.cu`` unless it is built already; returns the
     library's path."""
+    src = CSRC / f"{name}.cu"
+    if not src.is_file():
+        raise RuntimeError(f"no CUDA source {name!r}: {src} does not exist")
     path = library_path(name)
     if path.exists():
         return path
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = path.with_name(f"{path.name}.tmp{os.getpid()}")
-    cmd = [nvcc(), *FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    cmd = [nvcc(), *FLAGS, "-o", str(tmp), str(src)]
     try:
         r = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                            text=True, timeout=timeout)
@@ -83,6 +97,31 @@ def build(name: str, timeout: float = 600.0) -> Path:
     path.with_suffix(".log").write_text(r.stdout)
     os.replace(tmp, path)
     return path
+
+
+def build_all(sources: Optional[Sequence[str]] = None) -> Dict[str, float]:
+    """Build every source in ``sources`` (default ``SOURCES``) at once, one
+    ``nvcc`` each; seconds a source (near 0 where it was built already).
+    Raises one ``RuntimeError`` naming every source that failed, after
+    all have ended."""
+    sources = SOURCES if sources is None else sources
+
+    def timed(name: str) -> float:
+        t = time.perf_counter()
+        build(name)
+        return time.perf_counter() - t
+
+    with ThreadPoolExecutor(max(1, len(sources))) as ex:
+        futures = {name: ex.submit(timed, name) for name in sources}
+    seconds, failed = {}, []
+    for name, fut in futures.items():
+        try:
+            seconds[name] = fut.result()
+        except RuntimeError as e:
+            failed.append(f"{name}: {e}")
+    if failed:
+        raise RuntimeError("CUDA build failed for " + "; ".join(failed))
+    return seconds
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -8,6 +8,7 @@ does not carry on on the CPU.
 """
 from __future__ import annotations
 
+import subprocess
 from typing import List
 
 import torch
@@ -37,3 +38,14 @@ def ensure_accelerator(kind: str = "cuda") -> torch.device:
             "--device cpu to the CLI or the workflow runner, device=\"cpu\" to "
             "WorkflowExecutor, or set a node class's DEVICE = \"cpu\".")
     return torch.device("cuda:0")
+
+
+def card_line() -> str:
+    """The first card's name and power limit as ``nvidia-smi
+    --query-gpu=name,power.limit --format=csv,noheader`` gives them (the
+    limit sets how fast a card runs under load, so every time is reported
+    beside it); raises where ``nvidia-smi`` fails."""
+    r = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                        "--format=csv,noheader"], capture_output=True,
+                       text=True, timeout=60, check=True)
+    return r.stdout.strip().splitlines()[0]

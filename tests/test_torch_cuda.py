@@ -787,3 +787,50 @@ def test_dac_rvq_only_step_decays_encoder_and_decoder(card, monkeypatch):
     for (n, a), (_, b) in zip(models["cuda"].named_parameters(), models["cpu"].named_parameters()):
         if n.startswith(("encoder.", "decoder.")):
             assert torch.allclose(a.detach().cpu(), b.detach(), rtol=1e-6, atol=0), n
+
+
+# ---- the bootstrap and the full-chain example on the card
+
+
+def test_bootstrap_on_the_card(card, tmp_path, monkeypatch, capsys):
+    """``install.main(["--offline"])`` on the card: exit 0, capability
+    (9, 0), every source's library built, every warmup ok, K4 launched by
+    the loudness warmup."""
+    from egregora_tpu_torch import install
+    from egregora_tpu_torch.ops import iir_lowpass as il
+    from egregora_tpu_torch.utils import cuda_build
+    monkeypatch.setenv("EGREGORA_TPU_OFFLINE", "1")
+    monkeypatch.setenv("EGREGORA_TPU_WEIGHTS", str(tmp_path))
+    before = il.launches_by_shape[(1, 4800)]
+    assert install.main(["--offline"]) == 0
+    lines = capsys.readouterr().out.splitlines()
+    assert "[deps] compute capability: (9, 0) (sm_90a)" in lines
+    assert all(cuda_build.library_path(n).exists() for n in cuda_build.SOURCES)
+    assert [ln for ln in lines if ln.startswith("[warmup]")] == \
+        [f"[warmup] {w}: ok" for w in chip_smoke.WARMUPS]
+    assert il.launches_by_shape[(1, 4800)] == before + 4
+    assert lines[-1] == "[install] done"
+
+
+def test_full_chain_card_matches_cpu(card, tmp_path, monkeypatch):
+    """The example on 2 s of speech-like 16 kHz stereo, card against CPU
+    within ``chip_smoke.EXAMPLE_WAVE_REL``, with its attention on
+    ``attn_rows`` and its meter on K4; ``main`` writes a 96 kHz WAV."""
+    import numpy as np
+
+    from egregora_tpu_torch.examples import full_chain as fc
+    from egregora_tpu_torch.ops import iir_lowpass as il
+    from egregora_tpu_torch.utils.wavio import read_audio, write_audio
+    monkeypatch.setenv("EGREGORA_TPU_OFFLINE", "1")
+    x = chip_smoke.speech_signal(2.0, 16000, 2, seed=5, gaps=())
+    attn, k4 = ar.launches, il.launches
+    got, got_m, _ = fc.full_chain(x, 16000, card)
+    assert ar.launches > attn and il.launches == k4 + 4
+    host, host_m, _ = fc.full_chain(x, 16000, "cpu")
+    assert chip_smoke.rel_l2(got.cpu(), host) <= chip_smoke.EXAMPLE_WAVE_REL
+    for k, lim in chip_smoke.EXAMPLE_KEY_LIMITS.items():
+        assert abs(got_m[k] - host_m[k]) <= lim, (k, got_m[k], host_m[k])
+    write_audio(tmp_path / "in.wav", x, 16000)
+    fc.main(str(tmp_path / "in.wav"), str(tmp_path / "out.wav"))
+    y, sr = read_audio(tmp_path / "out.wav")
+    assert sr == 96000 and y.shape == (2, 192000) and np.isfinite(y).all()

@@ -92,7 +92,8 @@ def test_port_imports_without_jax():
             "egregora_tpu_torch.models.dac.model", "egregora_tpu_torch.models.dac.train",
             "egregora_tpu_torch.models.flashsr.train", "egregora_tpu_torch.models.flashsr.prng",
             "egregora_tpu_torch.parallel.mesh", "egregora_tpu_torch.parallel.multihost",
-            "egregora_tpu_torch.models.optim"} <= names
+            "egregora_tpu_torch.models.optim", "egregora_tpu_torch.install",
+            "egregora_tpu_torch.examples.full_chain"} <= names
     assert "unavailable" not in r.stdout      # the registry merged every node module
 
 

@@ -1,0 +1,10 @@
+"""vocoder_ms_per_chunk (ms, moves audio_rtf): device time of the kernels
+launched under the vocoder's forward, per chunk row."""
+
+
+def read(ctx):
+    t = ctx.trace
+    rows = ctx.rows_done()
+    if t is None or not rows or not len(t.dev) or not len(t.spans.get("pb.vocoder", ())):
+        return None
+    return 1e3 * t.device_time("pb.vocoder") / rows

@@ -1257,8 +1257,10 @@ def flop_check(phase: str, counts: dict) -> dict:
 def flop_checked(phase: str, fn):
     """``fn()`` between ``reset_counts`` and ``flop_check``; (its result,
     the check)."""
+    from egregora_tpu_torch.utils import profiling
     reset_counts()
-    out = fn()
+    with profiling.recording():           # the FLOP logs append only while recording
+        out = fn()
     return out, flop_check(phase, read_counts())
 
 
@@ -4708,6 +4710,7 @@ def served_trained_phase(card: str, root: str) -> dict:
     from egregora_tpu_torch.nodes import super_resolution
     from egregora_tpu_torch.nodes.base import to_buffer
     from egregora_tpu_torch.ops import attention
+    from egregora_tpu_torch.utils import profiling
 
     node_cls = super_resolution.NODE_CLASS_MAPPINGS["EgregoraAudioUpscaler"]
     sr_in, sr_out = 16000, 48000
@@ -4740,7 +4743,8 @@ def served_trained_phase(card: str, root: str) -> dict:
             reals += [(V, k, record_calls(V, k, calls[k])) for k in ("mrf_fused_cm", "mrf_rows")]
             reset_counts()
             try:
-                (out,) = node.run(audio, lowpass_input=False, output_sr=str(sr_out))
+                with profiling.recording():   # the FLOP logs append only while recording
+                    (out,) = node.run(audio, lowpass_input=False, output_sr=str(sr_out))
                 torch.cuda.synchronize()
             finally:
                 for mod, k, real in reals:

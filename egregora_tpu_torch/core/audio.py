@@ -26,6 +26,8 @@ from typing import Any, Dict, Optional, Union
 import numpy as np
 import torch
 
+from ..utils.profiling import span
+
 ArrayLike = Union[np.ndarray, torch.Tensor, list, tuple]
 
 _PCM16_SCALE = 32767.0
@@ -35,7 +37,10 @@ def _to_numpy(x: Any) -> np.ndarray:
     if isinstance(x, np.ndarray):
         return x
     if isinstance(x, torch.Tensor):
-        return x.detach().cpu().numpy()
+        if x.device.type == "cpu":
+            return x.detach().numpy()
+        with span("egr.wire.d2h"):          # waits for the card's queue, then copies
+            return x.detach().cpu().numpy()
     return np.asarray(x)
 
 

@@ -38,6 +38,7 @@ from ...ops.wola import (chunk_batch, num_chunks, wola_accumulate_dense,
                          wola_finalize, wola_stitch)
 from ...parallel.mesh import chunk_parallel, make_chunk_mesh, replicate, resolve
 from ...parallel.multihost import all_gather_rows, local_batch_slice, world
+from ...utils.profiling import count, span
 from . import prng
 from .ldm_unet import LDMUNet, LDMUNetConfig
 from .mel import (HOP, N_MELS, SAMPLE_RATE, _reflect_pad, envelope_gain, log_mel,  # noqa: F401
@@ -188,6 +189,7 @@ class FlashSRPipeline:
         how chunks are batched."""
         key = tuple(shape)
         if key not in self._noise:
+            count("noise_builds")
             self._noise[key] = torch.from_numpy(
                 prng.normal(self.cfg.noise_seed, (1,) + key)).to(self.device)
         return self._noise[key]
@@ -198,19 +200,24 @@ class FlashSRPipeline:
         on the pipeline's device): ``(mel_hr [B, 512, n_mels], wav [B,
         CHUNK_SAMPLES])``, the decoded mel and the vocoder's wave."""
         mods = self.modules
-        mel = log_mel(x)[:, :MEL_FRAMES, :]
-        z_lr = mods.vae.encode(mel[..., None])
+        with span("egr.mel"):
+            mel = log_mel(x)[:, :MEL_FRAMES, :]
+        with span("egr.vae.encode"):
+            z_lr = mods.vae.encode(mel[..., None])
         noise = self._noise_latent(z_lr.shape[1:]).expand_as(z_lr)
         z_in = torch.cat([noise, z_lr], dim=-1)
-        z_hr = mods.unet(z_in, torch.ones(z_in.shape[0], device=self.device))
-        mel_hr = mods.vae.decode(z_hr)[..., 0]
+        with span("egr.unet"):
+            z_hr = mods.unet(z_in, torch.ones(z_in.shape[0], device=self.device))
+        with span("egr.vae.decode"):
+            mel_hr = mods.vae.decode(z_hr)[..., 0]
         voc = self.cfg.vocoder
-        if voc.kind == "hifigan" and _fused_vocoder_enabled(self.device):
-            wav = apply_fused(mods.vocoder, mel_hr)
-        elif voc.phase_cond:
-            wav = mods.vocoder(mel_hr, ref=x)
-        else:
-            wav = mods.vocoder(mel_hr)
+        with span("egr.vocoder"):
+            if voc.kind == "hifigan" and _fused_vocoder_enabled(self.device):
+                wav = apply_fused(mods.vocoder, mel_hr)
+            elif voc.phase_cond:
+                wav = mods.vocoder(mel_hr, ref=x)
+            else:
+                wav = mods.vocoder(mel_hr)
         return mel_hr, wav[:, :CHUNK_SAMPLES]
 
     @torch.inference_mode()
@@ -220,7 +227,8 @@ class FlashSRPipeline:
         if lowpass_input:
             x = lowpass_fir(x, REQ_SR, self.cfg.crossover_hz)
         mel_hr, wav = self.synthesize(x)
-        return self._postprocess(x, wav, mel_hr).float()
+        with span("egr.merge"):
+            return self._postprocess(x, wav, mel_hr).float()
 
     def _postprocess(self, x: torch.Tensor, wav: torch.Tensor,
                      mel_hr: torch.Tensor) -> torch.Tensor:
@@ -309,62 +317,99 @@ class FlashSRPipeline:
         ``meta["wire_scale"]``; the returned buffer then holds int16
         samples that ``AudioBuffer.numpy()`` dequantizes.  "auto" takes
         pcm16 when the samples are host numpy and the pipeline runs on
-        the card (``EGREGORA_WIRE=f32`` turns it off); "f32" never."""
+        the card (``EGREGORA_WIRE=f32`` turns it off); "f32" never.
+
+        Spans (``utils.profiling``): ``egr.process`` (attributes
+        ``channels``, ``in_sr``, ``samples``; counts ``rows``, the chunk
+        rows, and the pcm16 wire's ``wire_bytes_in`` and
+        ``wire_bytes_out``) over ``egr.wire.encode``, ``egr.wire.h2d``,
+        ``egr.resample.in``, ``egr.chunk``, ``egr.forward``,
+        ``egr.stitch``, ``egr.resample.out`` and ``egr.wire.quantise``."""
         in_sr = int(audio.sample_rate)
         out_sr = int(output_sr)
-        mesh = self._resolve_mesh(mesh)
-        pad_mult = int(np.lcm(max(pad_to_multiple, 1), mesh.size)) if mesh else pad_to_multiple
-        total48 = resampled_length(audio.samples.shape[-1], in_sr, REQ_SR)
-        k = -(-num_chunks(total48, CHUNK_SAMPLES, HOP_SAMPLES) // pad_mult) * pad_mult
-        if max_batch is not None and k > max_batch:
-            b = int(max_batch)
-            if mesh:
-                b = -(-b // mesh.size) * mesh.size
-            return self._process_streaming(audio, lowpass_input, out_sr, pad_mult, b, mesh)
+        with span("egr.process", channels=audio.channels, in_sr=in_sr,
+                  samples=audio.num_samples):
+            mesh = self._resolve_mesh(mesh)
+            pad_mult = (int(np.lcm(max(pad_to_multiple, 1), mesh.size)) if mesh
+                        else pad_to_multiple)
+            total48 = resampled_length(audio.samples.shape[-1], in_sr, REQ_SR)
+            k = -(-num_chunks(total48, CHUNK_SAMPLES, HOP_SAMPLES) // pad_mult) * pad_mult
+            if max_batch is not None and k > max_batch:
+                b = int(max_batch)
+                if mesh:
+                    b = -(-b // mesh.size) * mesh.size
+                return self._process_streaming(audio, lowpass_input, out_sr, pad_mult, b, mesh)
 
-        env_f32 = os.environ.get("EGREGORA_WIRE", "").lower() == "f32"
-        use_wire = wire == "pcm16" or (
-            wire == "auto" and not env_f32 and isinstance(audio.samples, np.ndarray)
-            and self.device.type != "cpu")
-        meta = dict(audio.meta)
-        if use_wire:
-            xs = np.asarray(audio.samples, dtype=np.float32)
-            in_scale = max(1.0, float(np.max(np.abs(xs))) if xs.size else 1.0)
-            q = torch.from_numpy(pcm16_encode(xs / np.float32(in_scale))).to(self.device)
-            x = q.float() * np.float32(in_scale / 32767.0)
-        else:
-            x = torch.as_tensor(audio.samples).to(self.device, torch.float32)
-        x = resample(x, in_sr, REQ_SR)
-        c, total = x.shape
-        chunks, starts, lengths = chunk_batch(x, CHUNK_SAMPLES, HOP_SAMPLES,
-                                              pad_to_multiple=pad_mult)
-        preds = self._sharded_forward(mesh, chunks.reshape(-1, CHUNK_SAMPLES), lowpass_input)
-        out = wola_stitch(preds.reshape(chunks.shape), starts, lengths, total, CHUNK_SAMPLES)
-        out = resample(out, REQ_SR, out_sr)
-        if use_wire:
-            scale = torch.clamp(out.abs().max(), min=1.0)
-            out = torch.round(torch.clamp(out / scale, -1.0, 1.0) * 32767.0).to(torch.int16)
-            meta["wire"] = "pcm16"
-            meta["wire_scale"] = scale
-        return AudioBuffer(out, out_sr, meta)
+            env_f32 = os.environ.get("EGREGORA_WIRE", "").lower() == "f32"
+            use_wire = wire == "pcm16" or (
+                wire == "auto" and not env_f32 and isinstance(audio.samples, np.ndarray)
+                and self.device.type != "cpu")
+            meta = dict(audio.meta)
+            if use_wire:
+                with span("egr.wire.encode"):
+                    xs = np.asarray(audio.samples, dtype=np.float32)
+                    in_scale = max(1.0, float(np.max(np.abs(xs))) if xs.size else 1.0)
+                    q = pcm16_encode(xs / np.float32(in_scale))
+                with span("egr.wire.h2d"):
+                    x = torch.from_numpy(q).to(self.device).float() * np.float32(
+                        in_scale / 32767.0)
+                count("wire_bytes_in", q.nbytes)
+            else:
+                with span("egr.wire.h2d"):
+                    x = torch.as_tensor(audio.samples).to(self.device, torch.float32)
+            with span("egr.resample.in"):
+                x = resample(x, in_sr, REQ_SR)
+            c, total = x.shape
+            with span("egr.chunk"):
+                chunks, starts, lengths = chunk_batch(x, CHUNK_SAMPLES, HOP_SAMPLES,
+                                                      pad_to_multiple=pad_mult)
+            count("rows", chunks.shape[0] * c)
+            with span("egr.forward"):
+                preds = self._sharded_forward(mesh, chunks.reshape(-1, CHUNK_SAMPLES),
+                                              lowpass_input)
+            with span("egr.stitch"):
+                out = wola_stitch(preds.reshape(chunks.shape), starts, lengths, total,
+                                  CHUNK_SAMPLES)
+            with span("egr.resample.out"):
+                out = resample(out, REQ_SR, out_sr)
+            if use_wire:
+                with span("egr.wire.quantise"):
+                    scale = torch.clamp(out.abs().max(), min=1.0)
+                    out = torch.round(torch.clamp(out / scale, -1.0, 1.0) * 32767.0).to(
+                        torch.int16)
+                count("wire_bytes_out", out.numel() * out.element_size())
+                meta["wire"] = "pcm16"
+                meta["wire_scale"] = scale
+            return AudioBuffer(out, out_sr, meta)
 
     def _process_streaming(self, audio: AudioBuffer, lowpass_input: bool, out_sr: int,
                            pad_to_multiple: int, b: int, mesh=None) -> AudioBuffer:
         """Fixed-size batches of ``b`` chunks folded into running dense
-        OLA accumulators: O(batch) activations, O(total) accumulators."""
-        x = torch.as_tensor(audio.samples).to(self.device, torch.float32)
-        x = resample(x, int(audio.sample_rate), REQ_SR)
+        OLA accumulators: O(batch) activations, O(total) accumulators.
+        Inside ``process``'s span: ``egr.forward`` and ``egr.stitch`` once
+        a batch."""
+        with span("egr.wire.h2d"):
+            x = torch.as_tensor(audio.samples).to(self.device, torch.float32)
+        with span("egr.resample.in"):
+            x = resample(x, int(audio.sample_rate), REQ_SR)
         c, total = x.shape
-        chunks, _, lengths = chunk_batch(x, CHUNK_SAMPLES, HOP_SAMPLES,
-                                         pad_to_multiple=int(np.lcm(pad_to_multiple, b)))
+        with span("egr.chunk"):
+            chunks, _, lengths = chunk_batch(x, CHUNK_SAMPLES, HOP_SAMPLES,
+                                             pad_to_multiple=int(np.lcm(pad_to_multiple, b)))
         k = chunks.shape[0]               # a multiple of b; starts = i*hop
+        count("rows", k * c)
         alloc = (k + 1) * HOP_SAMPLES
         acc = torch.zeros(c, alloc, device=self.device)
         wsum = torch.zeros(alloc, device=self.device)
         for s0 in range(0, k, b):
-            pred = self._sharded_forward(mesh, chunks[s0: s0 + b].reshape(-1, CHUNK_SAMPLES),
-                                         lowpass_input)
-            wola_accumulate_dense(pred.reshape(b, c, CHUNK_SAMPLES), lengths[s0: s0 + b],
-                                  HOP_SAMPLES, acc, wsum, s0 * HOP_SAMPLES)
-        out = wola_finalize(acc[:, :total], wsum[:total])
-        return AudioBuffer(resample(out, REQ_SR, out_sr), out_sr, dict(audio.meta))
+            with span("egr.forward"):
+                pred = self._sharded_forward(
+                    mesh, chunks[s0: s0 + b].reshape(-1, CHUNK_SAMPLES), lowpass_input)
+            with span("egr.stitch"):
+                wola_accumulate_dense(pred.reshape(b, c, CHUNK_SAMPLES), lengths[s0: s0 + b],
+                                      HOP_SAMPLES, acc, wsum, s0 * HOP_SAMPLES)
+        with span("egr.stitch"):
+            out = wola_finalize(acc[:, :total], wsum[:total])
+        with span("egr.resample.out"):
+            out = resample(out, REQ_SR, out_sr)
+        return AudioBuffer(out, out_sr, dict(audio.meta))

@@ -14,6 +14,7 @@ from typing import Optional
 import torch
 
 from ..models.flashsr.pipeline import FlashSRPipeline
+from ..utils.profiling import count, span
 from .base import DeviceNode, buffer_to_comfy, to_buffer
 
 FUNCTION = "run"
@@ -43,6 +44,7 @@ class EgregoraAudioSuperResolution(DeviceNode):
         # one cached pipeline, rebuilt when DEVICE names another device
         if cls._PIPE is None or cls._PIPE.device.type != torch.device(cls.DEVICE).type:
             from ..models.flashsr.distill import resolve_flashsr
+            count("pipeline_builds")
             cfg, params, source = resolve_flashsr()
             pipe = FlashSRPipeline(cfg, params=params, device=cls.DEVICE)
             pipe.weight_source = source   # distilled-istft | distilled | random
@@ -52,10 +54,13 @@ class EgregoraAudioSuperResolution(DeviceNode):
     def run(self, audio=None, lowpass_input=False, output_sr="48000"):
         # samples stay host-side: on the card the pipeline's dispatch edge
         # then moves them as pcm16 (half the bytes each way)
-        buf = to_buffer(audio)
-        out = self._pipeline().process(buf, lowpass_input=bool(lowpass_input),
-                                       output_sr=int(output_sr))
-        return (buffer_to_comfy(out),)
+        with span("egr.node.upscale"):
+            with span("egr.node.audio_in"):
+                buf = to_buffer(audio)
+            out = self._pipeline().process(buf, lowpass_input=bool(lowpass_input),
+                                           output_sr=int(output_sr))
+            with span("egr.node.audio_out"):
+                return (buffer_to_comfy(out),)
 
 
 NODE_CLASS_MAPPINGS = {"EgregoraAudioUpscaler": EgregoraAudioSuperResolution}

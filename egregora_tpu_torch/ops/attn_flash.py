@@ -34,6 +34,7 @@ import torch
 import torch.nn.functional as F
 
 from ..utils import cuda_build
+from ..utils.profiling import is_recording
 from .attn_rows import FLOP_LOG      # one FLOP log with attn_rows, as in the JAX package
 
 KERNEL_D = (32, 64, 128, 256, 512)     # head sizes csrc/attn_online.cu is built for
@@ -112,7 +113,7 @@ def flash_online_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def flash_online(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  block_q: int = 512, block_k: int = 1024) -> torch.Tensor:
     """Exact attention ``[BH, N, D]`` (scale ``D**-0.5``), k-blocked."""
-    if q.dim() >= 2:
+    if is_recording() and q.dim() >= 2:
         FLOP_LOG.append(4 * q.shape[:-2].numel() * q.shape[-2] ** 2 * q.shape[-1])
     if q.device.type == "cpu":
         return flash_online_plain(q, k, v, block_q, block_k)

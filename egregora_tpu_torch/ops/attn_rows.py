@@ -33,6 +33,7 @@ import torch
 import torch.nn.functional as F
 
 from ..utils import cuda_build
+from ..utils.profiling import is_recording
 
 KERNEL_D = (32, 64, 128, 256, 512)     # head sizes csrc/attn_rows.cu is built for
 # bf16 tile by D: (q rows a block, keys a K/V tile).  A ring slot holds
@@ -46,7 +47,9 @@ ENTRIES = {torch.bfloat16: "attn_rows_bf16", torch.float32: "attn_rows_f32"}
 # counted where the kernel launches and nowhere else
 launches = 0
 launches_by_shape: collections.Counter = collections.Counter()
-# the FLOPs of every call of the public function, appended whatever the
+# the FLOPs of every call of the public function while spans record
+# (``utils.profiling.is_recording``: a profiler session or a ``recording()``
+# block, so that a served path grows no list), appended whatever the
 # route (kernel or plain): an operator-level count sees none of a hand
 # kernel's work, as XLA's cost analysis sees none of a Pallas call's
 # (the JAX ``attn_pallas.FLOP_LOG``: ``4 * BH * N * N * D`` a call, one
@@ -137,7 +140,7 @@ class AttnRows(torch.autograd.Function):
 def attn_rows(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """Exact attention ``[BH, N, D]`` (scale ``D**-0.5``), through
     ``AttnRows`` where autograd records."""
-    if q.dim() >= 2:
+    if is_recording() and q.dim() >= 2:
         FLOP_LOG.append(4 * q.shape[:-2].numel() * q.shape[-2] ** 2 * q.shape[-1])
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
         return AttnRows.apply(q, k, v)

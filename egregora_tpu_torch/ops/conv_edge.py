@@ -42,6 +42,7 @@ import torch
 import torch.nn.functional as F
 
 from ..utils import cuda_build
+from ..utils.profiling import is_recording
 
 TC, CC = "tensor cores", "CUDA cores"
 ENTRIES = {(torch.bfloat16, TC): "conv_edge_bf16_tc", (torch.bfloat16, CC): "conv_edge_bf16_cc",
@@ -89,7 +90,9 @@ F32_PLAN = Plan(0, CC_COLS, ROW_STEP, 256, 10 * 34 * 36 * 4 + 9 * 32 * 4, 0)
 launches = 0
 launches_by_shape: collections.Counter = collections.Counter()
 launches_by_route: collections.Counter = collections.Counter()
-# the FLOPs of every call of the public function, appended whatever the
+# the FLOPs of every call of the public function while spans record
+# (``utils.profiling.is_recording``: a profiler session or a ``recording()``
+# block, so that a served path grows no list), appended whatever the
 # route (kernel or plain): an operator-level count sees none of a hand
 # kernel's work, as XLA's cost analysis sees none of a Pallas call's
 # (the JAX ``conv_edge.FLOP_LOG``: ``2 * 9 * B * F * M * C`` a call)
@@ -209,7 +212,7 @@ def tap_partials_model(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor
 def conv3x3_out1(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor,
                  f_tile: int = 64) -> torch.Tensor:
     """``[B, F, M, C] x [3, 3, C, 1] -> [B, F, M, 1]`` float32 ('SAME')."""
-    if x.dim() == 4:
+    if is_recording() and x.dim() == 4:
         b, f, m, c = x.shape
         FLOP_LOG.append(2 * 9 * b * f * m * c)
     if x.device.type == "cpu":

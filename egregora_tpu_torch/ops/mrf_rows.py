@@ -20,6 +20,7 @@ from typing import Sequence
 import torch
 
 from ..utils import cuda_build
+from ..utils.profiling import is_recording
 from .mrf_fused import (branch_halo, branch_plain, branch_weights, check_operands,
                         check_tile, kernel_operands, workspace)
 
@@ -27,7 +28,9 @@ from .mrf_fused import (branch_halo, branch_plain, branch_weights, check_operand
 # counted where the kernel launches and nowhere else
 launches = 0
 launches_by_shape: collections.Counter = collections.Counter()
-# the FLOPs of every call of the public function, appended whatever the
+# the FLOPs of every call of the public function while spans record
+# (``utils.profiling.is_recording``: a profiler session or a ``recording()``
+# block, so that a served path grows no list), appended whatever the
 # route (kernel or plain): an operator-level count sees none of a hand
 # kernel's work, as XLA's cost analysis sees none of a Pallas call's
 # (the JAX ``mrf_rows.FLOP_LOG``: ``4 * B * T * k * C * C * n_dil`` a
@@ -71,7 +74,7 @@ def mrf_branch_rows(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
                     dilations: Sequence[int] = (1, 3, 5)) -> torch.Tensor:
     """One MRF branch fused: ``[B, T, C] -> [B, T, C]``; ``w [n_dil, 2, k,
     C, C]`` (kernel size k from its shape), ``bias [n_dil, 2, C]``."""
-    if x.dim() == 3 and w.dim() == 5:
+    if is_recording() and x.dim() == 3 and w.dim() == 5:
         b, t, c = x.shape
         FLOP_LOG.append(4 * b * t * w.shape[2] * c * c * len(dilations))
     if x.device.type == "cpu":

@@ -20,6 +20,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..utils.profiling import count
+
 
 @functools.lru_cache(maxsize=32)
 def hann_symmetric(n: int) -> np.ndarray:
@@ -43,7 +45,9 @@ def device_tensor(array_fn, *args, device: str = "cpu") -> torch.Tensor:
     """``torch.from_numpy(array_fn(*args))`` on ``device``, cached: the
     constant matrices of the DSP ops are made once per device.  Made
     outside inference mode, so that a constant first made by an inference
-    call can still be saved for a training step's backward."""
+    call can still be saved for a training step's backward.  Each build
+    (a miss) is counted as ``const_builds``."""
+    count("const_builds")
     with torch.inference_mode(False):
         return torch.from_numpy(np.ascontiguousarray(array_fn(*args))).to(device)
 

@@ -49,6 +49,7 @@ from egregora_tpu_torch.ops import conv_edge as t_edge
 from egregora_tpu_torch.ops import fft as t_fft
 from egregora_tpu_torch.ops import mrf_rows as t_mrf
 from egregora_tpu_torch.utils import native as t_native
+from egregora_tpu_torch.utils import profiling as t_profiling
 from egregora_tpu_torch.utils import weights as t_weights
 
 DFT_TOL = 1e-5
@@ -66,10 +67,13 @@ def _zeros(*shape):
 
 @pytest.fixture()
 def empty_logs():
+    """Empty FLOP logs, and the port's logging on: it appends only while
+    spans record (``utils.profiling.recording``)."""
     for log in (j_attn.FLOP_LOG, j_mrf.FLOP_LOG, j_edge.FLOP_LOG,
                 t_attn.FLOP_LOG, t_mrf.FLOP_LOG, t_edge.FLOP_LOG):
         log.clear()
-    yield
+    with t_profiling.recording():
+        yield
     for log in (j_attn.FLOP_LOG, j_mrf.FLOP_LOG, j_edge.FLOP_LOG,
                 t_attn.FLOP_LOG, t_mrf.FLOP_LOG, t_edge.FLOP_LOG):
         log.clear()

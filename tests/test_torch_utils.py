@@ -3,7 +3,11 @@
 * ``utils.device``: the platforms seen and ``ensure_accelerator``'s
   message where there is no card;
 * ``utils.profiling``: ``NodeTimer`` and ``trace`` writing one Chrome
-  trace on the CPU;
+  trace on the CPU; ``span`` and ``count`` off (one shared no-op), inside
+  ``recording()`` (parents, call ids, counts, the bounded buffer) and
+  under ``torch.profiler`` (each record inside its profiler event); the
+  span tree of an upscaler node call and of ``process`` on the pcm16 wire,
+  at a small configuration;
 * ``utils.fetch`` against a local ``http.server`` with Range support
   (resume, sha256 mismatch, at most one first-use attempt a directory,
   ``EGREGORA_TPU_OFFLINE``), and its wiring into
@@ -77,6 +81,150 @@ def test_trace_writes_a_chrome_trace(tmp_path):
     assert len(files) == 1
     names = {ev.get("name") for ev in json.loads(files[0].read_text())["traceEvents"]}
     assert "aten::matmul" in names or "aten::mm" in names
+
+
+@pytest.fixture()
+def records(monkeypatch):
+    """An empty span buffer and counter totals for the test."""
+    monkeypatch.setattr(profiling, "_records", profiling.deque(maxlen=profiling.MAX_RECORDS))
+    monkeypatch.setattr(profiling, "_totals", {})
+
+
+def _all():
+    return profiling.spans(0, 2 ** 63)
+
+
+def test_span_off_is_one_shared_no_op(records):
+    assert not profiling.is_recording()
+    a, b = profiling.span("egr.x"), profiling.span("egr.y", rows=3)
+    assert a is b
+    with a:
+        profiling.count("rows", 5)
+    assert _all() == [] and profiling.counters() == {}
+    t = profiling.NodeTimer()
+    with t.measure("Node"):
+        pass
+    assert _all() == [] and t.summary()["Node"]["calls"] == 1.0
+
+
+def test_span_tree_call_ids_and_counts(records):
+    with profiling.recording():
+        assert profiling.is_recording()
+        for _ in range(2):
+            with profiling.span("egr.outer", k=1):
+                profiling.count("rows", 2)
+                with profiling.span("egr.inner"):
+                    profiling.count("rows", 3)
+                    profiling.count("bytes", 10)
+                profiling.count("rows")
+    assert not profiling.is_recording()
+    recs = _all()
+    assert [r.name for r in recs] == ["egr.outer", "egr.inner"] * 2
+    o1, i1, o2, i2 = recs
+    assert o1.parent is None and i1.parent == o1.index and i2.parent == o2.index
+    assert o1.call == i1.call != o2.call == i2.call
+    assert o1.attrs == {"k": 1} and i1.attrs == {}
+    assert o1.counts == {"rows": 3} and i1.counts == {"rows": 3, "bytes": 10}
+    assert profiling.counters() == {"rows": 12, "bytes": 20}
+    assert all(r.t0_ns <= r.t1_ns for r in recs)
+    assert o1.t0_ns <= i1.t0_ns and i1.t1_ns <= o1.t1_ns <= o2.t0_ns
+    assert profiling.spans(o2.t0_ns, o2.t1_ns) == [o2, i2]
+
+
+def test_span_buffer_is_bounded(monkeypatch):
+    monkeypatch.setattr(profiling, "_records", profiling.deque(maxlen=16))
+    with profiling.recording():
+        for i in range(40):
+            with profiling.span("egr.s", i=i):
+                pass
+    recs = _all()
+    assert len(recs) == 16 and [r.attrs["i"] for r in recs] == list(range(24, 40))
+
+
+def test_spans_lie_inside_their_profiler_events(records):
+    from torch.profiler import ProfilerActivity, profile
+
+    x = torch.randn(32, 32)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        assert profiling.is_recording()
+        for i in range(8):
+            with profiling.span(f"egr.p{i}"):
+                with profiling.span("egr.child"):
+                    torch.matmul(x, x)
+    assert not profiling.is_recording()
+    events = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.name().startswith("egr."):
+            events.setdefault(e.name(), []).append((e.start_ns(), e.end_ns()))
+    recs = _all()
+    assert len(recs) == 16 and len(events["egr.child"]) == 8
+    child = iter(sorted(events["egr.child"]))
+    edges = []
+    for r in recs:
+        (a, b), = events[r.name] if r.name != "egr.child" else [next(child)]
+        assert a <= r.t0_ns <= r.t1_ns <= b
+        if r.index > recs[0].index:                 # the first span pays the set-up
+            edges += [r.t0_ns - a, b - r.t1_ns]
+    # typically within 100 us; one preemption of a loaded host may stretch an edge
+    assert np.median(edges) < 100_000 and max(edges) < 1_000_000
+
+
+@pytest.fixture(scope="module")
+def small_pipe():
+    from test_torch_pipeline import _cfgs
+    from egregora_tpu_torch.models.flashsr.pipeline import FlashSRPipeline
+    return FlashSRPipeline(_cfgs()[1], seed=0, device="cpu")
+
+
+def _tree(recs):
+    by_index = {r.index: r for r in recs}
+    return [(r.name, by_index[r.parent].name if r.parent is not None else None)
+            for r in recs]
+
+
+def test_node_call_span_tree(records, small_pipe, monkeypatch):
+    from egregora_tpu_torch.nodes.base import node_device
+    from egregora_tpu_torch.nodes.super_resolution import EgregoraAudioSuperResolution
+
+    monkeypatch.setattr(EgregoraAudioSuperResolution, "_PIPE", small_pipe)
+    x = np.random.default_rng(0).uniform(-0.5, 0.5, (1, 8000)).astype(np.float32)
+    with node_device("cpu"), profiling.recording():
+        (out,) = EgregoraAudioSuperResolution().run(
+            {"waveform": torch.from_numpy(x)[None], "sample_rate": 16000}, False, "48000")
+    assert out["waveform"].shape == (1, 1, 24000)
+    recs = _all()
+    assert len({r.call for r in recs}) == 1
+    assert _tree(recs) == [
+        ("egr.node.upscale", None), ("egr.node.audio_in", "egr.node.upscale"),
+        ("egr.process", "egr.node.upscale"), ("egr.wire.h2d", "egr.process"),
+        ("egr.resample.in", "egr.process"), ("egr.chunk", "egr.process"),
+        ("egr.forward", "egr.process"), ("egr.mel", "egr.forward"),
+        ("egr.vae.encode", "egr.forward"), ("egr.unet", "egr.forward"),
+        ("egr.vae.decode", "egr.forward"), ("egr.vocoder", "egr.forward"),
+        ("egr.merge", "egr.forward"), ("egr.stitch", "egr.process"),
+        ("egr.resample.out", "egr.process"), ("egr.node.audio_out", "egr.node.upscale")]
+    proc = recs[2]
+    assert proc.attrs == {"channels": 1, "in_sr": 16000, "samples": 8000}
+    assert proc.counts == {"rows": 1}
+    assert profiling.counters().get("pipeline_builds", 0) == 0
+    assert profiling.counters().get("noise_builds", 0) <= 1
+
+
+def test_process_wire_spans_and_bytes(records, small_pipe):
+    x = np.random.default_rng(1).uniform(-0.9, 0.9, (1, 16000)).astype(np.float32)
+    with profiling.recording():
+        out = small_pipe.process(AudioBuffer(x, 16000), wire="pcm16")
+        y = out.numpy()
+    assert out.samples.dtype == torch.int16 and y.shape == (1, 48000)
+    recs = _all()
+    names = [r.name for r in recs if r.parent == recs[0].index]
+    assert recs[0].name == "egr.process" and names == [
+        "egr.wire.encode", "egr.wire.h2d", "egr.resample.in", "egr.chunk", "egr.forward",
+        "egr.stitch", "egr.resample.out", "egr.wire.quantise"]
+    assert recs[0].counts == {"rows": 1, "wire_bytes_in": 2 * 16000,
+                              "wire_bytes_out": 2 * 48000}
+    tot = profiling.counters()
+    assert tot["wire_bytes_in"] == 32000 and tot["wire_bytes_out"] == 96000
 
 
 # ---- fetch: a local server only ----

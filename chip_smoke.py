@@ -18,6 +18,14 @@ Phases, one line each on standard output:
    lines: K3's blocks at ``K3_SHAPES`` and K4's tile held to the
    wrappers'), and the SASS lines (``cuobjdump -sass``) that show K3's
    bf16 route on the tensor cores (HGMMA) fed by TMA (UTMALDG);
+1b. the pcm16 wire's input (``wire_phase``): ``core.audio.pcm16_roundtrip_``
+   on the card against the host's numpy path it replaced, bit for bit,
+   on a 240 s stereo song and a 12 s mono voice file above full scale,
+   beside two planted faults that must change some sample (halves
+   rounded away from zero; the peak divided as a host scalar, which the
+   card turns into a product with its reciprocal), and the dequantising
+   constant for 2^20 peaks; the card's time, the host's and the
+   pageable copies up of float32 and int16;
 2. each kernel against its plain PyTorch version on the card, at the
    shapes the main paths give it and at a ragged length, beside planted
    faults that the limits must reject, with the kernel's, the plain
@@ -1444,6 +1452,124 @@ def expected_counts(per_item: dict, b: int, batches: int) -> dict:
            "iir_lowpass": {}, "flash_online": {}, "conv3x3_out1": {}}
     for kernel, shapes in per_item.items():
         out[kernel] = {(b, c, t): k * batches for (_, c, t), k in shapes.items()}
+    return out
+
+
+# the wire gate's arrays: (label, channels, seconds, rate, peak); a song
+# as the music cell serves, and a voice file above full scale (peak > 1)
+WIRE_CASES = (("song", 2, 240.0, 44100, 0.93), ("voice", 1, 12.0, 16000, 1.7))
+WIRE_FAULTS = ("half_away", "host_divisor")
+
+
+def host_wire(xs):
+    """The pcm16 wire's input as the host computed it before it moved to
+    the card: the numpy peak scan and ``pcm16_encode`` on the host, the
+    int16 copy up, the dequantising product on the card (left there)."""
+    import numpy as np
+    import torch
+
+    from egregora_tpu_torch.core.audio import pcm16_encode
+    in_scale = max(1.0, float(np.max(np.abs(xs))) if xs.size else 1.0)
+    q = pcm16_encode(xs / np.float32(in_scale))
+    return torch.from_numpy(q).to("cuda").float() * np.float32(in_scale / 32767.0)
+
+
+def planted_wire(x, fault: str):
+    """A planted fault of ``core.audio.pcm16_roundtrip_`` on a copy of card
+    tensor ``x``: ``half_away`` rounds halves away from zero where
+    ``np.rint`` rounds them to even; ``host_divisor`` divides by the peak
+    as a host scalar, which the card turns into a product with its
+    reciprocal."""
+    import torch
+    x = x.clone()
+    lo, hi = torch.aminmax(x)
+    s = torch.maximum(hi, lo.neg()).clamp_(min=1.0)
+    x.div_(float(s) if fault == "host_divisor" else s).clamp_(-1.0, 1.0).mul_(32767.0)
+    x = torch.sign(x) * torch.floor(x.abs() + 0.5) if fault == "half_away" else x.round_()
+    return x.add_(0.0).mul_((s.double() / 32767.0).float())
+
+
+def wire_phase() -> dict:
+    """The pcm16 wire's input quantisation on the card
+    (``core.audio.pcm16_roundtrip_``, what ``FlashSRPipeline.process``
+    runs on its one-shot path) against the host path it replaced
+    (``host_wire``), bit for bit, on a song-length stereo array and a
+    voice-length mono one above full scale, each seeded uniform noise
+    (which puts thousands of samples on exact half steps); beside the
+    planted faults (``WIRE_FAULTS``), each of which must change some
+    sample (``host_divisor`` only where the peak is above 1); and the
+    dequantising constant ``float32(s / 32767)`` for 2^20 float32 peaks
+    in [1, 10^4) against numpy's.  Times: the card's quantisation (CUDA
+    events), the host path (``host_wire``, host clock), and the pageable
+    copy up of the float32 samples and of the int16 samples it replaced."""
+    import numpy as np
+    import torch
+
+    from egregora_tpu_torch.core.audio import pcm16_roundtrip_
+
+    def bits(t):
+        return t.numpy().view(np.int32)
+
+    def wall_ms(fn, reps=3):
+        best = float("inf")
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            best = min(best, (time.perf_counter() - t0) * 1e3)
+        return best
+
+    out, failures = {}, []
+    for i, (label, c, seconds, sr, peak) in enumerate(WIRE_CASES):
+        rng = np.random.default_rng(2100 + i)
+        xs = (peak * rng.uniform(-1.0, 1.0, (c, int(seconds * sr)))).astype(np.float32)
+        xs[-1, 11] = -peak                  # the peak on a negative sample
+        s = max(1.0, float(np.abs(xs).max()))
+        y = np.clip(xs / np.float32(s), -1.0, 1.0) * np.float32(32767.0)
+        ties = int(np.count_nonzero(y - np.floor(y) == 0.5))
+        want = host_wire(xs).cpu()
+        xd = torch.from_numpy(xs).to("cuda", copy=True)
+        got = pcm16_roundtrip_(xd.clone()).cpu()
+        differ = int(np.count_nonzero(bits(got) != bits(want)))
+        planted = {}
+        for fault in WIRE_FAULTS:
+            if fault == "host_divisor" and s == 1.0:
+                continue
+            planted[fault] = int(np.count_nonzero(bits(planted_wire(xd, fault).cpu())
+                                                  != bits(want)))
+        card_ms = cuda_ms(lambda: pcm16_roundtrip_(xd), 10)
+        host_ms = wall_ms(lambda: host_wire(xs))      # numpy passes, int16 copy, product
+        q16 = np.zeros(xs.shape, np.int16)
+        up32 = wall_ms(lambda: torch.from_numpy(xs).to("cuda"))
+        up16 = wall_ms(lambda: torch.from_numpy(q16).to("cuda"))
+        out[label] = {"shape": list(xs.shape), "scale": s, "half_steps": ties,
+                      "differ": differ, "planted_differ": planted, "card_ms": card_ms,
+                      "host_path_ms": host_ms, "h2d_f32_ms": up32, "h2d_i16_ms": up16}
+        log(f"pcm16 wire input, {label} {list(xs.shape)} (peak {s:g}, {ties} samples on half "
+            f"steps): card against host {differ} samples differ "
+            f"({'ok' if differ == 0 else 'FAIL'}); planted " + ", ".join(
+                f"{f} {n} differ ({'rejected' if n else 'NOT REJECTED'})"
+                for f, n in planted.items())
+            + f"; card {card_ms:.3f} ms, host path {host_ms:.1f} ms; pageable copy up "
+              f"float32 {up32:.2f} ms, int16 {up16:.2f} ms")
+        if differ:
+            failures.append(f"{label}: {differ} samples differ from the host path")
+        failures += [f"{label}: the planted fault {f} changed no sample"
+                     for f, n in planted.items() if not n]
+        if ties == 0:
+            failures.append(f"{label}: no sample on a half step, so half_away cannot show")
+    peaks = (1.0 + np.random.default_rng(2199).uniform(0.0, 1e4, 1 << 20)).astype(np.float32)
+    want_c = np.array([np.float32(float(p) / 32767.0) for p in peaks])
+    got_c = (torch.from_numpy(peaks).to("cuda").double() / 32767.0).float().cpu().numpy()
+    c_differ = int(np.count_nonzero(got_c.view(np.int32) != want_c.view(np.int32)))
+    out["constant_differ"] = c_differ
+    log(f"pcm16 wire constant float32(s / 32767), {len(peaks)} peaks: {c_differ} differ "
+        f"({'ok' if c_differ == 0 else 'FAIL'})")
+    if c_differ:
+        failures.append(f"the dequantising constant differs for {c_differ} peaks")
+    if failures:
+        raise RuntimeError("pcm16 wire gate: " + "; ".join(failures))
     return out
 
 
@@ -5690,6 +5816,7 @@ def main() -> int:
     log(f"build: {', '.join(f'{n} in {s:.1f} s' for n, s in built.items())} "
         f"(nvcc, sm_90a, in parallel: {time.perf_counter() - t0:.1f} s)")
 
+    wire_phase()
     ptxas = ptxas_report()
     mrf_ptxas = mrf_ptxas_report()
     edge_ptxas = edge_ptxas_report()

@@ -84,6 +84,24 @@ def pcm16_encode(x: ArrayLike) -> np.ndarray:
     return np.rint(np.clip(a, -1.0, 1.0) * _PCM16_SCALE).astype(np.int16)
 
 
+def pcm16_roundtrip_(x: torch.Tensor) -> torch.Tensor:
+    """The pcm16 wire's quantisation of float32 ``x``, in place on its
+    device: peaks above full scale divided down by ``s = max(1, max|x|)``,
+    quantised as ``pcm16_encode`` does and dequantised by
+    ``float32(s / 32767)``, bit for bit the host's
+    ``pcm16_encode(x / s).astype(float32) * float32(s / 32767)``.  ``s``
+    stays a 0-d tensor on the device (no host sync), and the divisor is
+    not a host scalar, which the card would turn into a product with its
+    reciprocal.  No temporary of ``x``'s size is made."""
+    if not x.numel():
+        return x
+    lo, hi = torch.aminmax(x)
+    s = torch.maximum(hi, lo.neg()).clamp_(min=1.0)
+    # + 0.0: an int16 has no -0, which rounding leaves on small negatives
+    x.div_(s).clamp_(-1.0, 1.0).mul_(_PCM16_SCALE).round_().add_(0.0)
+    return x.mul_((s.double() / _PCM16_SCALE).float())
+
+
 def pcm16_decode(x: ArrayLike) -> np.ndarray:
     """int16 -> float32 in [-1, 1] (inverse of ``pcm16_encode``)."""
     return np.asarray(_to_numpy(x), dtype=np.float32) / _PCM16_SCALE

@@ -30,7 +30,7 @@ from typing import Dict, Optional, Union
 import numpy as np
 import torch
 
-from ...core.audio import AudioBuffer, pcm16_encode
+from ...core.audio import AudioBuffer, pcm16_roundtrip_
 from ...ops.fir import fir_same
 from ...ops.resample import resample, resampled_length
 from ...ops.stft import device_tensor, istft_dense, stft_conv
@@ -311,10 +311,12 @@ class FlashSRPipeline:
         rounded up to a multiple of ``mesh.size``.
 
         ``wire``: host<->device transfer format of the one-shot path.
-        "pcm16" moves int16 samples both ways (2 bytes a sample, -90 dBFS
-        quantisation floor), dividing peaks above full scale down by
-        ``max(1, peak)`` and recording the output's factor in
-        ``meta["wire_scale"]``; the returned buffer then holds int16
+        "pcm16" quantises to 16 bits at both edges (-90 dBFS floor),
+        dividing peaks above full scale down by ``max(1, peak)``: the
+        float32 input crosses once and is quantised on the pipeline's
+        device (``core.audio.pcm16_roundtrip_``); the output is quantised
+        there and crosses as int16 (2 bytes a sample), its factor in
+        ``meta["wire_scale"]``, so the returned buffer holds int16
         samples that ``AudioBuffer.numpy()`` dequantizes.  "auto" takes
         pcm16 when the samples are host numpy and the pipeline runs on
         the card (``EGREGORA_WIRE=f32`` turns it off); "f32" never.
@@ -322,7 +324,7 @@ class FlashSRPipeline:
         Spans (``utils.profiling``): ``egr.process`` (attributes
         ``channels``, ``in_sr``, ``samples``; counts ``rows``, the chunk
         rows, and the pcm16 wire's ``wire_bytes_in`` and
-        ``wire_bytes_out``) over ``egr.wire.encode``, ``egr.wire.h2d``,
+        ``wire_bytes_out``) over ``egr.wire.h2d``, ``egr.wire.encode``,
         ``egr.resample.in``, ``egr.chunk``, ``egr.forward``,
         ``egr.stitch``, ``egr.resample.out`` and ``egr.wire.quantise``."""
         in_sr = int(audio.sample_rate)
@@ -345,18 +347,14 @@ class FlashSRPipeline:
                 wire == "auto" and not env_f32 and isinstance(audio.samples, np.ndarray)
                 and self.device.type != "cpu")
             meta = dict(audio.meta)
+            with span("egr.wire.h2d"):
+                # the wire quantises in place: a copy even where nothing crosses
+                x = torch.as_tensor(audio.samples).to(self.device, torch.float32,
+                                                      copy=use_wire)
             if use_wire:
+                count("wire_bytes_in", x.numel() * x.element_size())
                 with span("egr.wire.encode"):
-                    xs = np.asarray(audio.samples, dtype=np.float32)
-                    in_scale = max(1.0, float(np.max(np.abs(xs))) if xs.size else 1.0)
-                    q = pcm16_encode(xs / np.float32(in_scale))
-                with span("egr.wire.h2d"):
-                    x = torch.from_numpy(q).to(self.device).float() * np.float32(
-                        in_scale / 32767.0)
-                count("wire_bytes_in", q.nbytes)
-            else:
-                with span("egr.wire.h2d"):
-                    x = torch.as_tensor(audio.samples).to(self.device, torch.float32)
+                    x = pcm16_roundtrip_(x)
             with span("egr.resample.in"):
                 x = resample(x, in_sr, REQ_SR)
             c, total = x.shape

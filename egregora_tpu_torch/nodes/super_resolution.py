@@ -53,7 +53,7 @@ class EgregoraAudioSuperResolution(DeviceNode):
 
     def run(self, audio=None, lowpass_input=False, output_sr="48000"):
         # samples stay host-side: on the card the pipeline's dispatch edge
-        # then moves them as pcm16 (half the bytes each way)
+        # then runs the pcm16 wire (quantised on the card, int16 back)
         with span("egr.node.upscale"):
             with span("egr.node.audio_in"):
                 buf = to_buffer(audio)

@@ -178,3 +178,44 @@ def test_audio_buffer_and_pcm16():
     assert buf.channels == 1 and buf.num_samples == 64
     d = t_audio.AudioBuffer(t_audio.normalize_cn(a), 16000).to_comfy()
     assert d["waveform"].shape == (1,) + j_audio.normalize_cn(a).shape
+
+
+def _wire_input(case):
+    rng = np.random.default_rng(21)
+    if case == "empty":
+        return np.zeros((2, 0), np.float32)
+    if case.startswith("stereo"):
+        peak = {"stereo_peak_0.6": 0.6, "stereo_peak_3.3": 3.3}[case]
+        x = rng.uniform(-1, 1, (2, 30000)) * peak
+        x[1, 7] = -peak                         # the peak on a negative sample
+        return x.astype(np.float32)
+    if case == "halfway":
+        # samples that land exactly on k + 1/2 steps, k even and odd, either sign
+        k = np.arange(-32767, 32767)
+        x = ((k + 0.5) / 32767.0).astype(np.float32)
+        x = x[x * np.float32(32767.0) == k + 0.5]
+        assert len(x) > 1000 and len(np.unique(np.floor(x * 32767.0) % 2)) == 2
+        return np.stack([x, -x[::-1]])
+    # past full scale: quiet samples, spikes at +-2.5, and tiny negatives that round to -0
+    x = rng.uniform(-0.3, 0.3, (1, 20000))
+    x[0, ::997], x[0, 500::997] = 2.5, -2.5
+    x[0, 1::97] = -1e-6
+    return x.astype(np.float32)
+
+
+@pytest.mark.parametrize("case", ["stereo_peak_0.6", "stereo_peak_3.3", "halfway",
+                                  "past_full_scale", "empty"])
+def test_pcm16_roundtrip_on_device_equals_host_wire(case):
+    """``pcm16_roundtrip_`` (the wire's input quantisation as tensor ops on
+    the pipeline's device) bit for bit against the host path it replaces:
+    the numpy peak scan, ``pcm16_encode`` and the dequantising product;
+    in place, so the input's one float32 copy is the only one."""
+    xs = _wire_input(case)
+    in_scale = max(1.0, float(np.max(np.abs(xs))) if xs.size else 1.0)
+    q = t_audio.pcm16_encode(xs / np.float32(in_scale))
+    want = (torch.from_numpy(q).float() * np.float32(in_scale / 32767.0)).numpy()
+    x = torch.from_numpy(xs.copy())
+    got = t_audio.pcm16_roundtrip_(x)
+    assert got.data_ptr() == x.data_ptr() and got.dtype == torch.float32
+    assert got.shape == want.shape
+    np.testing.assert_array_equal(got.numpy().view(np.int32), want.view(np.int32))

@@ -219,12 +219,13 @@ def test_process_wire_spans_and_bytes(records, small_pipe):
     recs = _all()
     names = [r.name for r in recs if r.parent == recs[0].index]
     assert recs[0].name == "egr.process" and names == [
-        "egr.wire.encode", "egr.wire.h2d", "egr.resample.in", "egr.chunk", "egr.forward",
+        "egr.wire.h2d", "egr.wire.encode", "egr.resample.in", "egr.chunk", "egr.forward",
         "egr.stitch", "egr.resample.out", "egr.wire.quantise"]
-    assert recs[0].counts == {"rows": 1, "wire_bytes_in": 2 * 16000,
+    # float32 up (quantised on the pipeline's device), int16 down
+    assert recs[0].counts == {"rows": 1, "wire_bytes_in": 4 * 16000,
                               "wire_bytes_out": 2 * 48000}
     tot = profiling.counters()
-    assert tot["wire_bytes_in"] == 32000 and tot["wire_bytes_out"] == 96000
+    assert tot["wire_bytes_in"] == 64000 and tot["wire_bytes_out"] == 96000
 
 
 # ---- fetch: a local server only ----

@@ -3,20 +3,23 @@ the result line.
 
     python3 perfbench/run.py --workload <cell> --seed <n> --seconds <s> --trace <0|1>
 
+The cell's configuration names its system, ``perfbench/systems/<system>.py``
+(``spec.system``), which the run drives through its interface alone.
 Set-up (``setup_s``, from the process's start to the first timed call):
-imports, the card, the traffic pool from the seed, the cell's pipeline
-(``system.build``; the port's CUDA library is built into its ``_build/``
-on a checkout's first run, then loaded), and a warm-up of the pool's
-shapes (``warmup`` in the mix: "all" distinct chunk-row counts, or the
-"extremes", smallest and largest), after which the peak-memory counter
-is reset.  Then the window (``window.run``).  With ``--trace 1`` the
-window runs under ``torch.profiler`` (host and CUDA activity) with the
-harness's spans, and the line carries the per-layer metrics, the
-device's busy and window seconds and the breakdown; with ``--trace 0``
-the end-to-end metrics.  After the window: the peak memory, the check
-that no JAX module was loaded, the program's pipeline released, and the
-output comparison against the reference (``check``), whose numbers and
-limits end standard error and the result line.
+imports, the card, the traffic pool from the seed, the system built
+(``build``; the port's CUDA library is built into its ``_build/`` on a
+checkout's first run, then loaded), and a warm-up of the pool's shapes
+(``warmup`` in the mix: one file of each distinct count of the system's
+``rows``, "all", or the "extremes", largest and smallest), after which
+the peak-memory counter is reset.  Then the window (``window.run``).
+With ``--trace 1`` the window runs under ``torch.profiler`` (host and
+CUDA activity) with the system's spans, and the line carries the
+per-layer metrics, the device's busy and window seconds and the
+breakdown; with ``--trace 0`` the end-to-end metrics.  After the window:
+the peak memory, the check that no JAX module was loaded, the system
+released, and the output comparison against the system's reference
+(``check``), whose numbers and limits end standard error and the result
+line.
 """
 from __future__ import annotations
 
@@ -46,7 +49,7 @@ class Context:
     memory_peak_bytes: int
     device_name: str
     trace: Optional[object] = None      # trace.Reduced, traced runs
-    attn_calls: Optional[list] = None   # (b, h, n, d, itemsize) per mha call, traced runs
+    attn_calls: Optional[list] = None   # (b, h, n, d, itemsize) per attention call, traced runs
 
     def peaks(self) -> Dict:
         from .flops import peaks
@@ -70,11 +73,13 @@ def fail(msg: str, code: int = 2) -> int:
     return code
 
 
-def warmup_items(pool, mode: str):
-    from .window import chunk_rows
+def warmup_items(pool, rows, mode: str):
+    """One item of each distinct ``rows(item)`` in the pool, largest
+    first: all of them, or with ``mode`` "extremes" the largest and the
+    smallest."""
     by_rows = {}
     for item in pool:
-        by_rows.setdefault(chunk_rows(item), item)
+        by_rows.setdefault(rows(item), item)
     rows = sorted(by_rows)
     if mode == "extremes":
         rows = [rows[-1], rows[0]] if len(rows) > 1 else rows
@@ -119,11 +124,12 @@ def run_cell(args, t_start: float, device: str, root=None, bench_dir=None) -> in
     default)."""
     import torch
 
-    from . import check, spec, system, traffic, window
+    from . import check, spec, traffic, window
 
     root = root or spec.ROOT
     bench_dir = bench_dir or spec.BENCH_DIR
     cell = spec.cell(args.workload, root)
+    system = spec.system(cell["config"], bench_dir)
     config = spec.config(cell["config"], bench_dir)
     mix = spec.traffic(cell["traffic"], bench_dir)
     lim = spec.limits(cell["name"], bench_dir)
@@ -135,16 +141,16 @@ def run_cell(args, t_start: float, device: str, root=None, bench_dir=None) -> in
     sample = check.sample_indices(traffic.sizes(mix), int(mix["sample"]), args.seed)
     phases.append(("traffic", time.perf_counter() - t))
     t = time.perf_counter()
-    pipe, node = system.build(config, root, args.seed, device)
+    served = system.build(config, root, args.seed, device)
     _sync(device)
     phases.append(("pipeline", time.perf_counter() - t))
-    warm = warmup_items(pool, mix.get("warmup", "all"))
+    warm = warmup_items(pool, served.rows, mix.get("warmup", "all"))
     warm_s = []
     for item in warm:
         s = time.perf_counter()
-        window.call_once(node, item)
+        served.call(item)
         _sync(device)
-        warm_s.append((window.chunk_rows(item), time.perf_counter() - s))
+        warm_s.append((served.rows(item), time.perf_counter() - s))
     _sync(device)
     if device == "cuda":
         torch.cuda.reset_peak_memory_stats()
@@ -153,20 +159,19 @@ def run_cell(args, t_start: float, device: str, root=None, bench_dir=None) -> in
     if args.trace:
         from torch.profiler import ProfilerActivity, profile, record_function
 
-        from .spans import Spans
-        spans = Spans(node, pipe).install()
+        spans = served.spans().install()
         prof = profile(activities=[ProfilerActivity.CPU]
                        + ([ProfilerActivity.CUDA] if device == "cuda" else []))
         prof.__enter__()
         setup_s = time.time() - t_start
         with record_function("pb.window"):
-            win = window.run(node, pool, args.seconds, set(sample))
+            win = window.run(served, pool, args.seconds, set(sample))
             _sync(device)
         prof.__exit__(None, None, None)
         spans.uninstall()
     else:
         setup_s = time.time() - t_start
-        win = window.run(node, pool, args.seconds, set(sample))
+        win = window.run(served, pool, args.seconds, set(sample))
     _sync(device)
     memory_peak = int(torch.cuda.max_memory_allocated()) if device == "cuda" else 0
 
@@ -180,9 +185,8 @@ def run_cell(args, t_start: float, device: str, root=None, bench_dir=None) -> in
     result: Dict = {}
     if args.trace:
         from . import trace as tr
-        from .spans import NAMES
         t = time.perf_counter()
-        red = tr.reduce_window(prof, NAMES)
+        red = tr.reduce_window(prof, spans.NAMES)
         ctx.trace, ctx.attn_calls = red, spans.attn_calls
         print(f"trace: {len(red.dev)} device events, kinds {red.kinds}, reduced in "
               f"{time.perf_counter() - t:.1f} s", file=sys.stderr)
@@ -202,19 +206,19 @@ def run_cell(args, t_start: float, device: str, root=None, bench_dir=None) -> in
     print(f"setup {setup_s:.3f} s: " + ", ".join(f"{k} {v:.3f}" for k, v in phases)
           + f"; warm-up (rows, s) {[(r, round(w, 4)) for r, w in warm_s]}", file=sys.stderr)
     print(f"window: {len(win.calls)} calls, {ctx.rows_done()} rows, weight source "
-          f"{pipe.weight_source}; first call at each size against its later ones (rows: first, "
+          f"{served.weight_source}; first call at each size against its later ones (rows: first, "
           f"median of later, n): {first_calls(win.calls)}", file=sys.stderr)
-    del pipe, node, spans
+    del served, spans
     system.release()
 
-    served = [i for i in sample if i in win.outputs]
+    done = [i for i in sample if i in win.outputs]
     by_index = {item.index: item for item in pool}
     t = time.perf_counter()
-    refs = check.reference_outputs(config, root, args.seed, [by_index[i] for i in served],
-                                   device)
-    files = [check.sums(win.outputs[i], r, edges, device) for i, (r, edges) in zip(served, refs)]
-    verdict = check.judge(files, lim, win.failed, len(sample))
-    print(f"reference: {len(served)} file(s) in {time.perf_counter() - t:.1f} s"
+    refs = system.reference_outputs(config, root, args.seed, [by_index[i] for i in done],
+                                    device, "fp32")
+    files = [system.sums(win.outputs[i], r, device) for i, r in zip(done, refs)]
+    verdict = check.judge(files, lim, system.NUMBERS, win.failed, len(sample))
+    print(f"reference: {len(done)} file(s) in {time.perf_counter() - t:.1f} s"
           + (f"; {verdict.reason}" if verdict.reason else ""), file=sys.stderr)
     found = forbidden_modules()
     if found:

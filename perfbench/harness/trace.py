@@ -4,7 +4,8 @@ From the profiler's raw (kineto) events:
 
 * device activity: every kernel, copy and set event on the card, as
   intervals; ``busy_s`` is the length of their union;
-* spans: the ``pb.*`` ranges of ``spans`` on the host's timeline;
+* spans: the ``pb.*`` ranges that the system's spans name (outermost
+  first, their ``NAMES``) on the host's timeline;
 * attribution: a device event belongs to every span that encloses the
   host call that launched it (matched by the CUDA correlation id of the
   runtime call; failing that, the launching operator's start), so a
@@ -30,6 +31,7 @@ class Reduced:
     dev_names: List[str]
     under: Dict[str, np.ndarray]               # span name -> bool [m], launched under it
     kinds: Dict[str, int]                      # event counts by kind, for the record
+    nesting: Tuple[str, ...] = ()              # the span names, outermost first
 
     def __post_init__(self):
         self.merged = merge(self.dev)          # the device's busy intervals, disjoint
@@ -72,20 +74,15 @@ class Reduced:
         ends = np.concatenate([self.merged[:, 0], [self.t1]])
         keep = ends > starts
         starts, ends = starts[keep], ends[keep]
-        labels = ("outside the node",) + NESTING
+        labels = ("outside the node",) + tuple(self.nesting)
         where = np.zeros(len(starts), int)
-        for i, n in enumerate(NESTING, 1):          # outermost first: the innermost wins
+        for i, n in enumerate(self.nesting, 1):     # outermost first: the innermost wins
             spans = self.spans.get(n)
             if spans is not None:
                 where[_contained(spans, 0.5 * (starts + ends))] = i
         tot = np.bincount(where, weights=ends - starts, minlength=len(labels))
         out = [(labels[i], float(tot[i])) for i in np.nonzero(tot)[0]]
         return sorted(out, key=lambda kv: -kv[1])[:k]
-
-
-# outermost first: the innermost enclosing span names a gap
-NESTING = ("pb.node.run", "pb.process", "pb.synthesize", "pb.vae.encode", "pb.vae.decode",
-           "pb.unet", "pb.vocoder", "pb.mha")
 
 
 def merge(iv: np.ndarray) -> np.ndarray:
@@ -113,7 +110,8 @@ def _contained(spans: np.ndarray, t: np.ndarray) -> np.ndarray:
 
 def reduce_window(prof, names) -> Reduced:
     """Reduce a finished ``torch.profiler.profile`` to a ``Reduced`` over
-    the ``pb.window`` span, which the harness puts around the window."""
+    the ``pb.window`` span, which the harness puts around the window, by
+    the span ``names``, outermost first (the system's spans' ``NAMES``)."""
     from torch.autograd import DeviceType
 
     events = prof.profiler.kineto_results.events()
@@ -154,4 +152,4 @@ def reduce_window(prof, names) -> Reduced:
     d, launched = d[order], launched[order]
     dev_names = [dev_names[i] for i in order]
     under = {n: _contained(sp[n], launched) for n in names}
-    return Reduced(t0, t1, sp, d, dev_names, under, dict(kinds))
+    return Reduced(t0, t1, sp, d, dev_names, under, dict(kinds), tuple(names))

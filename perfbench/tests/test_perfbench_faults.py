@@ -4,10 +4,12 @@ and the sound run as correct.  On the CPU, the cells' own limits; the
 published geometry at narrowed widths, the istft trio as shipped."""
 import pytest
 
-from perfbench.harness import faults
+from perfbench.harness import spec
 from perfbench.tests import cpu_cell
 
-CELLS = [("flashsr_istft.music", False), ("flashsr_published.voice", True)]
+CELLS = [("flashsr_istft.music", False), ("flashsr_published.voice", True),
+         ("flashsr_published.music", True)]
+FAULTS = spec.system("flashsr_istft").Upscaler.FAULTS
 
 
 @pytest.fixture(scope="module", params=CELLS, ids=[c for c, _ in CELLS])
@@ -24,17 +26,23 @@ def test_sound_run_is_correct(bench):
     assert line["correct"], line["checks"]
 
 
-@pytest.mark.parametrize("fault", faults.NAMES)
+@pytest.mark.parametrize("fault", FAULTS)
 def test_fault_is_not_correct(bench, fault, monkeypatch):
-    from perfbench.harness import system
     cell, root = bench
-    build = system.build
+    found = spec.system
 
-    def broken(*args, **kwargs):
-        pipe, node = build(*args, **kwargs)
-        faults.plant(pipe, fault)
-        return pipe, node
+    def broken_system(*args, **kwargs):
+        system = found(*args, **kwargs)
+        build = system.build
 
-    monkeypatch.setattr(system, "build", broken)
+        def broken(*args, **kwargs):
+            served = build(*args, **kwargs)
+            served.plant(fault)
+            return served
+
+        monkeypatch.setattr(system, "build", broken)
+        return system
+
+    monkeypatch.setattr(spec, "system", broken_system)
     line = cpu_cell.run(root, cell)
     assert not line["correct"], line["checks"]

@@ -34,7 +34,9 @@ def test_a_run_loads_no_jax(tmp_path):
                f"root = Path({str(tmp_path)!r})\n"
                f"cpu_cell.small_bench(root, 'flashsr_istft.music', seconds=(2.0, 2.5), pool=1)\n"
                f"line = cpu_cell.run(root, 'flashsr_istft.music')\n"
-               f"import perfbench.calibrate, perfbench.harness.spans, perfbench.harness.trace\n")
+               f"import perfbench.calibrate, perfbench.harness.trace\n"
+               f"from perfbench.harness import spec\n"
+               f"spec.system('flashsr_istft').Spans\n")
     names = loaded(imports)
     assert "egregora_tpu_torch" in names
     assert not names & set(FORBIDDEN)

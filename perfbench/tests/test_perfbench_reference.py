@@ -9,10 +9,12 @@ import numpy as np
 import pytest
 import torch
 
-from perfbench.harness import check, spec, system, traffic, weights
+from perfbench.harness import check, spec, traffic, weights
 from perfbench.reference import convert
 from perfbench.reference.pipeline import ReferenceFlashSR
 from perfbench.tests.cpu_cell import NARROW
+
+system = spec.system("flashsr_published")
 
 
 def narrow_geometry():
@@ -47,26 +49,26 @@ def port_output(pipe, item):
 @pytest.fixture(scope="module")
 def published():
     geom = narrow_geometry()
-    pipe, node = system.build({"weights": {"kind": "upstream_seeded", "weight_seed": 2501},
-                               "geometry": geom}, spec.ROOT, 5, "cpu")
+    served = system.build({"weights": {"kind": "upstream_seeded", "weight_seed": 2501},
+                           "geometry": geom}, spec.ROOT, 5, "cpu")
     sds = weights.upstream_state_dicts(json.dumps(geom), 2501, 5, "cpu")
     ref = ReferenceFlashSR(*convert.config_from_json(json.dumps(geom)), "cpu").load_upstream(sds)
-    return pipe, node, ref
+    return served, ref
 
 
 @pytest.fixture(scope="module")
 def istft():
     cfg = spec.config("flashsr_istft")
     cfg["weights"]["path"] = str(spec.ROOT / cfg["weights"]["path"])
-    pipe, node = system.build(cfg, spec.ROOT, 5, "cpu")
-    return pipe, node, ReferenceFlashSR.from_npz(cfg["weights"]["path"], "cpu")
+    served = system.build(cfg, spec.ROOT, 5, "cpu")
+    return served, ReferenceFlashSR.from_npz(cfg["weights"]["path"], "cpu")
 
 
 @pytest.mark.parametrize("which", ["published", "istft"])
 def test_reference_is_the_port_in_float32(which, request):
-    pipe, _, ref = request.getfixturevalue(which)
+    served, ref = request.getfixturevalue(which)
     item = speech()
-    y = port_output(float32_port(pipe), item)
+    y = port_output(float32_port(served.pipe), item)
     r, edges = ref.process(item.samples, item.sr)
     assert y.shape == r.shape and edges.shape == (2, 1, 2)
     assert np.linalg.norm(y - r) / np.linalg.norm(r) < 1e-5
@@ -89,16 +91,17 @@ def test_seeded_weights_are_the_published_geometry():
 
 
 @pytest.mark.parametrize("which,cell", [("published", "flashsr_published.voice"),
-                                        ("istft", "flashsr_istft.music")])
+                                        ("istft", "flashsr_istft.music"),
+                                        ("published", "flashsr_published.music")])
 def test_control_fails_where_the_port_passes(which, cell, request):
-    pipe, node, ref = request.getfixturevalue(which)
-    type(node)._PIPE = pipe          # the node's class cache holds the last pipeline built
+    served, ref = request.getfixturevalue(which)
+    type(served.node)._PIPE = served.pipe    # the node's class cache holds the last pipeline built
     lim = spec.limits(cell)
     item = speech()
-    r, edges = ref.process(item.samples, item.sr)
-    y = node.run(item.audio(), False, "48000")[0]["waveform"][0].numpy()
-    sound = check.pooled([check.sums(y, r, edges, "cpu")])
-    control = check.pooled([check.sums(ref.process(item.samples, item.sr, mode="control")[0], r,
-                                       edges, "cpu")])
-    assert all(sound[k] <= lim[k] for k in check.NUMBERS), sound
-    assert any(control[k] > lim[k] for k in check.NUMBERS), control
+    r = ref.process(item.samples, item.sr)
+    y = served.call(item)
+    sound = check.pooled([system.sums(y, r, "cpu")], system.NUMBERS)
+    control = check.pooled([system.sums(ref.process(item.samples, item.sr, mode="control")[0], r,
+                                        "cpu")], system.NUMBERS)
+    assert all(sound[k] <= lim[k] for k in system.NUMBERS), sound
+    assert any(control[k] > lim[k] for k in system.NUMBERS), control

@@ -5,8 +5,10 @@ import math
 import numpy as np
 import pytest
 
-from perfbench.harness import spec, traffic, window
+from perfbench.harness import spec, traffic
 from perfbench.tests import cpu_cell
+
+upscaler = spec.system("flashsr_published")
 
 
 def tiny(name, pool=3, lo=1.0, hi=2.0):
@@ -50,7 +52,7 @@ def test_chunk_rows_span_the_mixes_ranges():
 
     def rows(s, channels):
         n = int(round(s["seconds"] * s["sr"]))
-        return window.chunk_rows(traffic.Item(0, s["sr"], np.zeros((channels, n), np.float32)))
+        return upscaler.chunk_rows(traffic.Item(0, s["sr"], np.zeros((channels, n), np.float32)))
 
     assert {rows(s, 1) for s in voice} == set(range(1, 8))
     r = [rows(s, 2) for s in music]
@@ -83,10 +85,9 @@ def test_result_line_format(tmp_path):
 
 
 def test_merge_regions_follow_the_chunks():
-    from perfbench.harness import check
     edges = np.array([[[8000.0, 8000.0]], [[3000.0, 11000.0]], [[9000.0, 9500.0]]])
-    reg = check.merge_regions(edges, 1300)
-    hop = check.CHUNK_HOP // check.HOP
+    reg = upscaler.merge_regions(edges, 1300)
+    hop = upscaler.CHUNK_HOP // upscaler.HOP
     assert list(reg[0, 0]) == [7000.0, 9000.0]                 # chunk 0 alone
     assert list(reg[0, hop + 10]) == [2000.0, 12000.0]         # chunks 0 and 1 overlap
     assert list(reg[0, 2 * hop + 300]) == [8000.0, 10500.0]    # chunk 2 alone

@@ -41,6 +41,13 @@ The quantizer has the JAX package's training mode (``with_losses``,
 straight-through estimator, the per-stage residuals); ``encode`` and
 ``decode`` are inference (no gradient), and a trainer calls the three
 modules directly (``train.py``).
+
+Spans and counters (``utils.profiling``; they record only while a
+profiler session or ``recording()`` does): ``egr.dac.encoder`` (counting
+``dac_frames``, codec frames times channels), ``egr.dac.rvq`` and
+``egr.dac.decoder`` in ``encode`` and ``decode``, and ``egr.dac.snake``
+around each Snake (29 in the encoder and 29 in the decoder at four
+strides).
 """
 from __future__ import annotations
 
@@ -54,6 +61,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ...ops.fir import exact_f32
+from ...utils.profiling import count, span
 from ..flashsr.layers import Conv1d, ConvTranspose1d, Dense
 
 
@@ -105,7 +113,8 @@ class Snake(nn.Module):
         self.floor = floor
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return snake(x, self.alpha, self.floor)
+        with span("egr.dac.snake"):
+            return snake(x, self.alpha, self.floor)
 
 
 class ResidualUnit(nn.Module):
@@ -293,13 +302,16 @@ class DACModel(nn.Module):
         on the model's device."""
         x = self.preprocess(x_ct.float().to(self.device))
         with exact_f32():
-            z = self.encoder(x[:, None]).transpose(1, 2)
-            return self.rvq(z)
+            with span("egr.dac.encoder"):
+                z = self.encoder(x[:, None]).transpose(1, 2)
+                count("dac_frames", z.shape[0] * z.shape[1])
+            with span("egr.dac.rvq"):
+                return self.rvq(z)
 
     @torch.no_grad()
     def decode(self, z: torch.Tensor) -> torch.Tensor:
         """``[C, T/hop, D] -> [C, T]`` float32, on the model's device."""
-        with exact_f32():
+        with exact_f32(), span("egr.dac.decoder"):
             return self.decoder(z.float().to(self.device).transpose(1, 2))
 
 

@@ -30,7 +30,11 @@ item.
   to the codec's rate and returns the JAX node's codes dict
   (``latents [[z [C, T/hop, D]]]``, ``codes [C, n_q, T/hop]``, the two
   rates); decode runs every latent of the dict and resamples back,
-  without cropping to the input's length.
+  without cropping to the input's length.  Their spans,
+  ``egr.node.dac_encode`` and ``egr.node.dac_decode``, each open a call
+  id; ``latent_bytes_out`` counts the bytes of the codes dict's host
+  copies (latents and codes), ``latent_bytes_in`` those of the latents
+  the decode node reads back (``utils.profiling``).
 """
 from __future__ import annotations
 
@@ -43,6 +47,7 @@ import torch
 from ..core.audio import from_any
 from ..ops.mix import adaptive_mix, post_gain_limit, rms_vad_probs
 from ..ops.resample import resample
+from ..utils.profiling import count, span
 from .base import DeviceNode, comfy_audio, host
 
 CATEGORY = "Egregora/Enhance"
@@ -330,21 +335,24 @@ class Egregora_DAC_Encode(DeviceNode):
         return cls._MODELS[model_type]
 
     def execute(self, audio, model_type="44khz", device="auto"):
-        cn, sr, meta = _coerce_bct(audio, self.DEVICE)
-        model, model_sr = self._model(str(model_type))
-        model.to(self.DEVICE)
-        x = resample(cn, sr, model_sr) if sr != model_sr else cn
-        z, codes = model.encode(x)
-        codes_dict = {
-            "model_type": str(model_type),
-            "sample_rate": int(sr),
-            "model_sample_rate": int(model_sr),
-            "latents": [[host(z)]],
-            "codes": host(codes.int()),
-        }
-        log = (f"DAC encode ok: model={model_type}, B=1, C={cn.shape[0]}, "
-               f"sr={sr}->{model_sr}")
-        return (codes_dict, log)
+        with span("egr.node.dac_encode"):
+            cn, sr, meta = _coerce_bct(audio, self.DEVICE)
+            model, model_sr = self._model(str(model_type))
+            model.to(self.DEVICE)
+            x = resample(cn, sr, model_sr) if sr != model_sr else cn
+            z, codes = model.encode(x)
+            latents, codes_h = host(z), host(codes.int())
+            count("latent_bytes_out", latents.nbytes + codes_h.nbytes)
+            codes_dict = {
+                "model_type": str(model_type),
+                "sample_rate": int(sr),
+                "model_sample_rate": int(model_sr),
+                "latents": [[latents]],
+                "codes": codes_h,
+            }
+            log = (f"DAC encode ok: model={model_type}, B=1, C={cn.shape[0]}, "
+                   f"sr={sr}->{model_sr}")
+            return (codes_dict, log)
 
 
 class Egregora_DAC_Decode(DeviceNode):
@@ -369,15 +377,17 @@ class Egregora_DAC_Decode(DeviceNode):
         latents_b = codes.get("latents", [])
         if not latents_b:
             raise ValueError("codes.latents empty")
-        model, _ = Egregora_DAC_Encode._model(str(model_type))
-        model.to(self.DEVICE)
-        y = torch.cat([model.decode(torch.as_tensor(np.asarray(z_list[0], np.float32)))
-                       for z_list in latents_b], 0)
-        if model_sr != sr:
-            y = resample(y, model_sr, sr)
-        log = (f"DAC decode ok: model={model_type}, B={len(latents_b)}, "
-               f"C={y.shape[0]}, {model_sr}->{sr}")
-        return (comfy_audio(sr, host(y)), log)
+        with span("egr.node.dac_decode"):
+            model, _ = Egregora_DAC_Encode._model(str(model_type))
+            model.to(self.DEVICE)
+            zs = [np.asarray(z_list[0], np.float32) for z_list in latents_b]
+            count("latent_bytes_in", sum(z.nbytes for z in zs))
+            y = torch.cat([model.decode(torch.as_tensor(z)) for z in zs], 0)
+            if model_sr != sr:
+                y = resample(y, model_sr, sr)
+            log = (f"DAC decode ok: model={model_type}, B={len(latents_b)}, "
+                   f"C={y.shape[0]}, {model_sr}->{sr}")
+            return (comfy_audio(sr, host(y)), log)
 
 
 NODE_CLASS_MAPPINGS = {

@@ -7,7 +7,8 @@
   ``recording()`` (parents, call ids, counts, the bounded buffer) and
   under ``torch.profiler`` (each record inside its profiler event); the
   span tree of an upscaler node call and of ``process`` on the pcm16 wire,
-  at a small configuration;
+  at a small configuration, and of the DAC encode and decode nodes with
+  their byte counters;
 * ``utils.fetch`` against a local ``http.server`` with Range support
   (resume, sha256 mismatch, at most one first-use attempt a directory,
   ``EGREGORA_TPU_OFFLINE``), and its wiring into
@@ -208,6 +209,41 @@ def test_node_call_span_tree(records, small_pipe, monkeypatch):
     assert proc.counts == {"rows": 1}
     assert profiling.counters().get("pipeline_builds", 0) == 0
     assert profiling.counters().get("noise_builds", 0) <= 1
+
+
+def test_dac_nodes_span_tree_and_bytes(records, monkeypatch):
+    """The DAC encode and decode nodes: a call id each, the model spans
+    under them, a Snake span per Snake (29 each side at four strides),
+    the frames counted on the encoder and the codes dict's host bytes
+    each way on the nodes."""
+    from egregora_tpu_torch.models.dac.model import DACConfig, DACModel
+    from egregora_tpu_torch.nodes import enhance_extras as ee
+    from egregora_tpu_torch.nodes.base import node_device
+
+    cfg = DACConfig(encoder_dim=4, strides=(2, 2, 2, 2), decoder_dim=32, n_codebooks=2,
+                    codebook_size=16, codebook_dim=4, dtype=torch.float32)
+    monkeypatch.setattr(ee.Egregora_DAC_Encode, "_MODELS",
+                        {"44khz": (DACModel(cfg).init_params(0).eval(), 44100)})
+    x = np.random.default_rng(2).uniform(-0.5, 0.5, (1, 2, 100)).astype(np.float32)
+    with node_device("cpu"), profiling.recording():
+        codes, _ = ee.Egregora_DAC_Encode().execute(
+            {"waveform": torch.from_numpy(x), "sample_rate": 44100}, "44khz")
+        (out, _) = ee.Egregora_DAC_Decode().execute(codes)
+    assert out["waveform"].shape == (1, 2, 112)          # 7 frames of 16
+    recs = _all()
+    assert len({r.call for r in recs}) == 2
+    snakes = [("egr.dac.snake", "egr.dac.encoder")] * 29
+    assert _tree(recs) == (
+        [("egr.node.dac_encode", None), ("egr.dac.encoder", "egr.node.dac_encode")] + snakes
+        + [("egr.dac.rvq", "egr.node.dac_encode"), ("egr.node.dac_decode", None),
+           ("egr.dac.decoder", "egr.node.dac_decode")]
+        + [("egr.dac.snake", "egr.dac.decoder")] * 29)
+    lat, k = codes["latents"][0][0], codes["codes"]
+    assert lat.shape == (2, 7, 64) and k.shape == (2, 2, 7)
+    assert recs[1].counts == {"dac_frames": 14}
+    assert recs[0].counts == {"latent_bytes_out": lat.nbytes + k.nbytes}
+    assert recs[32].counts == {"latent_bytes_in": lat.nbytes}
+    assert profiling.counters()["latent_bytes_in"] == 2 * 7 * 64 * 4
 
 
 def test_process_wire_spans_and_bytes(records, small_pipe):

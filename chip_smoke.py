@@ -7,8 +7,8 @@ NVIDIA card, from the root of a checkout:
 Phases, one line each on standard output:
 
 1. the card's name and power limit (``nvidia-smi``); the builds of the
-   five sources under ``egregora_tpu_torch/csrc/`` (``attn_rows``,
-   ``mrf``, ``iir_lowpass``, ``attn_online``, ``conv_edge``;
+   six sources under ``egregora_tpu_torch/csrc/`` (``attn_rows``,
+   ``mrf``, ``iir_lowpass``, ``attn_online``, ``conv_edge``, ``snake``;
    ``utils.cuda_build.SOURCES``), one ``nvcc`` each, at once, through the
    bootstrap's build step (``install.build_native``); for each instantiation of the bf16 attention
    core (``attn_core.cuh``) and of the bf16 MRF core (``mrf_core.cuh``),
@@ -59,6 +59,13 @@ Phases, one line each on standard output:
    the 48 kHz pole, rejected at 0.9999); each row also gives the share of
    the bytes bound and the previous design's time at that shape with the
    speed-up over it (``BEFORE_MS``, in the log text only);
+4b. Snake (``snake``, ``snake_phase``) at the DAC 44 kHz decoder's last
+   stage (past 2^31 elements) and first stage, bf16 in and out: every
+   element within one bf16 ulp of the plain version rounded to bf16, the
+   bit-equal share; fault: ``sin(a x) / a``; the kernel's time beside
+   the plain version's and its bytes bound, and its four instantiations'
+   ``ptxas`` lines; the DAC phases (18 and 28) count a launch for every
+   Snake they run on the card;
 5. K1b (``flash_online``) at the attention lab's shapes and a ragged N
    (bf16 limits; fault: the last key tile dropped) and K3
    (``conv3x3_out1``) at the decoders' C = 24/64/128, the edge lab's
@@ -137,7 +144,7 @@ Phases, one line each on standard output:
    reading frame t+1 for t-1, which moves the wave by 3e-5 only); the
    node at its defaults with the post-filter on, 12 s of 16 kHz stereo,
    VAD sources rms and rnnoise, card against CPU relative L2 1e-3;
-18. the DAC codec (``dac_phase``; plain PyTorch, no kernel): each shipped
+18. the DAC codec (``dac_phase``; plain PyTorch but Snake's kernel): each shipped
    codec on 10 s of speech-like stereo at its rate, encode and decode as
    RTF, card against CPU (bf16 on both): latents and the share of codes
    that agree (reported), decode of the CPU's latents relative L2 2e-2,
@@ -273,10 +280,11 @@ Phases, one line each on standard output:
    ``ops.attn_flash`` shares, ``ops.mrf_rows``, ``ops.conv_edge``) over
    phases 2 and 5 and each path of 22b, each equal to the FLOPs this
    script reckons for the launches counted in the same span
-   (``flop_check``); a JSON line ``{"kernels": [...]}`` of all six kernels,
+   (``flop_check``); a JSON line ``{"kernels": [...]}`` of all seven kernels,
    whose times are the per-shape times of phases 2, 4 and 5 times the
-   launches that phases 7, 9, 10, 11, 12, 16, 19, 19b, 19c, 20, 22 and 22b counted,
-   and, last, ``{"ok": true, ...}``.
+   launches that phases 7, 9, 10, 11, 12, 16, 19, 19b, 19c, 20, 22 and 22b counted
+   (Snake's: one call at each shape of 4b, beside the launches of phases
+   18 and 28), and, last, ``{"ok": true, ...}``.
 
 Any failure exits non-zero and prints no ``"ok"`` line.  With no CUDA
 device it exits non-zero at once.
@@ -1202,7 +1210,7 @@ def reference_phase() -> None:
 
 
 def reset_counts() -> None:
-    """Every kernel's launch counts to 0, and the kernels' FLOP logs
+    """Every kernel's launch counts to 0 (Snake's too), and the kernels' FLOP logs
     (``FLOP_LOG`` of ``ops.attn_rows``, which ``ops.attn_flash`` shares,
     ``ops.mrf_rows`` and ``ops.conv_edge``) emptied."""
     from egregora_tpu_torch.ops import attn_flash as af
@@ -1211,10 +1219,12 @@ def reset_counts() -> None:
     from egregora_tpu_torch.ops import iir_lowpass as il
     from egregora_tpu_torch.ops import mrf_fused as mf
     from egregora_tpu_torch.ops import mrf_rows as mr
+    from egregora_tpu_torch.ops import snake as sn
     for mod in (ar, mf, mr, il, af, ce):
         mod.launches = 0
         mod.launches_by_shape.clear()
     ce.launches_by_route.clear()
+    sn.launches = 0
     for mod in (ar, mr, ce):
         mod.FLOP_LOG.clear()
 
@@ -2083,6 +2093,133 @@ def iir_entry(rows: list, counts: dict, by_path: dict) -> dict:
         "launches_by_shape": {f"{c}x{n}": k for (c, n), k in counts.items()},
         "launches_by_path": by_path,
         "shapes": rows,
+    }
+
+
+
+# ---- Snake (csrc/snake.cu) ----
+
+# the DAC 44 kHz decoder's last stage (96 channels at the sample rate, past
+# 2^31 elements) and its first (1536 channels at the frame rate), stereo,
+# at the frames of the longest song of the benchmark's music traffic
+SNAKE_FRAMES = 25356
+SNAKE_SHAPES = [(2, 96, SNAKE_FRAMES * 512, "decoder last stage"),
+                (2, 1536, SNAKE_FRAMES, "decoder first stage")]
+SNAKE_CHUNK = 1 << 28       # elements the plain version computes at once in a check
+
+
+def snake_ulps(got, ref) -> tuple:
+    """``(largest distance, elements equal bit for bit)`` of two bf16 or
+    float32 tensors of one shape, the distance counted in ulps of their
+    dtype (the gap between their bit patterns in the order of the values)."""
+    import torch
+    bits, lo = ((torch.int16, -(1 << 15)) if got.dtype == torch.bfloat16
+                else (torch.int32, -(1 << 31)))
+
+    def ordered(t):
+        i = t.contiguous().view(bits).long()
+        return torch.where(i < 0, lo - i, i)
+
+    d = (ordered(got) - ordered(ref)).abs()
+    return int(d.max()), int((d == 0).sum())
+
+
+def snake_check(x, alpha, floor: float, y) -> tuple:
+    """``(largest distance in ulps, share equal bit for bit)`` of the
+    kernel's ``y`` against ``snake_plain(x, alpha, floor)`` rounded to
+    ``y``'s dtype, computed a few channels of one batch row at a time."""
+    from egregora_tpu_torch.ops import snake as sn
+    b, c, t = x.shape
+    step = max(1, SNAKE_CHUNK // t)
+    worst, equal = 0, 0
+    for i in range(b):
+        for c0 in range(0, c, step):
+            ref = sn.snake_plain(x[i:i + 1, c0:c0 + step], alpha[c0:c0 + step], floor).to(y.dtype)
+            w, e = snake_ulps(y[i:i + 1, c0:c0 + step], ref)
+            worst, equal = max(worst, w), equal + e
+            del ref
+    return worst, equal / x.numel()
+
+
+def snake_phase() -> list:
+    """The Snake kernel (``csrc/snake.cu``) on the card at ``SNAKE_SHAPES``
+    (bf16 in, bf16 out, alphas U(0.5, 1.5) as the benchmark draws them):
+    every element within one bf16 ulp of the plain version rounded to bf16,
+    with the share equal bit for bit; beside it a planted fault (the
+    divisor without its 1e-9 and the square dropped: ``sin(a x) / a``)
+    that the limit must reject; the kernel's time, the plain version's and
+    the bound: 4 bytes an element (bf16 in, bf16 out) at the HBM rate.  No
+    PyTorch call computes Snake, so there is no library time."""
+    import torch
+
+    from egregora_tpu_torch.ops import snake as sn
+
+    rows, failures = [], []
+    for b, c, t, where in SNAKE_SHAPES:
+        gen = torch.Generator(device="cuda").manual_seed(c)
+        x = torch.randn(b, c, t, generator=gen, device="cuda", dtype=torch.bfloat16).mul_(3.0)
+        alpha = 0.5 + torch.rand(c, generator=gen, device="cuda")
+        before = sn.launches
+        y = sn.snake_kernel(x, alpha, 0.0, torch.bfloat16)
+        torch.cuda.synchronize()
+        worst, equal = snake_check(x, alpha, 0.0, y)
+        a = alpha[:, None]
+        bad = (x[:, :, :4096].float() + torch.sin(a * x[:, :, :4096].float()) / a).bfloat16()
+        bad_worst = snake_ulps(y[:, :, :4096], bad)[0]
+        n = b * c * t
+        reps = max(3, min(50, int(2e10 / n)))
+        ms = cuda_ms(lambda: sn.snake_kernel(x, alpha, 0.0, torch.bfloat16), reps)
+        plain_ms = cuda_ms(lambda: sn.snake_plain(x, alpha, 0.0).to(torch.bfloat16), 1, 1)
+        bound_ms = 4.0 * n / H100_BYTES_PER_S * 1e3
+        row = {"b": b, "c": c, "t": t, "elements": n, "where": where, "max_ulps": worst,
+               "bit_equal_share": equal, "planted_max_ulps": bad_worst, "ms": ms,
+               "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": "bytes",
+               "bound_share": bound_ms / ms, "gb_per_s": 4.0 * n / ms / 1e6}
+        rows.append(row)
+        ok = worst <= 1 and sn.launches == before + 1 + reps + 2
+        log(f"snake [{b},{c},{t}] ({where}, {n} elements): vs plain rounded to bf16 max "
+            f"{worst} ulp, bit-equal {100 * equal:.4f}% (limit 1 ulp) {'ok' if ok else 'FAIL'}; "
+            f"planted fault (sin(a x) / a): {bad_worst} ulp "
+            f"{'rejected' if bad_worst > 1 else 'NOT REJECTED'}; kernel {ms:.4f} ms "
+            f"({row['gb_per_s']:.0f} GB/s, {100 * row['bound_share']:.1f}% of the bound), plain "
+            f"{plain_ms:.3f} ms, bound {bound_ms:.4f} ms (bytes)")
+        if not ok:
+            failures.append(f"snake [{b},{c},{t}]: {worst} ulp, launches {sn.launches - before}")
+        if bad_worst <= 1:
+            failures.append(f"snake [{b},{c},{t}]: the planted fault passes")
+        del x, y, bad
+        torch.cuda.empty_cache()
+    ptxas = [{"kernel": k, **r} for k, r in ptxas_entries("snake").items()]
+    if len(ptxas) != 4:
+        failures.append(f"snake: {len(ptxas)} built kernels, expected 4 (bf16/float32 in and out)")
+    for r in ptxas:
+        log(f"ptxas snake {r['kernel']}: {r.get('registers')} registers, spill stores "
+            f"{r.get('spill_store_bytes')} B, stack {r.get('stack_bytes')} B")
+    if failures:
+        raise RuntimeError("; ".join(failures))
+    return {"shapes": rows, "ptxas": ptxas}
+
+
+def snake_entry(phase: dict, by_path: dict) -> dict:
+    """The ``kernels`` line's Snake entry: the launches the DAC paths made
+    (``by_path``) and one call's times and bound at each of
+    ``SNAKE_SHAPES``, summed (the paths launch at every stage of songs of
+    other lengths)."""
+    rows = phase["shapes"]
+    return {
+        "name": "snake", "route": "cuda",
+        "source": "egregora_tpu_torch/csrc/snake.cu",
+        "replaces": "none (the JAX package's Snake is plain jnp: "
+                    "egregora_tpu/models/dac/model.py::snake)",
+        "launches": sum(by_path.values()),
+        "max_ulps": max(r["max_ulps"] for r in rows),
+        "bit_equal_share": min(r["bit_equal_share"] for r in rows),
+        "ms": sum(r["ms"] for r in rows), "plain_ms": sum(r["plain_ms"] for r in rows),
+        "bound_ms": sum(r["bound_ms"] for r in rows), "bound_by": "bytes",
+        "library_ms": None, "library_note": "no single PyTorch call computes Snake",
+        "times_at": "one call at each of the shapes",
+        "launches_by_path": by_path,
+        "shapes": rows, "ptxas": phase["ptxas"],
     }
 
 
@@ -3390,7 +3527,8 @@ def same_tree(a, b) -> bool:
 
 
 def no_launches(phase: str) -> None:
-    """The phase ran none of the port's kernels (its modules hold none)."""
+    """The phase ran none of the kernels ``read_counts`` counts (its modules
+    hold none; the DAC phases' Snake kernel they count themselves)."""
     launched = {k: v for k, v in read_counts().items() if v}
     if launched:
         raise RuntimeError(f"{phase}: kernels launched {launched}")
@@ -3673,9 +3811,18 @@ def dac_phase(card: str) -> dict:
     from egregora_tpu_torch.nodes.base import DeviceNode
     from egregora_tpu_torch.utils.weights import _flatten, save_params
 
+    from egregora_tpu_torch.ops import snake as sn
+
     reset_counts()
     failures, results = [], {}
     enc_cls, dec_cls = ee.Egregora_DAC_Encode, ee.Egregora_DAC_Decode
+    card_snakes = [0]            # Snake modules called on a CUDA tensor
+
+    def on_card(module, args):
+        if isinstance(module, M.Snake) and args[0].is_cuda:
+            card_snakes[0] += 1
+
+    hook = torch.nn.modules.module.register_module_forward_pre_hook(on_card)
     DeviceNode.DEVICE = "cuda"
     for mt in ("16khz", "24khz", "44khz"):
         M._CACHE.pop(mt, None)
@@ -3815,7 +3962,12 @@ def dac_phase(card: str) -> dict:
         M._CACHE.pop("44khz", None)
         enc_cls._MODELS.pop("44khz", None)
         shutil.rmtree(tmp, ignore_errors=True)
+    hook.remove()
     no_launches("dac")
+    results["snake_launches"] = sn.launches
+    log(f"dac: {sn.launches} Snake kernel launches for {card_snakes[0]} Snakes run on the card")
+    if not card_snakes[0] or sn.launches != card_snakes[0]:
+        failures.append(f"dac: {sn.launches} Snake launches for {card_snakes[0]} Snakes on the card")
     if failures:
         raise RuntimeError("; ".join(failures))
     return results
@@ -5601,6 +5753,10 @@ def dac_train_phase(card: str) -> dict:
         raise RuntimeError(f"dac train: failed {bad}, ema {ema_d:.2e}, decay {decay}, gates "
                            f"{ {k: g['ok'] for k, g in gates.items()} }")
     no_launches("dac train")
+    from egregora_tpu_torch.ops import snake as sn
+    out["snake_launches"] = sn.launches
+    if not sn.launches:
+        raise RuntimeError("dac train: the Snake kernel was not launched")
     return out
 
 
@@ -5825,6 +5981,7 @@ def main() -> int:
     mrf_rows_, flops["mrf"] = flop_checked("mrf phase", mrf_phase)
     repair = repair_phase()
     k4_rows = k4_phase()
+    snake = snake_phase()
     edge, flops["edge kernels"] = flop_checked("edge kernels phase", edge_kernels_phase)
     reference_phase()
     nodes = node_phase()
@@ -5948,6 +6105,8 @@ def main() -> int:
         k["ptxas"] = [r for r in mrf_ptxas if r["rounding"] == rounding]
     kernels[3]["ptxas"] = edge_ptxas["iir_lowpass"]
     kernels[5]["ptxas"] = edge_ptxas["conv3x3_out1"]
+    kernels.append(snake_entry(snake, {"dac phase": dac["snake_launches"],
+                                       "dac train": trainers["dac"]["snake_launches"]}))
     kernels[0]["repair_shapes"] = repair["attn"]
     kernels[1]["repair_shapes"] = [r for r in repair["mrf"] if r["entry"] == "mrf_fused_cm"]
     kernels[2]["repair_shapes"] = [r for r in repair["mrf"] if r["entry"] == "mrf_rows"]

@@ -21,8 +21,11 @@ padding, which at kernel 2s and stride s pads (s // 2, s - s // 2), so
 (``transpose_kernel=False``); each conv casts its input, kernel and bias
 to ``cfg.dtype`` (bf16 unless the configuration says otherwise) and
 returns that dtype.  Snake's alpha is a float32 parameter, so ``x +
-sin^2(alpha x) / (alpha + 1e-9)`` is computed in float32, and the residual
-adds keep the dtype the JAX package's promotion gives them.  Modules are
+sin^2(alpha x) / (alpha + 1e-9)`` is computed in float32; each Snake
+returns ``cfg.dtype``, the dtype of the conv it feeds, rounded once
+(``ops.snake``: the hand-written kernel on the card, the plain version on
+the CPU), so the conv's cast of its input is a no-op.  The residual adds
+keep the dtype the JAX package's promotion gives them.  Modules are
 named as flax names them (``Conv_0``, ``EncoderBlock_1``, ``Snake_0``,
 ``proj_in_3``, ``codebook_3``), so ``dac_params_from_jax`` maps a flax tree
 key for key.
@@ -47,7 +50,7 @@ profiler session or ``recording()`` does): ``egr.dac.encoder`` (counting
 ``dac_frames``, codec frames times channels), ``egr.dac.rvq`` and
 ``egr.dac.decoder`` in ``encode`` and ``decode``, and ``egr.dac.snake``
 around each Snake (29 in the encoder and 29 in the decoder at four
-strides).
+strides), which on the card counts ``snake_launches``, one a Snake.
 """
 from __future__ import annotations
 
@@ -61,6 +64,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ...ops.fir import exact_f32
+from ...ops.snake import snake as snake_op
+from ...ops.snake import snake_plain as snake  # noqa: F401  (the plain version, under its old name)
 from ...utils.profiling import count, span
 from ..flashsr.layers import Conv1d, ConvTranspose1d, Dense
 
@@ -98,31 +103,25 @@ MODEL_TYPES = {
 }
 
 
-def snake(x: torch.Tensor, alpha: torch.Tensor, floor: float = 0.0) -> torch.Tensor:
-    """``x + sin^2(alpha x) / (alpha + 1e-9)`` over ``[B, C, T]`` in float32,
-    alpha clamped from below at ``floor`` where it is positive."""
-    a = (alpha.clamp_min(floor) if floor > 0.0 else alpha).float()[:, None]
-    x = x.float()
-    return x + torch.sin(a * x) ** 2 / (a + 1e-9)
-
-
 class Snake(nn.Module):
-    def __init__(self, channels: int, floor: float = 0.0):
+    """Snake returning ``out_dtype``, the dtype of the conv it feeds."""
+
+    def __init__(self, channels: int, floor: float, out_dtype: torch.dtype):
         super().__init__()
         self.alpha = nn.Parameter(torch.ones(channels))
-        self.floor = floor
+        self.floor, self.out_dtype = floor, out_dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         with span("egr.dac.snake"):
-            return snake(x, self.alpha, self.floor)
+            return snake_op(x, self.alpha, self.floor, self.out_dtype)
 
 
 class ResidualUnit(nn.Module):
     def __init__(self, channels: int, dilation: int, cfg: DACConfig):
         super().__init__()
-        self.Snake_0 = Snake(channels, cfg.alpha_floor)
+        self.Snake_0 = Snake(channels, cfg.alpha_floor, cfg.dtype)
         self.Conv_0 = Conv1d(channels, channels, 7, dilation, cfg.dtype)
-        self.Snake_1 = Snake(channels, cfg.alpha_floor)
+        self.Snake_1 = Snake(channels, cfg.alpha_floor, cfg.dtype)
         self.Conv_1 = Conv1d(channels, channels, 1, 1, cfg.dtype)
         self.res_scale = cfg.res_scale
 
@@ -136,7 +135,7 @@ class EncoderBlock(nn.Module):
         super().__init__()
         for i, d in enumerate((1, 3, 9)):
             self.add_module(f"ResidualUnit_{i}", ResidualUnit(cin, d, cfg))
-        self.Snake_0 = Snake(cin, cfg.alpha_floor)
+        self.Snake_0 = Snake(cin, cfg.alpha_floor, cfg.dtype)
         self.Conv_0 = Conv1d(cin, cout, 2 * stride, 1, cfg.dtype, stride=stride)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -148,7 +147,7 @@ class EncoderBlock(nn.Module):
 class DecoderBlock(nn.Module):
     def __init__(self, cin: int, cout: int, stride: int, cfg: DACConfig):
         super().__init__()
-        self.Snake_0 = Snake(cin, cfg.alpha_floor)
+        self.Snake_0 = Snake(cin, cfg.alpha_floor, cfg.dtype)
         self.ConvTranspose_0 = ConvTranspose1d(cin, cout, 2 * stride, stride, cfg.dtype)
         for i, d in enumerate((1, 3, 9)):
             self.add_module(f"ResidualUnit_{i}", ResidualUnit(cout, d, cfg))
@@ -169,7 +168,7 @@ class DACEncoder(nn.Module):
         for i, s in enumerate(c.strides):
             self.add_module(f"EncoderBlock_{i}", EncoderBlock(ch, 2 * ch, s, c))
             ch *= 2
-        self.Snake_0 = Snake(ch, c.alpha_floor)
+        self.Snake_0 = Snake(ch, c.alpha_floor, c.dtype)
         self.Conv_1 = Conv1d(ch, c.latent_dim, 3, 1, c.dtype)
         self.n_blocks = len(c.strides)
 
@@ -190,7 +189,7 @@ class DACDecoder(nn.Module):
         for i, s in enumerate(reversed(c.strides)):
             self.add_module(f"DecoderBlock_{i}", DecoderBlock(ch, ch // 2, s, c))
             ch //= 2
-        self.Snake_0 = Snake(ch, c.alpha_floor)
+        self.Snake_0 = Snake(ch, c.alpha_floor, c.dtype)
         self.Conv_1 = Conv1d(ch, 1, 7, 1, c.dtype)
         self.n_blocks, self.output_tanh = len(c.strides), c.output_tanh
 

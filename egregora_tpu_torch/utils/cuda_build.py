@@ -38,7 +38,7 @@ FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # every csrc/<name>.cu, each one library
-SOURCES = ("attn_rows", "mrf", "iir_lowpass", "attn_online", "conv_edge")
+SOURCES = ("attn_rows", "mrf", "iir_lowpass", "attn_online", "conv_edge", "snake")
 NVCC_DEFAULT = "/usr/local/cuda/bin/nvcc"
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

@@ -23,7 +23,8 @@ def csrc(tmp_path):
 
 
 def test_every_source_is_listed():
-    assert {"attn_rows", "attn_online", "mrf", "iir_lowpass", "conv_edge"} <= set(SOURCES)
+    assert {"attn_rows", "attn_online", "mrf", "iir_lowpass", "conv_edge",
+            "snake"} <= set(SOURCES)
     assert (cuda_build.CSRC / "attn_core.cuh").is_file()
 
 

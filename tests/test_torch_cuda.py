@@ -341,6 +341,142 @@ def test_iir_lowpass_rejects_what_it_does_not_take(card):
         il.iir_lowpass(torch.zeros(100, 2, device=card).t(), 0.9)   # not contiguous
 
 
+
+# ---- Snake (csrc/snake.cu) ----
+
+def _snake_cell_shapes():
+    """``(c, t)`` of every Snake of the DAC 44 kHz cell on one channel of
+    1, 17 (odd stages: T % 8 != 0) and 200 frames, once each."""
+    from perfbench.reference.dac import snake_shapes
+    g = {"encoder_dim": 64, "decoder_dim": 1536, "strides": [2, 4, 8, 8]}
+    return sorted({s for f in (1, 17, 200) for s in snake_shapes(g, f)})
+
+
+def _snake_operands(card, b, c, t, dtype, seed):
+    gen = torch.Generator(device=card).manual_seed(seed)
+    x = (3.0 * torch.randn(b, c, t, generator=gen, device=card)).to(dtype)
+    alpha = 0.5 + torch.rand(c, generator=gen, device=card)
+    alpha[::3] = 0.02                  # below the shipped codecs' floor
+    return x, alpha
+
+
+@pytest.mark.parametrize("c,t", _snake_cell_shapes())
+def test_snake_matches_plain_at_the_cells_shapes(card, c, t):
+    """bf16 in and out, stereo, at floor 0 and 0.05: every element within
+    one bf16 ulp of the plain version rounded to bf16; one launch a call."""
+    from egregora_tpu_torch.ops import snake as sn
+    x, alpha = _snake_operands(card, 2, c, t, torch.bfloat16, c * 7 + t)
+    for floor in (0.0, 0.05):
+        before = sn.launches
+        got = sn.snake(x, alpha, floor, torch.bfloat16)
+        torch.cuda.synchronize()
+        assert sn.launches == before + 1 and got.dtype == torch.bfloat16
+        worst, equal = chip_smoke.snake_ulps(got, sn.snake_plain(x, alpha, floor).bfloat16())
+        assert worst <= 1, (worst, equal)
+
+
+@pytest.mark.parametrize("x_dtype,out_dtype", [(torch.bfloat16, torch.float32),
+                                               (torch.float32, torch.bfloat16),
+                                               (torch.float32, torch.float32)])
+@pytest.mark.parametrize("b,c,t", [(2, 96, 12345), (1, 3, 7), (3, 70000, 5), (2, 64, 4096)])
+def test_snake_float32_sides_and_ragged_rows(card, x_dtype, out_dtype, b, c, t):
+    """float32 in or out, odd T (rows off the vector boundary: scalar head
+    and tail), more rows than the grid's 65535, T % 8 == 0: within one ulp
+    of the output dtype of the plain version rounded to it."""
+    from egregora_tpu_torch.ops import snake as sn
+    x, alpha = _snake_operands(card, b, c, t, x_dtype, b * c + t)
+    got = sn.snake(x, alpha, 0.05, out_dtype)
+    torch.cuda.synchronize()
+    assert got.dtype == out_dtype and got.shape == x.shape
+    worst, _ = chip_smoke.snake_ulps(got, sn.snake_plain(x, alpha, 0.05).to(out_dtype))
+    assert worst <= 1
+
+
+def test_snake_off_the_16_byte_boundary(card):
+    """An input that starts 2 bytes past a 16-byte boundary takes the
+    scalar path: the same result."""
+    from egregora_tpu_torch.ops import snake as sn
+    x, alpha = _snake_operands(card, 2, 5, 1001, torch.bfloat16, 3)
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=card)
+    shifted = buf[1:].view(x.shape)
+    shifted.copy_(x)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16
+    got = sn.snake(shifted, alpha, 0.0, torch.bfloat16)
+    assert torch.equal(got, sn.snake(x, alpha, 0.0, torch.bfloat16))
+
+
+def test_snake_past_two_to_the_31_elements(card):
+    """``[2, 96, 11.2M]`` bf16, 2.15e9 elements: the last row, which holds
+    element 2^31, against the plain version run on that row alone; and the
+    first row."""
+    from egregora_tpu_torch.ops import snake as sn
+    b, c, t = 2, 96, 11_200_000
+    assert b * c * t > 2 ** 31
+    gen = torch.Generator(device=card).manual_seed(31)
+    x = torch.randn(b, c, t, generator=gen, device=card, dtype=torch.bfloat16)
+    alpha = 0.5 + torch.rand(c, generator=gen, device=card)
+    got = sn.snake(x, alpha, 0.0, torch.bfloat16)
+    torch.cuda.synchronize()
+    for i, ch in ((b - 1, c - 1), (0, 0)):
+        ref = sn.snake_plain(x[i:i + 1, ch:ch + 1], alpha[ch:ch + 1], 0.0).bfloat16()
+        worst, _ = chip_smoke.snake_ulps(got[i:i + 1, ch:ch + 1], ref)
+        assert worst <= 1, (i, ch, worst)
+
+
+def test_snake_gradient_on_the_card(card):
+    """With grad, the kernel runs inside the autograd Function: the output
+    and the gradients for x and alpha equal autograd of the plain version
+    on the card (the clamp's zero gradient below the floor kept)."""
+    from egregora_tpu_torch.ops import snake as sn
+    x, alpha = _snake_operands(card, 2, 12, 3001, torch.bfloat16, 5)
+    grad = torch.randn(x.shape, device=card).bfloat16()
+    xk, ak = x.clone().requires_grad_(), alpha.clone().requires_grad_()
+    before = sn.launches
+    y = sn.snake(xk, ak, 0.05, torch.bfloat16)
+    y.backward(grad)
+    xr, ar = x.clone().requires_grad_(), alpha.clone().requires_grad_()
+    ref = sn.snake_plain(xr, ar, 0.05).bfloat16()
+    ref.backward(grad)
+    assert sn.launches == before + 1
+    assert chip_smoke.snake_ulps(y, ref.detach())[0] <= 1
+    assert torch.equal(xk.grad, xr.grad) and torch.equal(ak.grad, ar.grad)
+    assert torch.all(ak.grad[::3] == 0)
+
+
+def test_snake_counts_a_launch_in_every_snake_span(card):
+    """A small codec on the card: every ``egr.dac.snake`` span holds one
+    ``snake_launches``, 2 x 29 an encode and decode at four strides."""
+    import time
+
+    from egregora_tpu_torch.models.dac import model as M
+    from egregora_tpu_torch.utils import profiling
+    cfg = M.DACConfig(encoder_dim=8, decoder_dim=64, n_codebooks=2, codebook_size=16)
+    model = M.DACModel(cfg).init_params(0).to(card)
+    x = torch.rand(2, 3 * cfg.hop) - 0.5
+    with profiling.recording():
+        t0 = time.time_ns()
+        z, _ = model.encode(x)
+        model.decode(z)
+        torch.cuda.synchronize()
+        recs = [r for r in profiling.spans(t0, time.time_ns()) if r.name == "egr.dac.snake"]
+    assert len(recs) == 58 and all(r.counts == {"snake_launches": 1} for r in recs)
+
+
+def test_snake_rejects_what_it_does_not_take(card):
+    from egregora_tpu_torch.ops import snake as sn
+    x, alpha = _snake_operands(card, 2, 4, 100, torch.bfloat16, 0)
+    with pytest.raises(ValueError):
+        sn.snake(x.half(), alpha, 0.0, torch.bfloat16)                # float16
+    with pytest.raises(ValueError):
+        sn.snake(x.transpose(1, 2).contiguous().transpose(1, 2), alpha, 0.0,
+                 torch.bfloat16)                                      # not contiguous
+    with pytest.raises(ValueError):
+        sn.snake(x, alpha.double(), 0.0, torch.bfloat16)              # alpha not float32
+    with pytest.raises(ValueError):
+        sn.snake(x, alpha, 0.0, torch.float16)                        # output dtype
+    with pytest.raises(ValueError):
+        sn.snake(x, alpha.cpu(), 0.0, torch.bfloat16)                 # alpha elsewhere
+
 def _flash_online_cases():
     from egregora_tpu_torch.ops import attn_flash as af
     cases = []

@@ -1593,10 +1593,10 @@ def node_phase() -> dict:
     import numpy as np
     import torch
 
+    from egregora_tpu_torch.core.audio import from_any
     from egregora_tpu_torch.models.flashsr import pipeline as P
     from egregora_tpu_torch.models.flashsr import vocoder as V
     from egregora_tpu_torch.nodes import super_resolution
-    from egregora_tpu_torch.nodes.base import to_buffer
 
     node_cls = super_resolution.NODE_CLASS_MAPPINGS["EgregoraAudioUpscaler"]
     sr_in, sr_out = 16000, 48000
@@ -1640,7 +1640,7 @@ def node_phase() -> dict:
         results[label] = {"wall_s": wall, "rtf": SECONDS / wall, "counts": counts}
         reset_counts()
         t = time.perf_counter()
-        stream = pipe.process(to_buffer(audio), output_sr=sr_out, max_batch=2).numpy()
+        stream = pipe.process(from_any(audio), output_sr=sr_out, max_batch=2).numpy()
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t
         counts_s = read_counts()
@@ -2551,10 +2551,10 @@ def converted_phase() -> dict:
     import numpy as np
     import torch
 
+    from egregora_tpu_torch.core.audio import from_any
     from egregora_tpu_torch.models.flashsr import distill
     from egregora_tpu_torch.models.flashsr import pipeline as P
     from egregora_tpu_torch.nodes import super_resolution
-    from egregora_tpu_torch.nodes.base import to_buffer
     from egregora_tpu_torch.ops import attention
 
     cfg = published_cfg()
@@ -2608,7 +2608,7 @@ def converted_phase() -> dict:
             if i == 0:
                 reset_counts()
                 t = time.perf_counter()
-                stream = pipe.process(to_buffer(audio), output_sr=sr_out, max_batch=2).numpy()
+                stream = pipe.process(from_any(audio), output_sr=sr_out, max_batch=2).numpy()
                 torch.cuda.synchronize()
                 wall_s = time.perf_counter() - t
                 counts_s = read_counts()
@@ -4982,11 +4982,11 @@ def served_trained_phase(card: str, root: str) -> dict:
     import numpy as np
     import torch
 
+    from egregora_tpu_torch.core.audio import from_any
     from egregora_tpu_torch.models.flashsr import distill
     from egregora_tpu_torch.models.flashsr import pipeline as P
     from egregora_tpu_torch.models.flashsr import vocoder as V
     from egregora_tpu_torch.nodes import super_resolution
-    from egregora_tpu_torch.nodes.base import to_buffer
     from egregora_tpu_torch.ops import attention
     from egregora_tpu_torch.utils import profiling
 
@@ -5034,10 +5034,10 @@ def served_trained_phase(card: str, root: str) -> dict:
                 raise RuntimeError(f"{label}: launches {counts}, expected {expect}")
             got = out["waveform"].numpy()[0]
             direct = P.FlashSRPipeline(cfg, params=sd, device="cuda")
-            ref = direct.process(to_buffer(audio), lowpass_input=False, output_sr=sr_out).numpy()
+            ref = direct.process(from_any(audio), lowpass_input=False, output_sr=sr_out).numpy()
             shipped_cfg, shipped_sd = distill.load_pretrained_with_cfg(distill.SHIPPED_DIR / name)
             wrong = P.FlashSRPipeline(shipped_cfg, params=shipped_sd, device="cuda").process(
-                to_buffer(audio), lowpass_input=False, output_sr=sr_out).numpy()
+                from_any(audio), lowpass_input=False, output_sr=sr_out).numpy()
             err = float(np.abs(got - ref).max())
             bad = float(np.abs(wrong - ref).max())
             kernels = served_kernel_checks(label, calls)

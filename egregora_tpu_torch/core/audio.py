@@ -2,9 +2,9 @@
 
 Counterpart of ``egregora_tpu/core/audio.py``.  Samples are ``[C, S]``
 float32, channels first, as a torch tensor on any device or as host
-numpy (so the dispatch edge can choose the transfer format); an
-``int16`` tensor is the pcm16 wire output of ``FlashSRPipeline.process``
-and ``numpy()`` dequantizes it.
+numpy (so the dispatch edge can choose the transfer format).  The pcm16
+wire of ``FlashSRPipeline.process`` is here alone: ``wire_in``,
+``wire_out`` and its decoder ``AudioBuffer.numpy()``.
 
 Shape coercion follows the reference node pack:
 
@@ -21,12 +21,12 @@ Shape coercion follows the reference node pack:
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional, Union
+from typing import Any, Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
-from ..utils.profiling import span
+from ..utils.profiling import count, span
 
 ArrayLike = Union[np.ndarray, torch.Tensor, list, tuple]
 
@@ -84,22 +84,28 @@ def pcm16_encode(x: ArrayLike) -> np.ndarray:
     return np.rint(np.clip(a, -1.0, 1.0) * _PCM16_SCALE).astype(np.int16)
 
 
-def pcm16_roundtrip_(x: torch.Tensor) -> torch.Tensor:
-    """The pcm16 wire's quantisation of float32 ``x``, in place on its
-    device: peaks above full scale divided down by ``s = max(1, max|x|)``,
-    quantised as ``pcm16_encode`` does and dequantised by
-    ``float32(s / 32767)``, bit for bit the host's
-    ``pcm16_encode(x / s).astype(float32) * float32(s / 32767)``.  ``s``
-    stays a 0-d tensor on the device (no host sync), and the divisor is
-    not a host scalar, which the card would turn into a product with its
-    reciprocal.  No temporary of ``x``'s size is made."""
-    if not x.numel():
-        return x
+def _pcm16_quantise_(x: torch.Tensor) -> torch.Tensor:
+    """The pcm16 wire's quantisation of float32 ``x`` in place: divided by
+    ``s = max(1, max|x|)``, clamped, x32767, rounded half to even.  ``s``
+    is returned as a 0-d tensor on the device: no host sync, and not a
+    host-scalar divisor, which the card would turn into a product with
+    its reciprocal."""
     lo, hi = torch.aminmax(x)
     s = torch.maximum(hi, lo.neg()).clamp_(min=1.0)
+    x.div_(s).clamp_(-1.0, 1.0).mul_(_PCM16_SCALE).round_()
+    return s
+
+
+def pcm16_roundtrip_(x: torch.Tensor) -> torch.Tensor:
+    """The wire's input side, in place: ``_pcm16_quantise_``, then
+    dequantised by ``float32(s / 32767)``, bit for bit the host's
+    ``pcm16_encode(x / s).astype(float32) * float32(s / 32767)``.  No
+    temporary of ``x``'s size is made."""
+    if not x.numel():
+        return x
+    s = _pcm16_quantise_(x)
     # + 0.0: an int16 has no -0, which rounding leaves on small negatives
-    x.div_(s).clamp_(-1.0, 1.0).mul_(_PCM16_SCALE).round_().add_(0.0)
-    return x.mul_((s.double() / _PCM16_SCALE).float())
+    return x.add_(0.0).mul_((s.double() / _PCM16_SCALE).float())
 
 
 def pcm16_decode(x: ArrayLike) -> np.ndarray:
@@ -152,25 +158,49 @@ class AudioBuffer:
         )
 
     def numpy(self) -> np.ndarray:
+        """Host samples; the pcm16 wire's int16 dequantized and multiplied
+        back by ``meta["wire_scale"]``, the ``max(1, peak)`` that outputs
+        above full scale were divided by."""
         a = _to_numpy(self.samples)
-        if a.dtype == np.int16:          # pcm16 wire output
-            dec = pcm16_decode(a)
-            # outputs above full scale ride the wire divided by
-            # meta["wire_scale"] = max(1, peak); multiply back here
-            scale = self.meta.get("wire_scale")
-            if scale is not None:
-                s = float(_to_numpy(scale))
-                if s != 1.0:
-                    dec = dec * np.float32(s)
-            return dec
-        return a
+        if a.dtype != np.int16:
+            return a
+        s = float(_to_numpy(self.meta.get("wire_scale", 1.0)))
+        return pcm16_decode(a) * np.float32(s) if s != 1.0 else pcm16_decode(a)
 
-    def to_comfy(self) -> Dict[str, Any]:
-        """The reference node contract: waveform [1, C, T] + sample_rate."""
-        s = self.numpy().astype(np.float32)
-        return {"waveform": s[None, ...], "sample_rate": int(self.sample_rate),
-                "sr": int(self.sample_rate), "samples": s, "meta": dict(self.meta)}
 
+def wire_in(audio: AudioBuffer, device: torch.device,
+            wire: str = "auto") -> Tuple[torch.Tensor, bool]:
+    """``audio``'s samples as float32 on ``device``, and whether the wire
+    runs: with ``wire="pcm16"``, or ``"auto"`` for host numpy samples and
+    a device other than the CPU.  On the wire they cross once (a copy,
+    for the quantisation is in place) and ``pcm16_roundtrip_`` runs
+    there; ``wire_bytes_in`` counts on the caller's span."""
+    on = wire == "pcm16" or (wire == "auto" and isinstance(audio.samples, np.ndarray)
+                             and device.type != "cpu")
+    with span("egr.wire.h2d"):
+        x = torch.as_tensor(audio.samples).to(device, torch.float32, copy=on)
+    if on:
+        count("wire_bytes_in", x.numel() * x.element_size())
+        with span("egr.wire.encode"):
+            x = pcm16_roundtrip_(x)
+    return x, on
+
+
+def wire_out(out: torch.Tensor, sample_rate: int, meta: Dict[str, Any],
+             on: bool) -> AudioBuffer:
+    """``out`` as the call's ``AudioBuffer`` (a copy of ``meta``).  On the
+    wire ``out``, the caller's own, is quantised in place and crosses as
+    int16, its ``s`` in ``meta["wire_scale"]``; ``wire_bytes_out``
+    counts on the caller's span."""
+    meta = dict(meta)
+    if on:
+        with span("egr.wire.quantise"):
+            scale = _pcm16_quantise_(out)
+            out = out.to(torch.int16)
+        count("wire_bytes_out", out.numel() * out.element_size())
+        meta["wire"] = "pcm16"
+        meta["wire_scale"] = scale
+    return AudioBuffer(out, int(sample_rate), meta)
 
 
 def make_audio(sr: int, samples_cn: ArrayLike, meta: Optional[dict] = None) -> AudioBuffer:

@@ -30,7 +30,7 @@ from typing import Dict, Optional, Union
 import numpy as np
 import torch
 
-from ...core.audio import AudioBuffer, pcm16_roundtrip_
+from ...core.audio import AudioBuffer, wire_in, wire_out
 from ...ops.fir import fir_same
 from ...ops.resample import resample, resampled_length
 from ...ops.stft import device_tensor, istft_dense, stft_conv
@@ -119,14 +119,9 @@ class FlashSRModules:
 
 def _fused_vocoder_enabled(device: torch.device) -> bool:
     """Whether a HiFi-GAN vocoder runs ``vocoder.apply_fused`` (the MRF
-    kernels) instead of its module path: ``EGREGORA_FUSED_VOCODER`` set,
-    ``EGREGORA_NO_FUSED_VOCODER`` not set (it wins when both are), and the
-    pipeline on a CUDA device."""
-    if os.environ.get("EGREGORA_NO_FUSED_VOCODER"):
-        return False
-    if not os.environ.get("EGREGORA_FUSED_VOCODER"):
-        return False
-    return device.type == "cuda"
+    kernels) instead of its module path: ``EGREGORA_FUSED_VOCODER`` set
+    and the pipeline on a CUDA device."""
+    return bool(os.environ.get("EGREGORA_FUSED_VOCODER")) and device.type == "cuda"
 
 
 def lowpass_fir(x: torch.Tensor, sr: int, cutoff_hz: float, taps: int = 255) -> torch.Tensor:
@@ -310,16 +305,16 @@ class FlashSRPipeline:
         ``lcm(pad_to_multiple, mesh.size)`` and a streaming ``max_batch``
         rounded up to a multiple of ``mesh.size``.
 
-        ``wire``: host<->device transfer format of the one-shot path.
+        ``wire``: host<->device transfer format of the one-shot path
+        (``core.audio.wire_in`` / ``wire_out``; streaming stays float32).
         "pcm16" quantises to 16 bits at both edges (-90 dBFS floor),
         dividing peaks above full scale down by ``max(1, peak)``: the
         float32 input crosses once and is quantised on the pipeline's
-        device (``core.audio.pcm16_roundtrip_``); the output is quantised
-        there and crosses as int16 (2 bytes a sample), its factor in
-        ``meta["wire_scale"]``, so the returned buffer holds int16
-        samples that ``AudioBuffer.numpy()`` dequantizes.  "auto" takes
-        pcm16 when the samples are host numpy and the pipeline runs on
-        the card (``EGREGORA_WIRE=f32`` turns it off); "f32" never.
+        device; the output is quantised there and crosses as int16 (2
+        bytes a sample), its factor in ``meta["wire_scale"]``, so the
+        returned buffer holds int16 samples that ``AudioBuffer.numpy()``
+        dequantizes.  "auto" takes pcm16 when the samples are host numpy
+        and the pipeline runs on the card; "f32" never.
 
         Spans (``utils.profiling``): ``egr.process`` (attributes
         ``channels``, ``in_sr``, ``samples``; counts ``rows``, the chunk
@@ -342,19 +337,7 @@ class FlashSRPipeline:
                     b = -(-b // mesh.size) * mesh.size
                 return self._process_streaming(audio, lowpass_input, out_sr, pad_mult, b, mesh)
 
-            env_f32 = os.environ.get("EGREGORA_WIRE", "").lower() == "f32"
-            use_wire = wire == "pcm16" or (
-                wire == "auto" and not env_f32 and isinstance(audio.samples, np.ndarray)
-                and self.device.type != "cpu")
-            meta = dict(audio.meta)
-            with span("egr.wire.h2d"):
-                # the wire quantises in place: a copy even where nothing crosses
-                x = torch.as_tensor(audio.samples).to(self.device, torch.float32,
-                                                      copy=use_wire)
-            if use_wire:
-                count("wire_bytes_in", x.numel() * x.element_size())
-                with span("egr.wire.encode"):
-                    x = pcm16_roundtrip_(x)
+            x, on_wire = wire_in(audio, self.device, wire)
             with span("egr.resample.in"):
                 x = resample(x, in_sr, REQ_SR)
             c, total = x.shape
@@ -370,15 +353,7 @@ class FlashSRPipeline:
                                   CHUNK_SAMPLES)
             with span("egr.resample.out"):
                 out = resample(out, REQ_SR, out_sr)
-            if use_wire:
-                with span("egr.wire.quantise"):
-                    scale = torch.clamp(out.abs().max(), min=1.0)
-                    out = torch.round(torch.clamp(out / scale, -1.0, 1.0) * 32767.0).to(
-                        torch.int16)
-                count("wire_bytes_out", out.numel() * out.element_size())
-                meta["wire"] = "pcm16"
-                meta["wire_scale"] = scale
-            return AudioBuffer(out, out_sr, meta)
+            return wire_out(out, out_sr, audio.meta, on_wire)
 
     def _process_streaming(self, audio: AudioBuffer, lowpass_input: bool, out_sr: int,
                            pad_to_multiple: int, b: int, mesh=None) -> AudioBuffer:
@@ -386,8 +361,7 @@ class FlashSRPipeline:
         OLA accumulators: O(batch) activations, O(total) accumulators.
         Inside ``process``'s span: ``egr.forward`` and ``egr.stitch`` once
         a batch."""
-        with span("egr.wire.h2d"):
-            x = torch.as_tensor(audio.samples).to(self.device, torch.float32)
+        x, _ = wire_in(audio, self.device, "f32")
         with span("egr.resample.in"):
             x = resample(x, int(audio.sample_rate), REQ_SR)
         c, total = x.shape
@@ -410,4 +384,4 @@ class FlashSRPipeline:
             out = wola_finalize(acc[:, :total], wsum[:total])
         with span("egr.resample.out"):
             out = resample(out, REQ_SR, out_sr)
-        return AudioBuffer(out, out_sr, dict(audio.meta))
+        return wire_out(out, out_sr, audio.meta, False)

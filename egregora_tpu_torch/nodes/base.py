@@ -1,26 +1,20 @@
 """Node-layer interop: comfy-style AUDIO and IMAGE at the host boundary.
 
 Counterpart of ``egregora_tpu/nodes/base.py``: inputs are coerced
-through ``core.audio.from_any``; returned AUDIO dicts carry a CPU
-``waveform`` tensor ``[1, C, T]`` (the reference contract) plus the eval
-pack's extended keys (``sr``, ``samples``, ``meta``); IMAGE outputs are
-CPU float32 tensors ``[1, H, W, 3]`` in 0..1.
+through ``core.audio.from_any`` (``DeviceNode._coerced``); returned AUDIO
+dicts carry a CPU ``waveform`` tensor ``[1, C, T]`` (the reference
+contract) plus the eval pack's extended keys (``sr``, ``samples``,
+``meta``); IMAGE outputs are CPU float32 tensors ``[1, H, W, 3]`` in 0..1.
 """
 from __future__ import annotations
 
 import contextlib
-from typing import Any, Dict, Iterator, Optional
+from typing import Any, Dict, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..core.audio import AudioBuffer, from_any, normalize_cn
-
-
-def to_buffer(x: Any) -> AudioBuffer:
-    """Host-side samples, so the pipeline's dispatch edge can transfer
-    them in the pcm16 wire format."""
-    return from_any(x)
 
 
 def comfy_audio(sr: int, samples_cn: Any, meta: Optional[dict] = None) -> Dict[str, Any]:
@@ -38,6 +32,7 @@ def comfy_audio(sr: int, samples_cn: Any, meta: Optional[dict] = None) -> Dict[s
 
 
 def buffer_to_comfy(buf: AudioBuffer) -> Dict[str, Any]:
+    """A pipeline's result (the wire decoded by ``AudioBuffer.numpy``) as AUDIO."""
     return comfy_audio(buf.sample_rate, buf.numpy(), buf.meta)
 
 
@@ -47,11 +42,12 @@ class DeviceNode:
     for all of them, or on one node class)."""
     DEVICE = "cuda"
 
-    def _coerced(self, x: Any) -> Dict[str, Any]:
-        """AUDIO-ish input -> ``{"sr", "cn": [C, N] float32 on DEVICE, "meta"}``."""
+    def _coerced(self, x: Any) -> Tuple[torch.Tensor, int, Dict[str, Any]]:
+        """AUDIO-ish input -> ``([C, N] float32 on DEVICE, sr, meta)``, a
+        ``[B, C, T]`` batch folded into channels (``meta["batch"]``)."""
         buf = from_any(x)
         cn = torch.from_numpy(np.ascontiguousarray(buf.numpy(), np.float32)).to(self.DEVICE)
-        return {"sr": buf.sample_rate, "cn": cn, "meta": dict(buf.meta)}
+        return cn, buf.sample_rate, dict(buf.meta)
 
 
 @contextlib.contextmanager

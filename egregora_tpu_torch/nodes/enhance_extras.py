@@ -44,21 +44,12 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from ..core.audio import from_any
 from ..ops.mix import adaptive_mix, post_gain_limit, rms_vad_probs
 from ..ops.resample import resample
 from ..utils.profiling import count, span
 from .base import DeviceNode, comfy_audio, host
 
 CATEGORY = "Egregora/Enhance"
-
-
-def _coerce_bct(x, device="cpu") -> Tuple[torch.Tensor, int, dict]:
-    """AUDIO -> ([C, T] float32 on ``device``, sr, meta), a batch folded
-    into channels (``meta["batch"]``)."""
-    buf = from_any(x)
-    cn = torch.from_numpy(np.ascontiguousarray(buf.numpy(), np.float32)).to(device)
-    return cn, buf.sample_rate, dict(buf.meta)
 
 
 def _batch_shape(folded_channels: int, meta: dict) -> Tuple[int, int]:
@@ -125,7 +116,7 @@ class Egregora_RNNoise_Denoise(DeviceNode):
                 post_gain_db=0.0, limit_ceiling=True, ceiling=0.999):
         from ..models.rnnoise.model import FRAME, denoise
 
-        cn, sr, meta = _coerce_bct(audio, self.DEVICE)
+        cn, sr, meta = self._coerced(audio)
         x48 = resample(cn, sr, 48000) if sr != 48000 else cn
         if stereo_mode == "downmix_mono":
             x48 = _downmix_mono(x48, meta)
@@ -189,7 +180,7 @@ class Egregora_WPE_Dereverb(DeviceNode):
                 use_float32=True):
         from ..models.wpe import wpe_dereverb
 
-        cn, sr, meta = _coerce_bct(audio, self.DEVICE)
+        cn, sr, meta = self._coerced(audio)
         try:
             # each batch item is its own mic array of C channels
             b, c = _batch_shape(cn.shape[0], meta)
@@ -260,7 +251,7 @@ class Egregora_DeepFilterNet_Denoise(DeviceNode):
                 post_gain_db=0.5, ceiling=0.98):
         from ..models.deepfilternet.model import DFNConfig, enhance
 
-        cn, sr, meta = _coerce_bct(audio, self.DEVICE)
+        cn, sr, meta = self._coerced(audio)
         if stereo_mode == "downmix_mono":
             cn = _downmix_mono(cn, meta)
         x48 = resample(cn, sr, 48000) if sr != 48000 else cn
@@ -336,7 +327,7 @@ class Egregora_DAC_Encode(DeviceNode):
 
     def execute(self, audio, model_type="44khz", device="auto"):
         with span("egr.node.dac_encode"):
-            cn, sr, meta = _coerce_bct(audio, self.DEVICE)
+            cn, sr, meta = self._coerced(audio)
             model, model_sr = self._model(str(model_type))
             model.to(self.DEVICE)
             x = resample(cn, sr, model_sr) if sr != model_sr else cn

@@ -119,8 +119,8 @@ class Loudness_Meter_1770(DeviceNode):
         }
 
     def execute(self, audio, compute_true_peak=True, oversample=4):
-        a = self._coerced(audio)
-        rep = loudness_report(a["cn"], a["sr"], compute_true_peak=bool(compute_true_peak),
+        cn, sr, _ = self._coerced(audio)
+        rep = loudness_report(cn, sr, compute_true_peak=bool(compute_true_peak),
                               oversample=int(oversample))
         return ({k: float(v) for k, v in rep.items()},)
 
@@ -150,14 +150,13 @@ class Audio_Gain_Match_1770(DeviceNode):
         }
 
     def execute(self, audio_ref, audio_in, mode="LUFS-I", max_gain_db=12.0):
-        ref = self._coerced(audio_ref)
-        inn = self._coerced(audio_in)
-        in_cn = inn["cn"]
-        if inn["sr"] != ref["sr"]:
-            in_cn = resample_linear(in_cn, inn["sr"], ref["sr"])   # the reference's linear interp
+        ref_cn, sr, _ = self._coerced(audio_ref)
+        in_cn, in_sr, in_meta = self._coerced(audio_in)
+        if in_sr != sr:
+            in_cn = resample_linear(in_cn, in_sr, sr)   # the reference's linear interp
         matched, gain_db, ref_lvl, in_lvl = _gain_match(
-            ref["cn"], in_cn, ref["sr"], mode=str(mode), max_gain_db=float(max_gain_db))
-        out = comfy_audio(ref["sr"], host(matched), inn["meta"])
+            ref_cn, in_cn, sr, mode=str(mode), max_gain_db=float(max_gain_db))
+        out = comfy_audio(sr, host(matched), in_meta)
         return (out, float(gain_db), float(ref_lvl), float(in_lvl))
 
 
@@ -187,8 +186,8 @@ class Metrics_LSD_SISDR(DeviceNode):
 
     def execute(self, audio_ref, audio_proc, n_fft=2048, hop=512,
                 compute_lsd=True, compute_si_sdr=True):
-        am = self._coerced(audio_ref)["cn"].mean(0)
-        bm = self._coerced(audio_proc)["cn"].mean(0)
+        am = self._coerced(audio_ref)[0].mean(0)
+        bm = self._coerced(audio_proc)[0].mean(0)
         n = min(am.shape[0], bm.shape[0])
         out = lsd_sisdr_report(am[:n], bm[:n], n_fft=int(n_fft), hop=int(hop),
                                compute_lsd=bool(compute_lsd),
@@ -220,11 +219,11 @@ class Resample_Audio_HQ(DeviceNode):
         }
 
     def execute(self, audio, target_sr=48000, mode="auto", kaiser_beta=14.769):
-        a = self._coerced(audio)
-        if a["sr"] == int(target_sr):
-            return (comfy_audio(a["sr"], host(a["cn"]), a["meta"]),)
-        y = resample(a["cn"], a["sr"], int(target_sr), mode=str(mode), beta=float(kaiser_beta))
-        return (comfy_audio(int(target_sr), host(y), a["meta"]),)
+        cn, sr, meta = self._coerced(audio)
+        if sr == int(target_sr):
+            return (comfy_audio(sr, host(cn), meta),)
+        y = resample(cn, sr, int(target_sr), mode=str(mode), beta=float(kaiser_beta))
+        return (comfy_audio(int(target_sr), host(y), meta),)
 
 
 NODE_CLASS_MAPPINGS = {

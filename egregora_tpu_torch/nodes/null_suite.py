@@ -48,35 +48,34 @@ class Audio_Align_XCorr(DeviceNode):
 
     def execute(self, audio_ref, audio_proc, max_shift_ms=200,
                 align_method="gcc-phat", fractional=True, fir_len=64):
-        ref = self._coerced(audio_ref)
-        proc = self._coerced(audio_proc)
-        proc_cn = proc["cn"]
-        if proc["sr"] != ref["sr"]:
-            proc_cn = resample_linear(proc_cn, proc["sr"], ref["sr"])
+        ref_cn, sr, _ = self._coerced(audio_ref)
+        proc_cn, proc_sr, proc_meta = self._coerced(audio_proc)
+        if proc_sr != sr:
+            proc_cn = resample_linear(proc_cn, proc_sr, sr)
 
-        a = ref["cn"].mean(0)
+        a = ref_cn.mean(0)
         b = proc_cn.mean(0)
         n = min(a.shape[0], b.shape[0])
         a, b = a[:n], b[:n]
 
         fixed = align_method == "gcc-phat-fixed"
-        max_shift = int(ref["sr"] * (max_shift_ms / 1000.0))
+        max_shift = int(sr * (max_shift_ms / 1000.0))
         lag, curve = xcorr_delay_curve(a, b, max_shift, bias_fix=fixed)
         delay_samples = float(lag)
-        delay_ms = 1000.0 * delay_samples / ref["sr"]
+        delay_ms = 1000.0 * delay_samples / sr
         # the reference's peak_corr is a constant 0.0; the fixed method
         # reports the waveform correlation at the found lag
         pk = float(peak_correlation(a, b, lag)) if fixed else 0.0
 
         shift = -lag if fractional else torch.round(-lag)
         aligned = apply_frac_delay(proc_cn, shift, taps=int(fir_len))
-        aligned = pad_or_crop(aligned, ref["cn"].shape[1])
-        out = comfy_audio(ref["sr"], host(aligned), proc["meta"])
+        aligned = pad_or_crop(aligned, ref_cn.shape[1])
+        out = comfy_audio(sr, host(aligned), proc_meta)
 
         try:   # the reference's contract: a blank image when no figure can be drawn
             from ..utils.viz import alignment_figure
             lags_ms = (np.arange(-max_shift, max_shift + 1) + (1 if fixed else 0)
-                       ) * 1000.0 / ref["sr"]
+                       ) * 1000.0 / sr
             debug_img = image_from_figure(
                 alignment_figure(host(curve), lags_ms, delay_ms, pk))
         except Exception:
@@ -108,14 +107,13 @@ class Audio_Gain_Match(DeviceNode):
         }
 
     def execute(self, audio_ref, audio_in, mode="LUFS-I", max_gain_db=12.0):
-        ref = self._coerced(audio_ref)
-        inn = self._coerced(audio_in)
-        in_cn = inn["cn"]
-        if inn["sr"] != ref["sr"]:
-            in_cn = resample_linear(in_cn, inn["sr"], ref["sr"])
+        ref_cn, sr, _ = self._coerced(audio_ref)
+        in_cn, in_sr, in_meta = self._coerced(audio_in)
+        if in_sr != sr:
+            in_cn = resample_linear(in_cn, in_sr, sr)
         matched, gain_db, ref_lvl, in_lvl = _gain_match(
-            ref["cn"], in_cn, ref["sr"], mode=str(mode), max_gain_db=float(max_gain_db))
-        out = comfy_audio(ref["sr"], host(matched), inn["meta"])
+            ref_cn, in_cn, sr, mode=str(mode), max_gain_db=float(max_gain_db))
+        out = comfy_audio(sr, host(matched), in_meta)
         return (out, float(gain_db), float(ref_lvl), float(in_lvl))
 
 
@@ -153,13 +151,13 @@ class Audio_Null_Test(DeviceNode):
                 least_squares_scale=False, compute_corr=True, compute_null_rms=True,
                 compute_null_lufs=True, compute_lsd=True, compute_hf_residual=False,
                 n_fft=2048, hop=512, hf_band_hz=8000):
-        ref = self._coerced(audio_ref)
-        pro = self._coerced(audio_proc_aligned_matched)
-        if pro["sr"] != ref["sr"]:
+        ref_cn, sr, _ = self._coerced(audio_ref)
+        pro_cn, pro_sr, _ = self._coerced(audio_proc_aligned_matched)
+        if pro_sr != sr:
             raise ValueError("Sample rate mismatch after alignment stage")
-        n = min(ref["cn"].shape[1], pro["cn"].shape[1])
+        n = min(ref_cn.shape[1], pro_cn.shape[1])
         null, metrics = _null_test(
-            ref["cn"][:, :n], pro["cn"][:, :n], ref["sr"],
+            ref_cn[:, :n], pro_cn[:, :n], sr,
             invert_b=bool(invert_b), least_squares_scale=bool(least_squares_scale),
             compute_corr=bool(compute_corr), compute_null_rms=bool(compute_null_rms),
             compute_null_lufs=bool(compute_null_lufs), compute_lsd=bool(compute_lsd),
@@ -167,7 +165,7 @@ class Audio_Null_Test(DeviceNode):
             hop=int(hop), hf_band_hz=int(hf_band_hz))
         metrics = {k: (int(v) if k == "overshoot_count" else float(v))
                    for k, v in metrics.items()}
-        return (comfy_audio(ref["sr"], host(null), {}), metrics)
+        return (comfy_audio(sr, host(null), {}), metrics)
 
 
 # -----------------------------
@@ -202,15 +200,14 @@ class Audio_Plotter(DeviceNode):
         # raises here, as the reference's plotter does
         from ..utils.viz import difference_figure, spectrogram_figure, waveform_figure
 
-        ref = self._coerced(audio_ref)
-        pro = self._coerced(audio_proc)
-        nul = self._coerced(audio_null)
-        sr = ref["sr"]
+        ref_cn, sr, _ = self._coerced(audio_ref)
+        pro_cn = self._coerced(audio_proc)[0]
+        nul_cn = self._coerced(audio_null)[0]
 
-        a = ref["cn"].mean(0)
-        b = pro["cn"].mean(0)
-        n = int(min(a.shape[0], b.shape[0], nul["cn"].shape[1]))
-        a, b, null = a[:n], b[:n], nul["cn"].mean(0)[:n]
+        a = ref_cn.mean(0)
+        b = pro_cn.mean(0)
+        n = int(min(a.shape[0], b.shape[0], nul_cn.shape[1]))
+        a, b, null = a[:n], b[:n], nul_cn.mean(0)[:n]
         names = ("A (ref)", "B (proc)", "null")
 
         if draw_waveforms:

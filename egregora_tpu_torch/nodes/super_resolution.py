@@ -13,9 +13,10 @@ from typing import Optional
 
 import torch
 
+from ..core.audio import from_any
 from ..models.flashsr.pipeline import FlashSRPipeline
 from ..utils.profiling import count, span
-from .base import DeviceNode, buffer_to_comfy, to_buffer
+from .base import DeviceNode, buffer_to_comfy
 
 FUNCTION = "run"
 CATEGORY = "Egregora/Audio"
@@ -56,7 +57,7 @@ class EgregoraAudioSuperResolution(DeviceNode):
         # then runs the pcm16 wire (quantised on the card, int16 back)
         with span("egr.node.upscale"):
             with span("egr.node.audio_in"):
-                buf = to_buffer(audio)
+                buf = from_any(audio)
             out = self._pipeline().process(buf, lowpass_input=bool(lowpass_input),
                                            output_sr=int(output_sr))
             with span("egr.node.audio_out"):

@@ -20,6 +20,7 @@ from egregora_tpu.ops import stft as j_stft
 from egregora_tpu.ops import wola as j_wola
 from egregora_tpu_torch.core import audio as t_audio
 from egregora_tpu_torch.models.flashsr import mel as t_mel
+from egregora_tpu_torch.nodes.base import buffer_to_comfy
 from egregora_tpu_torch.ops import fir as t_fir
 from egregora_tpu_torch.ops import resample as t_rs
 from egregora_tpu_torch.ops import resize as t_resize
@@ -176,7 +177,7 @@ def test_audio_buffer_and_pcm16():
                               {"wire_scale": torch.tensor(2.0)})
     np.testing.assert_allclose(buf.numpy(), 2.0 * j_audio.pcm16_decode(q[None]))
     assert buf.channels == 1 and buf.num_samples == 64
-    d = t_audio.AudioBuffer(t_audio.normalize_cn(a), 16000).to_comfy()
+    d = buffer_to_comfy(t_audio.AudioBuffer(t_audio.normalize_cn(a), 16000))
     assert d["waveform"].shape == (1,) + j_audio.normalize_cn(a).shape
 
 
@@ -219,3 +220,66 @@ def test_pcm16_roundtrip_on_device_equals_host_wire(case):
     assert got.data_ptr() == x.data_ptr() and got.dtype == torch.float32
     assert got.shape == want.shape
     np.testing.assert_array_equal(got.numpy().view(np.int32), want.view(np.int32))
+
+
+def _inline_output_chain(out):
+    """The pcm16 wire's output side as ``FlashSRPipeline.process`` wrote it
+    inline before ``core.audio.wire_out``, frozen: (int16, scale)."""
+    scale = torch.clamp(out.abs().max(), min=1.0)
+    return torch.round(torch.clamp(out / scale, -1.0, 1.0) * 32767.0).to(torch.int16), scale
+
+
+@pytest.mark.parametrize("case", ["stereo_peak_0.6", "stereo_peak_3.3", "halfway",
+                                  "past_full_scale", "empty"])
+def test_wire_out_equals_inline_output_chain(case):
+    """``wire_out`` (the output quantised in place on the shared quantiser,
+    then cast) bit for bit against the frozen inline chain: the int16
+    samples, ``meta["wire_scale"]`` as a 0-d float32 tensor, the meta
+    kept; an empty output raises in both, as before (``process`` never
+    makes one: it refuses an empty input first)."""
+    xs = _wire_input(case)
+    if not xs.size:
+        with pytest.raises(RuntimeError):
+            _inline_output_chain(torch.from_numpy(xs.copy()))
+        with pytest.raises(RuntimeError):
+            t_audio.wire_out(torch.from_numpy(xs.copy()), 48000, {}, True)
+        return
+    want, scale = _inline_output_chain(torch.from_numpy(xs.copy()))
+    meta = {"batch": 1}
+    buf = t_audio.wire_out(torch.from_numpy(xs.copy()), 48000, meta, True)
+    assert buf.samples.dtype == torch.int16 and buf.sample_rate == 48000
+    assert torch.equal(buf.samples, want)
+    s = buf.meta["wire_scale"]
+    assert s.dtype == torch.float32 and s.shape == () and torch.equal(s, scale)
+    assert buf.meta["wire"] == "pcm16" and buf.meta["batch"] == 1 and meta == {"batch": 1}
+    off = t_audio.wire_out(torch.from_numpy(xs.copy()), 48000, meta, False)
+    assert off.meta == meta and np.array_equal(off.numpy(), xs)
+
+
+@pytest.mark.parametrize("case", ["stereo_peak_0.6", "stereo_peak_3.3"])
+def test_upscaler_audio_dict_from_wire_buffer_unchanged(case):
+    """The upscaler's AUDIO dict from a pcm16 wire buffer
+    (``buffer_to_comfy(wire_out(...))``) against a frozen copy of the
+    conversion before the wire moved into ``core.audio``: the same keys,
+    dtypes, ``waveform`` (a batch of 2 unfolded) and ``samples`` bit for
+    bit, ``meta`` with ``wire`` and ``wire_scale``."""
+    xs = _wire_input(case)
+    q, scale = _inline_output_chain(torch.from_numpy(xs.copy()))
+    dec = q.numpy().astype(np.float32) / 32767.0
+    if float(scale) != 1.0:
+        dec = dec * np.float32(float(scale))
+    arr = np.ascontiguousarray(dec).reshape(2, 1, dec.shape[1])
+    want = {"sr": 48000, "sample_rate": 48000, "samples": dec,
+            "waveform": torch.from_numpy(arr.copy()),
+            "meta": {"batch": 2, "wire": "pcm16", "wire_scale": scale}}
+    got = buffer_to_comfy(t_audio.wire_out(torch.from_numpy(xs.copy()), 48000,
+                                           {"batch": 2}, True))
+    assert list(got) == list(want)
+    assert got["sr"] == got["sample_rate"] == 48000
+    assert got["samples"].dtype == np.float32 and got["waveform"].dtype == torch.float32
+    np.testing.assert_array_equal(got["samples"].view(np.int32), want["samples"].view(np.int32))
+    assert got["waveform"].shape == (2, 1, xs.shape[1])
+    assert torch.equal(got["waveform"].view(torch.int32), want["waveform"].view(torch.int32))
+    assert set(got["meta"]) == {"batch", "wire", "wire_scale"}
+    assert got["meta"]["wire"] == "pcm16" and got["meta"]["batch"] == 2
+    assert torch.equal(got["meta"]["wire_scale"], scale)

@@ -60,12 +60,13 @@ Phases, one line each on standard output:
    the bytes bound and the previous design's time at that shape with the
    speed-up over it (``BEFORE_MS``, in the log text only);
 4b. Snake (``snake``, ``snake_phase``) at the DAC 44 kHz decoder's last
-   stage (past 2^31 elements) and first stage, bf16 in and out: every
-   element within one bf16 ulp of the plain version rounded to bf16, the
-   bit-equal share; fault: ``sin(a x) / a``; the kernel's time beside
-   the plain version's and its bytes bound, and its four instantiations'
-   ``ptxas`` lines; the DAC phases (18 and 28) count a launch for every
-   Snake they run on the card;
+   stage (past 2^31 elements) and first stage, bf16 in and out, in both
+   layouts the kernel reads (NCW, and NWC: channels-last, the DAC's):
+   every element within one bf16 ulp of the plain version rounded to
+   bf16, the bit-equal share; fault: ``sin(a x) / a``; the kernel's time
+   beside the plain version's and its bytes bound, and its twelve
+   instantiations' ``ptxas`` lines; the DAC phases (18 and 28) count a
+   launch for every Snake they run on the card;
 5. K1b (``flash_online``) at the attention lab's shapes and a ragged N
    (bf16 limits; fault: the last key tile dropped) and K3
    (``conv3x3_out1``) at the decoders' C = 24/64/128, the edge lab's
@@ -152,6 +153,10 @@ Phases, one line each on standard output:
    parameters, a seeded ``dac_44khz.npz`` in a temporary
    ``EGREGORA_TPU_WEIGHTS``) through the encode and decode nodes, which
    must resolve it as converted, on 30 s of stereo: RTF and peak memory;
+   one encode and decode of 60 s of stereo traced, each conv's kernels
+   logged, failing where cuDNN's legacy NCW conv or its NCHW<->NHWC
+   transposes run under the encoder's or decoder's span or a layout copy
+   is counted (``dac_conv_trace``);
    a 2 s piece bf16 on the card against float32 on the CPU, latents and
    decode relative L2 3e-2 (the first run read 1.4e-2 and 1.3e-2),
    beside the transposed convs' kernels left unflipped (1.10); the
@@ -2143,9 +2148,11 @@ def snake_check(x, alpha, floor: float, y) -> tuple:
 
 def snake_phase() -> list:
     """The Snake kernel (``csrc/snake.cu``) on the card at ``SNAKE_SHAPES``
-    (bf16 in, bf16 out, alphas U(0.5, 1.5) as the benchmark draws them):
-    every element within one bf16 ulp of the plain version rounded to bf16,
-    with the share equal bit for bit; beside it a planted fault (the
+    (bf16 in, bf16 out, alphas U(0.5, 1.5) as the benchmark draws them),
+    on a contiguous (NCW) input and on a channels-last (NWC) one, the
+    layout of the DAC's activations: every element within one bf16 ulp of
+    the plain version rounded to bf16, with the share equal bit for bit,
+    and the output in the input's layout; beside it a planted fault (the
     divisor without its 1e-9 and the square dropped: ``sin(a x) / a``)
     that the limit must reject; the kernel's time, the plain version's and
     the bound: 4 bytes an element (bf16 in, bf16 out) at the HBM rate.  No
@@ -2155,9 +2162,12 @@ def snake_phase() -> list:
     from egregora_tpu_torch.ops import snake as sn
 
     rows, failures = [], []
-    for b, c, t, where in SNAKE_SHAPES:
+    for (b, c, t, where), layout in [(s, lay) for s in SNAKE_SHAPES for lay in ("ncw", "nwc")]:
         gen = torch.Generator(device="cuda").manual_seed(c)
-        x = torch.randn(b, c, t, generator=gen, device="cuda", dtype=torch.bfloat16).mul_(3.0)
+        shape = (b, t, c) if layout == "nwc" else (b, c, t)
+        x = torch.randn(shape, generator=gen, device="cuda", dtype=torch.bfloat16).mul_(3.0)
+        if layout == "nwc":
+            x = x.transpose(1, 2)
         alpha = 0.5 + torch.rand(c, generator=gen, device="cuda")
         before = sn.launches
         y = sn.snake_kernel(x, alpha, 0.0, torch.bfloat16)
@@ -2171,27 +2181,30 @@ def snake_phase() -> list:
         ms = cuda_ms(lambda: sn.snake_kernel(x, alpha, 0.0, torch.bfloat16), reps)
         plain_ms = cuda_ms(lambda: sn.snake_plain(x, alpha, 0.0).to(torch.bfloat16), 1, 1)
         bound_ms = 4.0 * n / H100_BYTES_PER_S * 1e3
-        row = {"b": b, "c": c, "t": t, "elements": n, "where": where, "max_ulps": worst,
-               "bit_equal_share": equal, "planted_max_ulps": bad_worst, "ms": ms,
-               "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": "bytes",
+        row = {"b": b, "c": c, "t": t, "layout": layout, "elements": n, "where": where,
+               "max_ulps": worst, "bit_equal_share": equal, "planted_max_ulps": bad_worst,
+               "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": "bytes",
                "bound_share": bound_ms / ms, "gb_per_s": 4.0 * n / ms / 1e6}
         rows.append(row)
-        ok = worst <= 1 and sn.launches == before + 1 + reps + 2
-        log(f"snake [{b},{c},{t}] ({where}, {n} elements): vs plain rounded to bf16 max "
+        ok = (worst <= 1 and sn.launches == before + 1 + reps + 2
+              and y.stride() == x.stride())
+        log(f"snake {layout} [{b},{c},{t}] ({where}, {n} elements): vs plain rounded to bf16 max "
             f"{worst} ulp, bit-equal {100 * equal:.4f}% (limit 1 ulp) {'ok' if ok else 'FAIL'}; "
             f"planted fault (sin(a x) / a): {bad_worst} ulp "
             f"{'rejected' if bad_worst > 1 else 'NOT REJECTED'}; kernel {ms:.4f} ms "
             f"({row['gb_per_s']:.0f} GB/s, {100 * row['bound_share']:.1f}% of the bound), plain "
             f"{plain_ms:.3f} ms, bound {bound_ms:.4f} ms (bytes)")
         if not ok:
-            failures.append(f"snake [{b},{c},{t}]: {worst} ulp, launches {sn.launches - before}")
+            failures.append(f"snake {layout} [{b},{c},{t}]: {worst} ulp, launches "
+                            f"{sn.launches - before}, strides {y.stride()} for {x.stride()}")
         if bad_worst <= 1:
-            failures.append(f"snake [{b},{c},{t}]: the planted fault passes")
+            failures.append(f"snake {layout} [{b},{c},{t}]: the planted fault passes")
         del x, y, bad
         torch.cuda.empty_cache()
     ptxas = [{"kernel": k, **r} for k, r in ptxas_entries("snake").items()]
-    if len(ptxas) != 4:
-        failures.append(f"snake: {len(ptxas)} built kernels, expected 4 (bf16/float32 in and out)")
+    if len(ptxas) != 12:
+        failures.append(f"snake: {len(ptxas)} built kernels, expected 12 (bf16/float32 in and "
+                        f"out; NCW, NWC by vectors and NWC by channels)")
     for r in ptxas:
         log(f"ptxas snake {r['kernel']}: {r.get('registers')} registers, spill stores "
             f"{r.get('spill_store_bytes')} B, stack {r.get('stack_bytes')} B")
@@ -2203,9 +2216,11 @@ def snake_phase() -> list:
 def snake_entry(phase: dict, by_path: dict) -> dict:
     """The ``kernels`` line's Snake entry: the launches the DAC paths made
     (``by_path``) and one call's times and bound at each of
-    ``SNAKE_SHAPES``, summed (the paths launch at every stage of songs of
-    other lengths)."""
+    ``SNAKE_SHAPES`` in the DAC's channels-last layout, summed (the paths
+    launch at every stage of songs of other lengths); the agreement over
+    both layouts."""
     rows = phase["shapes"]
+    nwc = [r for r in rows if r["layout"] == "nwc"]
     return {
         "name": "snake", "route": "cuda",
         "source": "egregora_tpu_torch/csrc/snake.cu",
@@ -2214,10 +2229,10 @@ def snake_entry(phase: dict, by_path: dict) -> dict:
         "launches": sum(by_path.values()),
         "max_ulps": max(r["max_ulps"] for r in rows),
         "bit_equal_share": min(r["bit_equal_share"] for r in rows),
-        "ms": sum(r["ms"] for r in rows), "plain_ms": sum(r["plain_ms"] for r in rows),
-        "bound_ms": sum(r["bound_ms"] for r in rows), "bound_by": "bytes",
+        "ms": sum(r["ms"] for r in nwc), "plain_ms": sum(r["plain_ms"] for r in nwc),
+        "bound_ms": sum(r["bound_ms"] for r in nwc), "bound_by": "bytes",
         "library_ms": None, "library_note": "no single PyTorch call computes Snake",
-        "times_at": "one call at each of the shapes",
+        "times_at": "one call at each of the shapes, channels-last",
         "launches_by_path": by_path,
         "shapes": rows, "ptxas": phase["ptxas"],
     }
@@ -3508,6 +3523,11 @@ DAC_SECONDS, DAC_DECODE_REL, DAC_SNR_DB = 10.0, 2e-2, 0.5
 # and 1.3e-2; the planted faults 0.68 and 1.10)
 DAC_PUB_SECONDS, DAC_PIECE_SECONDS = 30.0, 2.0
 DAC_PUB_LATENT_REL, DAC_PUB_DECODE_REL = 3e-2, 3e-2
+# the published 44 kHz geometry's convs traced on a 60 s stereo clip: none of
+# these kernels (cuDNN's legacy NCW conv, its NCHW<->NHWC transposes) may
+# run under the encoder's or the decoder's span
+DAC_TRACE_SECONDS = 60.0
+DAC_SLOW_KERNELS = ("implicit_convolve_sgemm", "nchwToNhwcKernel", "nhwcToNchwKernel")
 
 
 def noisy_speech(seconds: float, sr: int, channels: int, seed: int):
@@ -3780,6 +3800,102 @@ def dac_rel(a, b) -> float:
     return float((a - b).norm() / b.norm())
 
 
+def launched_under(prof, wanted) -> list:
+    """``[(range, [(kernel, seconds), ...]), ...]``: each host range of the
+    finished ``torch.profiler`` session ``prof`` whose name ``wanted``
+    accepts, in the order they opened, with the card's kernels, copies and
+    sets launched inside it (matched by the launching runtime call's
+    correlation id)."""
+    from torch.autograd import DeviceType
+    ranges, launch_at, dev = [], {}, []
+    for e in prof.profiler.kineto_results.events():
+        name = e.name()
+        if e.device_type() == DeviceType.CPU:
+            if wanted(name):
+                ranges.append((e.start_ns(), e.end_ns(), name))
+            elif name.startswith("cu"):
+                launch_at[e.correlation_id()] = e.start_ns()
+        elif not e.is_user_annotation():
+            dev.append((e.correlation_id(), name, (e.end_ns() - e.start_ns()) * 1e-9))
+    ranges.sort()
+    out = [(name, []) for _, _, name in ranges]
+    for corr, name, sec in dev:
+        at = launch_at.get(corr)
+        for i, (t0, t1, _) in enumerate(ranges):
+            if at is not None and t0 <= at <= t1:
+                out[i][1].append((name, sec))
+    return out
+
+
+def dac_conv_trace(model, card: str) -> dict:
+    """One ``encode`` + ``decode`` of ``DAC_TRACE_SECONDS`` of stereo by the
+    codec ``model`` on the card, warmed on the same clip first, under
+    ``torch.profiler`` with a range around every DAC conv: each conv's
+    kernels logged, and a failure where a kernel of ``DAC_SLOW_KERNELS``
+    ran under ``egr.dac.encoder`` or ``egr.dac.decoder`` or the call
+    counted a ``dac_layout_copies``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from egregora_tpu_torch.models.dac import model as M
+    from egregora_tpu_torch.utils import profiling
+
+    x = torch.from_numpy(speech_signal(DAC_TRACE_SECONDS, model.cfg.sample_rate, 2, seed=75))
+    model.decode(model.encode(x)[0])
+    torch.cuda.synchronize()
+    convs = {m: n for n, m in model.named_modules()
+             if isinstance(m, (M.Conv1dNWC, M.ConvTranspose1dNWC))}
+    opened = {}
+
+    def enter(m, args):
+        opened[m] = record_function(f"dac.conv {convs[m]}")
+        opened[m].__enter__()
+
+    def leave(m, args, out):
+        opened.pop(m).__exit__(None, None, None)
+
+    hooks = [h for m in convs for h in (m.register_forward_pre_hook(enter),
+                                        m.register_forward_hook(leave))]
+    copies = profiling.counters().get("dac_layout_copies", 0)
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            model.decode(model.encode(x)[0])
+            torch.cuda.synchronize()
+    finally:
+        for h in hooks:
+            h.remove()
+    copies = profiling.counters().get("dac_layout_copies", 0) - copies
+    found = launched_under(prof, lambda n: n.startswith("dac.conv ")
+                           or n in ("egr.dac.encoder", "egr.dac.decoder"))
+    mods = dict((n, m) for m, n in convs.items())
+    for name, ks in found:
+        if not name.startswith("dac.conv "):
+            continue
+        m = mods[name[9:]]
+        co, ci = ((m.weight.shape[1], m.weight.shape[0]) if isinstance(m, M.ConvTranspose1dNWC)
+                  else m.weight.shape[:2])
+        by = collections.defaultdict(float)
+        for k, sec in ks:
+            by[k] += sec
+        log(f"dac conv {name[9:]} ({type(m).__name__} {ci}->{co}, k {m.k}, stride {m.stride}, "
+            f"dilation {getattr(m, 'dilation', 1)}): "
+            + "; ".join(f"{k[:90]} {1e3 * sec:.3f} ms" for k, sec in by.items()))
+    slow, per_span = [], {}
+    for name, ks in found:
+        if name.startswith("egr.dac."):
+            per_span[name] = per_span.get(name, 0.0) + sum(sec for _, sec in ks)
+            slow += [(name, k) for k, _ in ks if any(b in k for b in DAC_SLOW_KERNELS)]
+    ok = (not slow and copies == 0 and set(per_span) == {"egr.dac.encoder", "egr.dac.decoder"}
+          and all(v > 0 for v in per_span.values()))
+    log(f"dac conv trace, {DAC_TRACE_SECONDS:g} s stereo, {card}: device "
+        + ", ".join(f"{n} {1e3 * v:.1f} ms" for n, v in per_span.items())
+        + f"; {len(slow)} launches of {', '.join(DAC_SLOW_KERNELS)}"
+        + (f" ({sorted(set(slow))[:6]})" if slow else "")
+        + f"; dac_layout_copies {copies} {'ok' if ok else 'FAIL'}")
+    return {"ok": ok, "device_s": per_span, "slow_launches": len(slow),
+            "dac_layout_copies": copies}
+
+
 def dac_phase(card: str) -> dict:
     """The DAC codec on the card.  Each shipped codec (the node's
     ``build_dac``, weights asserted shipped) on 10 s of seeded speech-like
@@ -3790,6 +3906,9 @@ def dac_phase(card: str) -> dict:
     geometry (76.6M parameters, seeded ``dac_44khz.npz`` in a temporary
     ``EGREGORA_TPU_WEIGHTS``) through the encode and decode nodes, which
     must resolve it as converted, on 30 s of stereo: RTF and peak memory;
+    one encode and decode of 60 s of stereo traced (``dac_conv_trace``:
+    every conv's kernels logged, none of cuDNN's legacy NCW conv or its
+    layout transposes, no layout copy);
     a 2 s piece in bf16 on the card against float32 on the CPU (latents,
     decode of the CPU's latents), beside the transposed convs' kernels
     left unflipped; the published 24 kHz geometry likewise on its
@@ -3893,6 +4012,9 @@ def dac_phase(card: str) -> dict:
             f"{'ok' if ok else 'FAIL'}; {enc_log}; {dec_log}")
         if not ok:
             failures.append(f"dac published 44khz through the nodes: {r}, out {y.shape}")
+        r["trace"] = dac_conv_trace(model, card)
+        if not r["trace"]["ok"]:
+            failures.append(f"dac published 44khz conv trace: {r['trace']}")
 
         def latents(m, x):
             """Pre-quantisation latents of ``m`` on its device."""

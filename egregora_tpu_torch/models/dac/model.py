@@ -1,7 +1,8 @@
 """Descript Audio Codec (DAC), inference: the port of
 ``egregora_tpu/models/dac/model.py``.
 
-The same architecture on PyTorch's NCW layout:
+The same architecture; tensors keep PyTorch's logical ``[B, C, T]``
+shapes, laid out channels-last in memory (below):
 
 * encoder: a 7-tap conv stem, then per stride s a block of three
   Snake-activated residual units (dilations 1, 3, 9), a Snake and a conv
@@ -20,7 +21,29 @@ padding, which at kernel 2s and stride s pads (s // 2, s - s // 2), so
 (2, 3) at stride 5; ``ConvTranspose`` as flax computes it
 (``transpose_kernel=False``); each conv casts its input, kernel and bias
 to ``cfg.dtype`` (bf16 unless the configuration says otherwise) and
-returns that dtype.  Snake's alpha is a float32 parameter, so ``x +
+returns that dtype.
+
+**Layout.** Every activation from the encoder's input to the decoder's
+output is channels-last: ``[B, C, T]`` with strides ``(T C, 1, C)``, the
+memory of ``[B, T, C]`` (``nwc``).  The edges cost nothing: the encoder's
+input and the decoder's output have one channel, where both layouts are
+the same memory; the encoder's output, transposed in ``encode``, is the
+contiguous ``[B, T, D]`` the quantizer reads; ``decode``'s transpose of
+the contiguous latents is already channels-last.  The DAC's convs
+(``Conv1dNWC``, ``ConvTranspose1dNWC``: ``layers.Conv1d`` and
+``ConvTranspose1d`` with their parameters, another ``forward``) run as
+the 4-D ops on the ``[B, C, 1, T]`` view in ``torch.channels_last``, so
+that cuDNN takes them in NHWC on its Hopper kernels with no transpose in
+or out (PyTorch's ``conv1d`` makes a 3-D input contiguous, NCW, first).
+Two shapes need more to stay there: the dilation-9 convs run as the
+undilated 7-tap conv on the ``[T / 9, 9]`` view of the same memory, and
+the stem's one input channel and the last conv's one output are padded
+with zeros to 8.  Snake's kernel reads and writes either layout.  A copy
+that changes an activation's layout (a conv or Snake handed another
+layout, a pad or crop that returns one) is counted as
+``dac_layout_copies``; a call makes none.
+
+Snake's alpha is a float32 parameter, so ``x +
 sin^2(alpha x) / (alpha + 1e-9)`` is computed in float32; each Snake
 returns ``cfg.dtype``, the dtype of the conv it feeds, rounded once
 (``ops.snake``: the hand-written kernel on the card, the plain version on
@@ -50,7 +73,9 @@ profiler session or ``recording()`` does): ``egr.dac.encoder`` (counting
 ``dac_frames``, codec frames times channels), ``egr.dac.rvq`` and
 ``egr.dac.decoder`` in ``encode`` and ``decode``, and ``egr.dac.snake``
 around each Snake (29 in the encoder and 29 in the decoder at four
-strides), which on the card counts ``snake_launches``, one a Snake.
+strides), which on the card counts ``snake_launches``, one a Snake;
+``dac_layout_copies`` in the innermost open span, where a layout copy
+is made.
 """
 from __future__ import annotations
 
@@ -67,6 +92,7 @@ from ...ops.fir import exact_f32
 from ...ops.snake import snake as snake_op
 from ...ops.snake import snake_plain as snake  # noqa: F401  (the plain version, under its old name)
 from ...utils.profiling import count, span
+from ..flashsr import layers
 from ..flashsr.layers import Conv1d, ConvTranspose1d, Dense
 
 
@@ -103,8 +129,139 @@ MODEL_TYPES = {
 }
 
 
+def nwc(x: torch.Tensor) -> torch.Tensor:
+    """``x [B, C, T]`` laid out channels-last (strides ``(T C, 1, C)``):
+    ``x`` itself where it is, else a copy, counted as ``dac_layout_copies``."""
+    if x.transpose(1, 2).is_contiguous():
+        return x
+    count("dac_layout_copies")
+    return x.transpose(1, 2).contiguous().transpose(1, 2)
+
+
+def _nhwc(x: torch.Tensor) -> torch.Tensor:
+    """``[B, C, T]`` as the ``[B, C, 1, T]`` view in ``torch.channels_last``."""
+    return nwc(x).unsqueeze(2)
+
+
+# cuDNN's NHWC tensor-core kernels take channel counts in multiples of
+# this; a conv with another count (the stem's one input channel, the last
+# conv's one output) falls back to a transposing or a legacy kernel
+CHANNEL_GROUP = 8
+# the dilation from which a conv runs as the undilated conv on the [T/d, d]
+# view: at dilation 9 cuDNN's NHWC heuristic picks a direct kernel 200-400x
+# slower than the view's implicit GEMM at 192-768 channels (H100, cuDNN 9.2)
+VIEW_DILATION = 9
+
+
+def _pad_channels(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``x [B, C, T]`` in ``dtype`` with zero channels after its own up to a
+    multiple of ``CHANNEL_GROUP``, channels-last (one cast-and-copy)."""
+    b, c, t = x.shape
+    out = x.new_zeros((b, t, -(-c // CHANNEL_GROUP) * CHANNEL_GROUP), dtype=dtype)
+    out[..., :c].copy_(x.transpose(1, 2))
+    return out.transpose(1, 2)
+
+
+def _rows_copy(src: torch.Tensor, dst: torch.Tensor) -> torch.Tensor:
+    """``dst [B, T', C]`` holding ``src [B, T, C]``'s rows: the first ``T'``
+    where ``T' <= T`` (a crop), else all of them and zero rows after (a
+    pad); a contiguous copy a batch row (one strided copy of the whole
+    would take PyTorch's slower kernel)."""
+    n = min(src.shape[1], dst.shape[1])
+    dst[:, n:].zero_()
+    for i in range(src.shape[0]):
+        dst[i, :n].copy_(src[i, :n])
+    return dst
+
+
+def _dilated_as_view(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                     d: int) -> torch.Tensor:
+    """The 'SAME' conv of channels-last ``x [B, C, T]`` with odd-tap ``w
+    [Co, C, k]`` at dilation ``d``, as the undilated ``(k, 1)`` conv on the
+    ``[T / d, d]`` view of the same memory (``t = h d + w``: the taps of
+    ``t`` at ``t + j d`` are those of ``(h, w)`` at ``(h + j, w)``), the
+    rows zero-padded to a multiple of ``d`` where ``T`` is not one and the
+    output cropped back."""
+    bsz, c, t = x.shape
+    tp = -(-t // d) * d
+    xt = x.transpose(1, 2)                                    # [B, T, C]
+    if tp != t:
+        xt = _rows_copy(xt, x.new_empty((bsz, tp, c)))
+    xv = xt.view(bsz, tp // d, d, c).permute(0, 3, 1, 2)      # [B, C, T/d, d] NHWC
+    del xt
+    wv = w.unsqueeze(3).to(x.dtype, memory_format=torch.channels_last)
+    y = F.conv2d(xv, wv, b.to(x.dtype), 1, ((w.shape[-1] - 1) // 2, 0))
+    del xv                                                    # the padded copy, before the crop
+    y = y.permute(0, 2, 3, 1).reshape(bsz, tp, -1)            # [B, T', Co]
+    if tp != t:
+        y = _rows_copy(y, y.new_empty((bsz, t, y.shape[-1])))
+    return y.transpose(1, 2)
+
+
+class Conv1dNWC(Conv1d):
+    """``layers.Conv1d`` on channels-last ``[B, C, T]``: ``conv2d`` on the
+    NHWC view, the 'SAME' pads in the call where they are even, else an
+    ``F.pad`` of the view first (the stride-5 convs' (2, 3)); from
+    ``VIEW_DILATION`` on, the undilated conv on the ``[T / d, d]`` view
+    (``_dilated_as_view``); channels that are not a multiple of
+    ``CHANNEL_GROUP`` padded with zeros (zero input channels and zero
+    kernel rows add exact zeros) and the output's cropped back."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        co, ci = self.weight.shape[:2]
+        w, b = self.weight, self.bias
+        if ci % CHANNEL_GROUP:
+            x = _pad_channels(nwc(x), self.dtype)
+            w = F.pad(w, (0, 0, 0, x.shape[1] - ci))
+        else:
+            x = nwc(x).to(self.dtype)
+        if co % CHANNEL_GROUP:
+            extra = -co % CHANNEL_GROUP
+            w, b = F.pad(w, (0, 0, 0, 0, 0, extra)), F.pad(b, (0, extra))
+        if self.dilation >= VIEW_DILATION and self.stride == 1 and self.k % 2:
+            y = _dilated_as_view(x, w, b, self.dilation)
+        else:
+            x4 = x.unsqueeze(2)
+            lo, hi = layers.same_pads(x.shape[-1], self.k, self.stride, self.dilation)
+            if lo != hi:
+                x4, lo = _nhwc(F.pad(x4, (lo, hi)).squeeze(2)), 0
+            w4 = w.unsqueeze(2).to(self.dtype, memory_format=torch.channels_last)
+            y = F.conv2d(x4, w4, b.to(self.dtype), (1, self.stride), (0, lo),
+                         (1, self.dilation)).squeeze(2)
+        if co % CHANNEL_GROUP:
+            y = y[:, :co].transpose(1, 2).contiguous().transpose(1, 2)
+        return nwc(y)
+
+
+class ConvTranspose1dNWC(ConvTranspose1d):
+    """``layers.ConvTranspose1d`` on channels-last ``[B, C, T]``:
+    ``conv_transpose2d`` on the NHWC view, flax's window cut out of the full
+    output by the call's padding (which needs the window inside the full
+    output: the codec's kernels of 2s at stride s), an odd stride's one
+    extra sample cropped, and the bias added in the same pass."""
+
+    def __init__(self, cin: int, cout: int, k: int, stride: int,
+                 dtype: torch.dtype = torch.bfloat16):
+        super().__init__(cin, cout, k, stride, dtype)
+        # flax's output o is the full output's o + p
+        self.p = k - 1 - layers.conv_transpose_pads(k, stride)[0]
+        if not 0 <= self.p <= k - stride:
+            raise ValueError(f"ConvTranspose1dNWC: flax's window at kernel {k}, stride {stride} "
+                             f"is not inside the full output")
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        n = x.shape[-1] * self.stride
+        w = self.weight.unsqueeze(2).to(self.dtype, memory_format=torch.channels_last)
+        b = self.bias.to(self.dtype)[:, None, None]
+        y = F.conv_transpose2d(_nhwc(x.to(self.dtype)), w, stride=(1, self.stride),
+                               padding=(0, self.p))
+        y = y.add_(b) if y.shape[-1] == n else y[..., :n] + b
+        return nwc(y.squeeze(2))
+
+
 class Snake(nn.Module):
-    """Snake returning ``out_dtype``, the dtype of the conv it feeds."""
+    """Snake returning ``out_dtype``, the dtype of the conv it feeds, in
+    the channels-last layout it reads."""
 
     def __init__(self, channels: int, floor: float, out_dtype: torch.dtype):
         super().__init__()
@@ -113,16 +270,16 @@ class Snake(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         with span("egr.dac.snake"):
-            return snake_op(x, self.alpha, self.floor, self.out_dtype)
+            return snake_op(nwc(x), self.alpha, self.floor, self.out_dtype)
 
 
 class ResidualUnit(nn.Module):
     def __init__(self, channels: int, dilation: int, cfg: DACConfig):
         super().__init__()
         self.Snake_0 = Snake(channels, cfg.alpha_floor, cfg.dtype)
-        self.Conv_0 = Conv1d(channels, channels, 7, dilation, cfg.dtype)
+        self.Conv_0 = Conv1dNWC(channels, channels, 7, dilation, cfg.dtype)
         self.Snake_1 = Snake(channels, cfg.alpha_floor, cfg.dtype)
-        self.Conv_1 = Conv1d(channels, channels, 1, 1, cfg.dtype)
+        self.Conv_1 = Conv1dNWC(channels, channels, 1, 1, cfg.dtype)
         self.res_scale = cfg.res_scale
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -136,7 +293,7 @@ class EncoderBlock(nn.Module):
         for i, d in enumerate((1, 3, 9)):
             self.add_module(f"ResidualUnit_{i}", ResidualUnit(cin, d, cfg))
         self.Snake_0 = Snake(cin, cfg.alpha_floor, cfg.dtype)
-        self.Conv_0 = Conv1d(cin, cout, 2 * stride, 1, cfg.dtype, stride=stride)
+        self.Conv_0 = Conv1dNWC(cin, cout, 2 * stride, 1, cfg.dtype, stride=stride)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         for i in range(3):
@@ -148,7 +305,7 @@ class DecoderBlock(nn.Module):
     def __init__(self, cin: int, cout: int, stride: int, cfg: DACConfig):
         super().__init__()
         self.Snake_0 = Snake(cin, cfg.alpha_floor, cfg.dtype)
-        self.ConvTranspose_0 = ConvTranspose1d(cin, cout, 2 * stride, stride, cfg.dtype)
+        self.ConvTranspose_0 = ConvTranspose1dNWC(cin, cout, 2 * stride, stride, cfg.dtype)
         for i, d in enumerate((1, 3, 9)):
             self.add_module(f"ResidualUnit_{i}", ResidualUnit(cout, d, cfg))
 
@@ -163,13 +320,13 @@ class DACEncoder(nn.Module):
     def __init__(self, cfg: DACConfig):
         super().__init__()
         c = cfg
-        self.Conv_0 = Conv1d(1, c.encoder_dim, 7, 1, c.dtype)
+        self.Conv_0 = Conv1dNWC(1, c.encoder_dim, 7, 1, c.dtype)
         ch = c.encoder_dim
         for i, s in enumerate(c.strides):
             self.add_module(f"EncoderBlock_{i}", EncoderBlock(ch, 2 * ch, s, c))
             ch *= 2
         self.Snake_0 = Snake(ch, c.alpha_floor, c.dtype)
-        self.Conv_1 = Conv1d(ch, c.latent_dim, 3, 1, c.dtype)
+        self.Conv_1 = Conv1dNWC(ch, c.latent_dim, 3, 1, c.dtype)
         self.n_blocks = len(c.strides)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -184,13 +341,13 @@ class DACDecoder(nn.Module):
     def __init__(self, cfg: DACConfig):
         super().__init__()
         c = cfg
-        self.Conv_0 = Conv1d(c.latent_dim, c.decoder_dim, 7, 1, c.dtype)
+        self.Conv_0 = Conv1dNWC(c.latent_dim, c.decoder_dim, 7, 1, c.dtype)
         ch = c.decoder_dim
         for i, s in enumerate(reversed(c.strides)):
             self.add_module(f"DecoderBlock_{i}", DecoderBlock(ch, ch // 2, s, c))
             ch //= 2
         self.Snake_0 = Snake(ch, c.alpha_floor, c.dtype)
-        self.Conv_1 = Conv1d(ch, 1, 7, 1, c.dtype)
+        self.Conv_1 = Conv1dNWC(ch, 1, 7, 1, c.dtype)
         self.n_blocks, self.output_tanh = len(c.strides), c.output_tanh
 
     def forward(self, z: torch.Tensor) -> torch.Tensor:

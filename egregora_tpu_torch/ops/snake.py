@@ -11,7 +11,11 @@ float32 passes held the largest share of the card's time.
 (one pass: the input read once, float32 in registers, the output written
 once in ``out_dtype``, the dtype of the conv it feeds) or raises on what
 the kernel does not take; a CPU tensor goes to the plain version,
-``snake_plain(...).to(out_dtype)``.  On the card with grad enabled and
+``snake_plain(...).to(out_dtype)``.  The kernel takes ``x`` contiguous
+(NCW) or channels-last (NWC: ``x.transpose(1, 2)`` contiguous, what the
+DAC's convs read and write), chosen from its strides, and returns the
+output in the same layout; the plain version keeps the input's layout
+as PyTorch's elementwise ops do.  On the card with grad enabled and
 ``x`` or ``alpha`` requiring it, the kernel runs inside an autograd
 Function whose backward recomputes the plain version (``snake_backward``),
 so the clamp's zero gradient below the floor is kept.
@@ -45,7 +49,7 @@ def _lib():
         lib.snake_forward.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
                                       ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                                       ctypes.c_int, ctypes.c_longlong, ctypes.c_float,
-                                      ctypes.c_void_p]
+                                      ctypes.c_int, ctypes.c_void_p]
         lib.snake_forward.restype = ctypes.c_int
         _LIB = lib
     return _LIB
@@ -59,32 +63,54 @@ def snake_plain(x: torch.Tensor, alpha: torch.Tensor, floor: float = 0.0) -> tor
     return x + torch.sin(a * x) ** 2 / (a + 1e-9)
 
 
-def snake_kernel(x: torch.Tensor, alpha: torch.Tensor, floor: float,
-                 out_dtype: torch.dtype) -> torch.Tensor:
-    """The kernel's one pass on the card: contiguous ``[B, C, T]`` bf16 or
-    float32 ``x``, float32 ``alpha [C]`` on the same card; a new tensor in
-    ``out_dtype`` (bf16 or float32)."""
+def kernel_layout(x: torch.Tensor) -> bool:
+    """Whether the kernel reads ``x [B, C, T]`` as NWC (channels-last: its
+    ``[B, T, C]`` transpose contiguous) rather than NCW (contiguous);
+    raises on any other layout."""
+    if x.is_contiguous():
+        return False
+    if x.transpose(1, 2).is_contiguous():
+        return True
+    raise ValueError(f"snake: the input must be contiguous or channels-last (its [B, T, C] "
+                     f"transpose contiguous), got strides {x.stride()}")
+
+
+def _launch(x: torch.Tensor, alpha: torch.Tensor, y: torch.Tensor, floor: float,
+            nwc: bool) -> None:
+    """One launch of the library on ``x``'s card into ``y``; raises off the
+    card."""
     if x.device.type != "cuda":
         raise ValueError(f"snake: the kernel runs on a CUDA tensor, not on {x.device}")
+    b, c, t = x.shape
+    with cuda_build.on_device(x.device):
+        err = _lib().snake_forward(x.data_ptr(), int(x.dtype == torch.bfloat16), alpha.data_ptr(),
+                                   y.data_ptr(), int(y.dtype == torch.bfloat16), b * c, c, t,
+                                   float(floor), int(nwc),
+                                   torch.cuda.current_stream(x.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"snake: launch failed with cudaError_t {err}")
+
+
+def snake_kernel(x: torch.Tensor, alpha: torch.Tensor, floor: float,
+                 out_dtype: torch.dtype) -> torch.Tensor:
+    """The kernel's one pass on the card: ``[B, C, T]`` bf16 or float32
+    ``x``, contiguous or channels-last (``kernel_layout``), float32 ``alpha
+    [C]`` on the same card; a new tensor in ``out_dtype`` (bf16 or float32)
+    with ``x``'s layout."""
     if x.dim() != 3 or x.dtype not in KERNEL_DTYPES or out_dtype not in KERNEL_DTYPES:
         raise ValueError(f"snake: expected bf16 or float32 [B, C, T] into bf16 or float32, "
                          f"got {x.dtype} {tuple(x.shape)} into {out_dtype}")
-    if not x.is_contiguous():
-        raise ValueError("snake: the input must be contiguous")
+    nwc = kernel_layout(x)
     b, c, t = x.shape
     if (alpha.device != x.device or alpha.dtype != torch.float32 or alpha.shape != (c,)
             or not alpha.is_contiguous()):
         raise ValueError(f"snake: alpha must be contiguous float32 [{c}] on {x.device}, got "
                          f"{alpha.dtype} {tuple(alpha.shape)} on {alpha.device}")
-    y = torch.empty(x.shape, dtype=out_dtype, device=x.device)
+    y = (torch.empty((b, t, c), dtype=out_dtype, device=x.device).transpose(1, 2) if nwc
+         else torch.empty(x.shape, dtype=out_dtype, device=x.device))
     if not y.numel():
         return y
-    with cuda_build.on_device(x.device):
-        err = _lib().snake_forward(x.data_ptr(), int(x.dtype == torch.bfloat16), alpha.data_ptr(),
-                                   y.data_ptr(), int(out_dtype == torch.bfloat16), b * c, c, t,
-                                   float(floor), torch.cuda.current_stream(x.device).cuda_stream)
-    if err:
-        raise RuntimeError(f"snake: launch failed with cudaError_t {err}")
+    _launch(x, alpha, y, floor, nwc)
     global launches
     launches += 1
     count("snake_launches")

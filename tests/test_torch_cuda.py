@@ -462,14 +462,38 @@ def test_snake_counts_a_launch_in_every_snake_span(card):
     assert len(recs) == 58 and all(r.counts == {"snake_launches": 1} for r in recs)
 
 
+@pytest.mark.parametrize("c,t", [(96, 200 * 512), (96, 17 * 512 + 3), (1536, 200), (1536, 17),
+                                 (6, 1001)])
+def test_snake_nwc_equals_plain_bit_for_bit(card, c, t):
+    """A channels-last input (the DAC's layout) at the 44 kHz decoder's last
+    stage (96 channels) and first (1536), stereo, a row count off the
+    tile, and 6 channels (not a multiple of the 16-byte vector: one
+    channel a group): equal bit for bit to the plain version rounded to
+    bf16 and to the NCW kernel on the same values, in the input's layout;
+    one launch a call."""
+    from egregora_tpu_torch.ops import snake as sn
+    x, alpha = _snake_operands(card, 2, c, t, torch.bfloat16, c + t)
+    xn = x.transpose(1, 2).contiguous().transpose(1, 2)
+    assert sn.kernel_layout(xn) and not sn.kernel_layout(x)
+    for floor in (0.0, 0.05):
+        before = sn.launches
+        got = sn.snake(xn, alpha, floor, torch.bfloat16)
+        torch.cuda.synchronize()
+        assert sn.launches == before + 1 and got.stride() == xn.stride()
+        assert torch.equal(got, sn.snake_plain(x, alpha, floor).bfloat16())
+        assert torch.equal(got, sn.snake(x, alpha, floor, torch.bfloat16))
+
+
 def test_snake_rejects_what_it_does_not_take(card):
     from egregora_tpu_torch.ops import snake as sn
     x, alpha = _snake_operands(card, 2, 4, 100, torch.bfloat16, 0)
     with pytest.raises(ValueError):
         sn.snake(x.half(), alpha, 0.0, torch.bfloat16)                # float16
     with pytest.raises(ValueError):
-        sn.snake(x.transpose(1, 2).contiguous().transpose(1, 2), alpha, 0.0,
-                 torch.bfloat16)                                      # not contiguous
+        sn.snake(x[..., ::2], alpha, 0.0, torch.bfloat16)             # strided
+    with pytest.raises(ValueError):
+        sn.snake(x.permute(2, 0, 1).contiguous().permute(1, 2, 0), alpha, 0.0,
+                 torch.bfloat16)                                      # [T, B, C] memory
     with pytest.raises(ValueError):
         sn.snake(x, alpha.double(), 0.0, torch.bfloat16)              # alpha not float32
     with pytest.raises(ValueError):
@@ -743,6 +767,41 @@ def test_dac_card_matches_cpu(card, mt):
     assert zq_c.device.type == "cuda" and zq_c.shape == zq.shape and codes_c.shape == codes.shape
     assert chip_smoke.dac_rel(gpu.decode(zq), cpu.decode(zq)) <= chip_smoke.DAC_DECODE_REL
     assert abs(dtr.roundtrip_snr_db(gpu, x) - dtr.roundtrip_snr_db(cpu, x)) <= chip_smoke.DAC_SNR_DB
+
+
+def test_dac_channels_last_on_the_card_matches_cpu_float32(card):
+    """The shipped 44 kHz codec in bf16 on the card, every activation
+    channels-last (a forward hook on each conv and Snake) and no layout
+    copy counted, against the same weights in float32 on the CPU: decode
+    of the CPU's latents within ``chip_smoke.DAC_DECODE_REL``."""
+    import dataclasses
+
+    from egregora_tpu_torch.models.dac import model as M
+    from egregora_tpu_torch.models.dac import train as dtr
+    from egregora_tpu_torch.utils import profiling
+    cfg, tree = dtr.load_pretrained("44khz")
+    cpu = M.DACModel(dataclasses.replace(cfg, dtype=torch.float32)).load_jax(tree)
+    gpu = M.DACModel(cfg).load_jax(tree).to(card)
+    x = torch.from_numpy(chip_smoke.speech_signal(2.0, cfg.sample_rate, 2, seed=6))
+    zq, _ = cpu.encode(x)
+    seen = []
+    hooks = [m.register_forward_hook(
+        lambda mod, args, out: seen.append(args[0].transpose(1, 2).is_contiguous()
+                                           and out.transpose(1, 2).is_contiguous()))
+             for m in gpu.modules() if isinstance(m, (M.Conv1dNWC, M.ConvTranspose1dNWC, M.Snake))]
+    try:
+        with profiling.recording():
+            before = profiling.counters().get("dac_layout_copies", 0)
+            gpu.encode(x)
+            y = gpu.decode(zq)
+            torch.cuda.synchronize()
+            copies = profiling.counters().get("dac_layout_copies", 0) - before
+    finally:
+        for h in hooks:
+            h.remove()
+    n = len(cfg.strides)
+    assert len(seen) == 2 * ((7 * n + 1) + (7 * n + 2)) and all(seen) and copies == 0
+    assert y.device.type == "cuda" and chip_smoke.dac_rel(y, cpu.decode(zq)) <= chip_smoke.DAC_DECODE_REL
 
 
 def test_dfn_and_dac_nodes_run_on_the_card(card, monkeypatch):

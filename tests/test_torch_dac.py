@@ -341,3 +341,136 @@ def test_nodes_match_jax(fresh_caches, mt, sr):
     assert t_node.Egregora_DAC_Encode._MODELS[mt][0].weight_source == "shipped"
     with pytest.raises(ValueError):
         t_node.Egregora_DAC_Decode().execute({"model_type": mt, "latents": []})
+
+
+# ---------------------------------------------------------------- layout
+
+SMALL = dict(encoder_dim=8, decoder_dim=32, n_codebooks=2, codebook_size=16, codebook_dim=4)
+
+
+def _small_codec(mt):
+    """A float32 codec at a small width with the rate's strides (the 16 and
+    24 kHz codecs' stride-5 convs pad (2, 3)) and seeded weights."""
+    cfg = dataclasses.replace(T.MODEL_TYPES[mt], dtype=torch.float32, **SMALL)
+    return T.DACModel(cfg).load_jax(seeded_tree(cfg, seed=12))
+
+
+def _clip(model, frames=6, seed=13):
+    sr = model.cfg.sample_rate
+    return torch.from_numpy(signal(sr, frames * model.cfg.hop / sr, 2, seed))
+
+
+def _is_nwc(t):
+    return t.transpose(1, 2).is_contiguous()
+
+
+@pytest.mark.parametrize("mt", RATES)
+def test_channels_last_matches_ncw(monkeypatch, mt):
+    """The encoder and the decoder channels-last against the same modules
+    run in NCW by the shared layers' ``forward`` (what the DAC ran before
+    its own convs): float32 within ``F32``."""
+    model, x = _small_codec(mt), None
+    x = _clip(model)[:, None]
+    with torch.no_grad():
+        z = model.encoder(x)
+        y = model.decoder(z)
+        monkeypatch.setattr(T.Conv1dNWC, "forward", layers.Conv1d.forward)
+        monkeypatch.setattr(T.ConvTranspose1dNWC, "forward", layers.ConvTranspose1d.forward)
+        monkeypatch.setattr(T, "nwc", lambda t: t.contiguous())
+        z0 = model.encoder(x)
+        y0 = model.decoder(z0)
+    assert _is_nwc(z) and z0.is_contiguous() and not z0.transpose(1, 2).is_contiguous()
+    assert z.shape == z0.shape and rel(z.numpy(), z0.numpy()) <= F32
+    assert y.shape == y0.shape and rel(y.numpy(), y0.numpy()) <= F32
+
+
+@pytest.mark.parametrize("mt", RATES)
+def test_every_activation_is_channels_last(mt):
+    """A forward hook on each of the DAC's convs and Snakes sees every input
+    and output channels-last; ``encode`` hands the quantizer a contiguous
+    ``[C, T, D]`` and ``decode`` returns a contiguous ``[C, T]``."""
+    model = _small_codec(mt)
+    seen = []
+
+    def hook(mod, args, out):
+        seen.append((type(mod).__name__, _is_nwc(args[0]), _is_nwc(out)))
+
+    hooks = [m.register_forward_hook(hook) for m in model.modules()
+             if isinstance(m, (T.Conv1dNWC, T.ConvTranspose1dNWC, T.Snake))]
+    x = _clip(model)
+    z = model.encoder(model.preprocess(x)[:, None]).transpose(1, 2)
+    zq, _ = model.encode(x)
+    y = model.decode(zq)
+    for h in hooks:
+        h.remove()
+    n = len(model.cfg.strides)
+    per_side = (7 * n + 1) + (7 * n + 2)              # Snakes and convs of encoder or decoder
+    assert len(seen) == 3 * per_side                  # the encoder twice, the decoder once
+    assert all(a and b for _, a, b in seen), [s for s in seen if not all(s[1:])]
+    assert z.is_contiguous() and zq.is_contiguous() and y.is_contiguous()
+
+
+@pytest.mark.parametrize("mt", RATES)
+def test_a_call_makes_no_layout_copy(mt):
+    """``dac_layout_copies`` reads 0 over an ``encode`` + ``decode`` in
+    ``profiling.recording()``; an NCW activation handed to a DAC conv or
+    Snake is copied to channels-last, counted once, with the same
+    numbers."""
+    from egregora_tpu_torch.utils import profiling
+    model = _small_codec(mt)
+    x = _clip(model)
+
+    def copies():
+        return profiling.counters().get("dac_layout_copies", 0)
+
+    with torch.no_grad(), profiling.recording():
+        before = copies()
+        model.decode(model.encode(x)[0])
+        assert copies() == before
+        conv, snake = model.decoder.Conv_0, model.decoder.DecoderBlock_0.Snake_0
+        h = torch.randn(2, conv.weight.shape[1], 5, generator=torch.Generator().manual_seed(14))
+        for mod in (conv, snake):
+            before = copies()
+            got = mod(h)
+            assert copies() == before + 1 and _is_nwc(got)
+            assert torch.equal(got, mod(h.transpose(1, 2).contiguous().transpose(1, 2)))
+            assert copies() == before + 1
+            h = got.contiguous()
+
+
+def test_dac_convs_match_flax():
+    """The DAC's own conv modules against flax on channels-last input:
+    'SAME' at kernel 2s and stride s (pads (2, 3) at s = 5), a dilated
+    7-tap conv, and ``ConvTranspose`` at kernel 2s, stride s (flax's
+    window cut by the call's padding; at odd s the last sample cropped)."""
+    import flax.linen as nn
+    rng = np.random.default_rng(15)
+
+    def load(mod, v, flip=False):
+        k = np.asarray(v["params"]["kernel"])
+        w = np.flip(k, 0).transpose(1, 2, 0) if flip else k.transpose(2, 1, 0)
+        with torch.no_grad():
+            mod.weight.copy_(torch.from_numpy(np.ascontiguousarray(w)))
+            mod.bias.copy_(torch.from_numpy(np.asarray(v["params"]["bias"])))
+        return mod
+
+    for s, t in ((5, 40), (2, 16), (8, 64), (4, 28)):
+        x = rng.standard_normal((2, t, 6)).astype(np.float32)
+        xt = torch.from_numpy(x).transpose(1, 2)            # channels-last [B, C, T]
+        for flax_mod, mod, flip in (
+                (nn.Conv(4, (2 * s,), strides=(s,)), T.Conv1dNWC(6, 4, 2 * s, 1, torch.float32,
+                                                                  stride=s), False),
+                (nn.Conv(4, (7,), kernel_dilation=(3,)), T.Conv1dNWC(6, 4, 7, 3, torch.float32),
+                 False),
+                (nn.ConvTranspose(4, (2 * s,), strides=(s,)),
+                 T.ConvTranspose1dNWC(6, 4, 2 * s, s, torch.float32), True)):
+            v = flax_mod.init(jax.random.PRNGKey(s), jnp.asarray(x))
+            v = jax.tree_util.tree_map(lambda a: a + 0.1, v)      # nonzero biases
+            ref = np.asarray(flax_mod.apply(v, jnp.asarray(x)))
+            with torch.no_grad():
+                got = load(mod, v, flip)(xt)
+            assert _is_nwc(got), type(mod).__name__
+            got = got.transpose(1, 2).numpy()
+            assert got.shape == ref.shape and np.abs(got - ref).max() <= 1e-5, (s, type(mod))
+    with pytest.raises(ValueError, match="not inside the full output"):
+        T.ConvTranspose1dNWC(6, 4, 3, 8, torch.float32)      # a window the padding cannot cut

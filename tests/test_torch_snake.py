@@ -104,10 +104,55 @@ def test_a_cpu_tensor_never_reaches_the_kernel():
     assert S.launches == before and m.alpha.grad is not None
 
 
+def _nwc(x):
+    """``x`` laid out channels-last: the memory of ``[B, T, C]``."""
+    return x.transpose(1, 2).contiguous().transpose(1, 2)
+
+
 def test_the_kernel_path_refuses_what_it_does_not_take():
-    """Off the CPU, a tensor goes to the kernel or raises: no fallback."""
+    """Off the CPU, a tensor goes to the kernel or raises: no fallback.  A
+    contiguous and a channels-last input pass to the launch (which refuses
+    a CPU tensor); every other layout is refused before it: a strided
+    slice, the memory of ``[T, B, C]`` and of ``[C, B, T]``."""
     x, alpha = _operands()
     with pytest.raises(ValueError, match="CUDA tensor"):
         S.snake(x.to("meta"), alpha.to("meta"), 0.0, torch.bfloat16)
-    with pytest.raises(ValueError, match="CUDA tensor"):
-        S.snake_kernel(x, alpha, 0.0, torch.bfloat16)
+    for taken in (x, _nwc(x)):
+        with pytest.raises(ValueError, match="CUDA tensor"):
+            S.snake_kernel(taken, alpha, 0.0, torch.bfloat16)
+    for other in (x[..., ::2], x.permute(2, 0, 1).contiguous().permute(1, 2, 0),
+                  x.transpose(0, 1).contiguous().transpose(0, 1)):
+        with pytest.raises(ValueError, match="contiguous or channels-last"):
+            S.snake_kernel(other, alpha, 0.0, torch.bfloat16)
+
+
+@pytest.mark.parametrize("layout,shape", [("ncw", (2, 6, 37)), ("nwc", (2, 6, 37)),
+                                          ("nwc", (1, 6, 1)), ("ncw", (2, 1, 37))])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_the_kernel_reads_the_layout_of_its_input(monkeypatch, layout, shape, dtype):
+    """With the library's launch replaced by the plain version (the kernel
+    runs only on a card): a channels-last input goes to the NWC variant, a
+    contiguous one (one channel or one sample is both) to the NCW one; the
+    output has the input's strides and the plain version's values, through
+    the autograd Function too."""
+    launched = []
+
+    def launch(x, alpha, y, floor, nwc):
+        launched.append(nwc)
+        y.copy_(S.snake_plain(x, alpha, floor))
+
+    monkeypatch.setattr(S, "_launch", launch)
+    b, c, t = shape
+    x, alpha = _operands(c=c, t=t, seed=6)
+    x = x[:b].to(dtype)
+    if layout == "nwc":
+        x = _nwc(x)
+    nwc = layout == "nwc" and not x.is_contiguous()
+    before = S.launches
+    for floor in (0.0, 0.05):
+        y = S.snake_kernel(x, alpha, floor, torch.bfloat16)
+        assert y.stride() == x.stride() and y.dtype == torch.bfloat16
+        assert torch.equal(y, S.snake_plain(x, alpha, floor).bfloat16())
+    y = S._SnakeFunction.apply(x.clone().requires_grad_(), alpha, 0.05, dtype)
+    assert y.stride() == x.stride() and torch.equal(y, S.snake_plain(x, alpha, 0.05).to(dtype))
+    assert launched == [nwc] * 3 and S.launches == before + 3
